@@ -1,0 +1,73 @@
+"""The port's CUDA kernels on the card (marker `gpu`; they skip without a
+CUDA device). This file imports neither jax nor the JAX package, so it also
+runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+
+import pytest
+import torch
+
+from vfm_vae_tpu_torch.ops import kernels
+
+TAPS5 = [1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _cases(dev, H=8, W=8, T=64):
+    """One call per kernel; H, W, T off the flagship grid exercise the
+    kernels' ragged-edge masking (token tiles, column bands, key tiles)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*s, dt=bf, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dt)
+
+    C, Ci, Co = 128, 256, 128
+    return [
+        (kernels.fused_convnext_mlp, dict(
+            x=rn(2, H, W, C), x_in=rn(2, H, W, C), A=rn(2, C, dt=f32).abs() + 0.5,
+            d=rn(2, 4 * C, dt=f32).abs() + 0.5, w1=rn(4 * C, C, scale=C ** -0.5),
+            b1=rn(2, 4 * C, dt=f32), w2=rn(C, 4 * C, scale=(4 * C) ** -0.5),
+            b2=rn(C, dt=f32), gamma=rn(C, dt=f32))),
+        (kernels.fused_upsample_blur, dict(
+            x=rn(2, H, W, Ci), a=rn(2, Ci, dt=f32).abs() + 0.5, c=rn(2, Ci, dt=f32),
+            dw=rn(Ci, 3, 3, dt=f32, scale=1 / 3), pw=rn(4 * Co, Ci, scale=Ci ** -0.5),
+            taps=TAPS5)),
+        (kernels.flash_attention_nullkv, dict(
+            q=rn(2, T, 8, 64), k=rn(2, T, 8, 64), v=rn(2, T, 8, 64),
+            null_k=rn(2, 1, 8, 64), null_v=rn(2, 1, 8, 64))),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,T", [(8, 8, 64), (5, 70, 100), (1, 3, 1)])
+def test_kernels_match_twins_on_gpu(cuda, H, W, T):
+    for fn, args in _cases(cuda, H, W, T):
+        before = fn.launches
+        got, ref = fn(**args), fn(**args, plain=True)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, fn.__name__
+        scale = float(ref.float().abs().max())
+        # Same bf16 rounding points summed in another order: a few output ulps.
+        assert float((got.float() - ref.float()).abs().max()) <= 4 * 2.0 ** -8 * scale, fn.__name__
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    """On a CUDA tensor a wrapper launches its kernel or raises: fp32
+    activations and non-contiguous inputs are refused, never sent to the twin."""
+    for fn, args in _cases(cuda):
+        before = fn.launches
+        first = next(iter(args))
+        with pytest.raises(ValueError):
+            fn(**dict(args, **{first: args[first].float()}))
+        with pytest.raises(ValueError):
+            fn(**dict(args, **{first: args[first].transpose(1, 2).contiguous().transpose(1, 2)}))
+        assert fn.launches == before, fn.__name__

@@ -1,0 +1,168 @@
+"""The port's kernel wrappers (vfm_vae_tpu_torch.ops.kernels).
+
+On the CPU each wrapper runs its plain twin; the twins are held against the
+JAX package's twins as its own tests run them on the CPU (fused_mlp and
+fused_upsample with interpret=True, which selects `_forward_jnp`; the null-KV
+attention's concat path), in fp32 and in bf16. The CUDA kernels themselves
+run only on the card: tests/test_torch_gpu.py (marker `gpu`) and
+chip_smoke.py.
+"""
+
+import re
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from vfm_vae_tpu.ops.attention import dot_product_attention_nullkv as j_nullkv
+from vfm_vae_tpu.ops.pallas.fused_mlp import fused_convnext_mlp as j_mlp
+from vfm_vae_tpu.ops.pallas.fused_upsample import fused_upsample_blur as j_upsample
+from vfm_vae_tpu_torch.ops import kernels
+from vfm_vae_tpu_torch.ops.kernels import _build
+
+TAPS = {3: [0.25, 0.5, 0.25], 5: [1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16]}
+
+
+def ulp_tol(ref: np.ndarray, ulps: float = 1.0) -> float:
+    """`ulps` bf16 ulps (2^-8 relative) of the output scale max|ref|."""
+    return ulps * 2.0 ** -8 * float(np.abs(ref).max())
+
+
+def mlp_inputs(B=2, H=4, W=3, C=16, seed=0):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: (r.standard_normal(s) * scale).astype(np.float32)  # noqa: E731
+    return dict(
+        x=f(B, H, W, C), x_in=f(B, H, W, C), A=r.uniform(0.5, 1.5, (B, C)).astype(np.float32),
+        d=r.uniform(0.5, 1.5, (B, 4 * C)).astype(np.float32),
+        w1=f(C, 4 * C, scale=C ** -0.5), b1=f(B, 4 * C, scale=0.5),
+        w2=f(4 * C, C, scale=(4 * C) ** -0.5), b2=f(C, scale=0.1), gamma=f(C),
+    )
+
+
+def upsample_inputs(B=2, H=4, W=5, Ci=16, Co=8, seed=1):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: (r.standard_normal(s) * scale).astype(np.float32)  # noqa: E731
+    return dict(x=f(B, H, W, Ci), a=r.uniform(0.5, 1.5, (B, Ci)).astype(np.float32),
+                c=f(B, Ci, scale=0.5), dw=f(3, 3, Ci, scale=1 / 3), pw=f(Ci, 4 * Co, scale=Ci ** -0.5))
+
+
+def attention_inputs(B=2, T=10, N=2, D=16, seed=2):
+    r = np.random.default_rng(seed)
+    f = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
+    return dict(q=f(B, T, N, D), k=f(B, T, N, D), v=f(B, T, N, D), null_k=f(B, 1, N, D),
+                null_v=f(B, 1, N, D))
+
+
+def port_mlp_args(i, dt):
+    """JAX layout -> port layout: w1 (C, 4C) -> (4C, C), w2 (4C, C) -> (C, 4C)."""
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in i.items()}
+    t["w1"], t["w2"] = t["w1"].t().contiguous(), t["w2"].t().contiguous()
+    t["x"], t["x_in"] = t["x"].to(dt), t["x_in"].to(dt)
+    return t
+
+
+def port_upsample_args(i, dt):
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in i.items()}
+    t["dw"] = t["dw"].permute(2, 0, 1).contiguous()
+    t["pw"] = t["pw"].t().contiguous()
+    t["x"] = t["x"].to(dt)
+    return t
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_fused_convnext_mlp_twin_matches_jax(dtype):
+    i = mlp_inputs()
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    ref = j_mlp(jnp.asarray(i["x"], jdt), jnp.asarray(i["x_in"], jdt), jnp.asarray(i["A"]),
+                jnp.asarray(i["d"]), jnp.asarray(i["w1"]), jnp.asarray(i["b1"]),
+                jnp.asarray(i["w2"]), jnp.asarray(i["b2"]), jnp.asarray(i["gamma"]),
+                interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = kernels.fused_convnext_mlp_reference(**port_mlp_args(i, tdt))
+    assert got.dtype == tdt
+    if dtype == "fp32":
+        # Same fp32 algorithm; summation order differs.
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        # bf16 roundings of x*A, the GELU output and the output: one output ulp.
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=ulp_tol(ref))
+
+
+@pytest.mark.parametrize("dtype,kb", [("fp32", 3), ("fp32", 5), ("bf16", 3), ("bf16", 5)])
+def test_fused_upsample_blur_twin_matches_jax(dtype, kb, monkeypatch):
+    # XLA's CPU backend has no bf16 x bf16 -> f32 dot, which the Toeplitz
+    # form of the JAX vertical leg (_vblur) uses; the JAX package's own
+    # switch selects its edge-pad + depthwise-conv form of the same blur.
+    monkeypatch.setenv("VFM_VAE_NO_VBLUR_MM", "1")
+    i = upsample_inputs()
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    ref = j_upsample(jnp.asarray(i["x"], jdt), jnp.asarray(i["a"]), jnp.asarray(i["c"]),
+                     jnp.asarray(i["dw"]), jnp.asarray(i["pw"]), TAPS[kb], interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = kernels.fused_upsample_blur_reference(**port_upsample_args(i, tdt), taps=TAPS[kb])
+    assert got.shape == (2, 8, 10, 8) and got.dtype == tdt
+    if dtype == "fp32":
+        # Same fp32 algorithm; summation order differs.
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        # bf16 roundings of the affine, depthwise, pointwise, both blur legs: one output ulp.
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=ulp_tol(ref))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_attention_nullkv_twin_matches_jax(dtype):
+    i = attention_inputs()
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    ref = j_nullkv(*(jnp.asarray(i[k], jdt) for k in ("q", "k", "v", "null_k", "null_v")))
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = kernels.flash_attention_nullkv_reference(
+        *(torch.from_numpy(i[k]).to(tdt) for k in ("q", "k", "v", "null_k", "null_v")))
+    if dtype == "fp32":
+        # fp32 logits and softmax; summation order differs.
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        # probabilities and output rounded to bf16: one output ulp.
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=ulp_tol(ref))
+
+
+def _cpu_calls(dt=torch.bfloat16):
+    m = port_mlp_args(mlp_inputs(), dt)
+    u = port_upsample_args(upsample_inputs(), dt)
+    a = {k: torch.from_numpy(v).to(dt) for k, v in attention_inputs().items()}
+    return [
+        (kernels.fused_convnext_mlp, kernels.fused_convnext_mlp_reference, m, {}),
+        (kernels.fused_upsample_blur, kernels.fused_upsample_blur_reference, u,
+         {"taps": TAPS[3]}),
+        (kernels.flash_attention_nullkv, kernels.flash_attention_nullkv_reference, a, {}),
+    ]
+
+
+def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
+    kernels.reset_launch_counts()
+    for wrapper, twin, args, extra in _cpu_calls():
+        torch.testing.assert_close(wrapper(**args, **extra), twin(**args, **extra), rtol=0, atol=0)
+    assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.WRAPPERS}
+
+
+def test_wrappers_raise_off_cpu_without_a_kernel():
+    """A tensor that is neither on the CPU nor on a CUDA device takes the
+    kernel path, which refuses it: no silent fallback to the twin."""
+    kernels.reset_launch_counts()
+    for wrapper, _, args, extra in _cpu_calls():
+        meta = {k: v.to("meta") for k, v in args.items()}
+        with pytest.raises(ValueError):
+            wrapper(**meta, **extra)
+    assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.WRAPPERS}
+
+
+def test_c_interface_matches_ctypes_signatures():
+    """Each extern "C" entry point exists and takes as many arguments as its
+    ctypes argtypes declare (a mismatch would corrupt arguments on the card)."""
+    src = "".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
+    for name, argtypes in _build._SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
+    assert 'extern "C" const char* vfm_error_string(int' in src

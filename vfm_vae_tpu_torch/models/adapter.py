@@ -1,0 +1,179 @@
+"""LDM adapter, continuous + attnproj (port of vfm_vae_tpu/models/adapter.py:
+PlainAttention, GeGluMlp, AttnProjectionBlock, AttnProjection, LDMAdapter
+encode/decode). The VQ path is not ported. Parameter keys follow the
+reference (ldm_utils.py): patch_quants.N.0.blocks.M.*, final_quant.*,
+post_quant.*, linear_proj.weight."""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import dot_product_attention
+from ..ops.pixelshuffle import pixel_unshuffle
+from ..ops.resize import _adaptive_matrix
+from .distributions import DiagonalGaussianDistribution
+from .layers import TRUNC02, Conv2d, LayerNormFp32, Linear, Module, holder, param
+
+
+def tokens_to_map(x: torch.Tensor) -> torch.Tensor:
+    B, N, D = x.shape
+    s = math.isqrt(N)
+    if s * s != N:
+        raise ValueError(f"tokens_to_map: {N} tokens are not a square grid")
+    return x.reshape(B, s, s, D)
+
+
+def map_to_tokens(x: torch.Tensor) -> torch.Tensor:
+    B, H, W, D = x.shape
+    return x.reshape(B, H * W, D)
+
+
+class PlainAttention(Module):
+    """Dimension-changing attention (ldm_utils.py:55-93): qkv biases
+    (q_bias, 0, v_bias); for in_dim > out_dim the output is the head mean,
+    adaptively pooled to out_dim when the head width differs."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int, device=None):
+        super().__init__()
+        self.in_dim, self.out_dim, self.num_heads = in_dim, out_dim, num_heads
+        self.wide = max(in_dim, out_dim)
+        self.qkv = Linear(in_dim, 3 * self.wide, bias=False, weight_init=TRUNC02, device=device)
+        self.q_bias = param(self.wide, device=device)
+        self.v_bias = param(self.wide, device=device)
+        self.proj = Linear(out_dim, out_dim, weight_init=TRUNC02, bias_init="zeros", device=device)
+
+    def reset_parameters(self, g):
+        self.q_bias.zero_()
+        self.v_bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, _ = x.shape
+        wide, heads = self.wide, self.num_heads
+        hd = wide // heads
+        w = self.qkv.weight.to(x.dtype)
+        q = x @ w[:wide].t() + self.q_bias.to(x.dtype)
+        k = x @ w[wide:2 * wide].t()
+        v = x @ w[2 * wide:].t() + self.v_bias.to(x.dtype)
+        out = dot_product_attention(q.reshape(B, N, heads, hd), k.reshape(B, N, heads, hd),
+                                    v.reshape(B, N, heads, hd))
+        if self.in_dim > self.out_dim:
+            out = out.mean(dim=2)
+            if hd != self.out_dim:
+                m = torch.from_numpy(_adaptive_matrix(hd, self.out_dim)).to(out)
+                out = out @ m.t()
+        else:
+            out = out.reshape(B, N, wide)
+        return self.proj(out)
+
+
+class GeGluMlp(Module):
+    """LN -> gelu_tanh(w0 x) * w1 x -> w2 (ldm_utils.py:96-114)."""
+
+    def __init__(self, in_features: int, hidden_features: int, device=None):
+        super().__init__()
+        self.norm = LayerNormFp32(in_features, eps=1e-6, device=device)
+        self.w0 = Linear(in_features, hidden_features, weight_init=TRUNC02, bias_init="zeros",
+                         device=device)
+        self.w1 = Linear(in_features, hidden_features, weight_init=TRUNC02, bias_init="zeros",
+                         device=device)
+        self.w2 = Linear(hidden_features, in_features, weight_init=TRUNC02, bias_init="zeros",
+                         device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(x)
+        return self.w2(F.gelu(self.w0(x), approximate="tanh") * self.w1(x))
+
+
+class AttnProjectionBlock(Module):
+    """x = proj(norm3(x)) + attn(norm1(x)); x = x + mlp(norm2(x)) (ldm_utils.py:117-138)."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int, mlp_ratio: int = 2, device=None):
+        super().__init__()
+        self.norm1 = LayerNormFp32(in_dim, device=device)
+        self.norm2 = LayerNormFp32(out_dim, device=device)
+        self.norm3 = LayerNormFp32(in_dim, device=device)
+        self.attn = PlainAttention(in_dim, out_dim, num_heads, device=device)
+        self.proj = Linear(in_dim, out_dim, weight_init=TRUNC02, bias_init="zeros", device=device)
+        self.mlp = GeGluMlp(out_dim, int(out_dim * mlp_ratio), device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.proj(self.norm3(x)) + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class AttnProjection(Module):
+    """Quant stacks change width in their last block, post-quant stacks in
+    their first (ldm_utils.py:140-166)."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int, num_layers: int,
+                 is_quant: bool, mlp_ratio: int = 2, device=None):
+        super().__init__()
+        blocks = []
+        for i in range(num_layers):
+            if is_quant:
+                din, dout = in_dim, (in_dim if i < num_layers - 1 else out_dim)
+            else:
+                din, dout = (in_dim if i == 0 else out_dim), out_dim
+            blocks.append(AttnProjectionBlock(din, dout, num_heads, mlp_ratio, device=device))
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+
+class LDMAdapter(Module):
+    """Compress multi-level VFM features into z and decompress (ldm_utils.py:199-488)."""
+
+    def __init__(self, patch_from_layers: Sequence[int], patch_resolutions: Sequence[int],
+                 patch_in_dimensions: Sequence[int], patch_out_dimensions: Sequence[int],
+                 decompress_factor: int, attnproj_quant_layers: int = 1,
+                 attnproj_post_quant_layers: int = 1, z_resolution: int = 16,
+                 z_dimension: int = 32, use_vf_loss: bool = False, device=None):
+        super().__init__()
+        self.patch_resolutions = list(patch_resolutions)
+        self.z_resolution = z_resolution
+        final_in = sum(dout * (res // z_resolution) ** 2 if res > z_resolution else dout
+                       for res, dout in zip(patch_resolutions, patch_out_dimensions))
+        final_out = 2 * z_dimension
+        self.patch_quants = nn.ModuleList(
+            holder(**{"0": AttnProjection(din, dout, max(1, din // dout), attnproj_quant_layers,
+                                          True, device=device)})
+            for din, dout in zip(patch_in_dimensions, patch_out_dimensions))
+        self.final_quant = AttnProjection(final_in, final_out, max(1, final_in // final_out),
+                                          attnproj_quant_layers, True, device=device)
+        out_ch = z_dimension * decompress_factor
+        self.post_quant = AttnProjection(z_dimension, out_ch, max(1, out_ch // z_dimension),
+                                         attnproj_post_quant_layers, False, device=device)
+        if use_vf_loss:
+            vf_dim = patch_in_dimensions[list(patch_from_layers).index(-1)]
+            self.linear_proj = Conv2d(z_dimension, vf_dim, 1, bias=False,
+                                      weight_init=("xavier_normal", 0.5), device=device)
+
+    def encode(self, patch_features: List[torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               return_z_before_quantize: bool = False) -> torch.Tensor:
+        """Features -> z (B, zr, zr, z_dim): the posterior mode, or a sample
+        drawn with `generator`; or the (mean || logvar) moments."""
+        mids = []
+        for x, pq, res in zip(patch_features, self.patch_quants, self.patch_resolutions):
+            x = getattr(pq, "0")(x)
+            if res > self.z_resolution:
+                x = map_to_tokens(pixel_unshuffle(tokens_to_map(x), res // self.z_resolution))
+            mids.append(x)
+        moments = tokens_to_map(self.final_quant(torch.cat(mids, dim=-1)))
+        if return_z_before_quantize:
+            return moments
+        dist = DiagonalGaussianDistribution(moments)
+        return dist.mode() if generator is None else dist.sample(generator)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, z_dim) -> (B, H, W, z_dim * decompress_factor)."""
+        B, H, W, _ = z.shape
+        return self.post_quant(map_to_tokens(z)).reshape(B, H, W, -1)

@@ -1,0 +1,247 @@
+"""Weights across the two packages.
+
+`state_dict_from_jax` turns the JAX Generator's (params, buffers) pytrees
+into a flat reference-layout torch state_dict of numpy arrays: the inverse
+of vfm_vae_tpu/models/convert.py:convert_generator for the slice's modules
+(SigLIP vision tower, continuous attnproj adapter, mapping, ConvNeXt
+synthesis). Numpy only. Layout rules, inverted from that file:
+
+  ours (in, out)              -> torch Linear (out, in)       : W.T
+  ours HWIO (kh, kw, I, O)    -> torch Conv2d (O, I, kh, kw)  : transpose(3, 2, 0, 1)
+  ours (in, out) 1x1 conv     -> torch (out, in, 1, 1)
+  norms, biases, embeddings   -> unchanged
+
+`load_state_dict_numpy` puts such a dict on a port Generator; arrays whose
+element count matches a parameter are reshaped to it, so reference
+checkpoints that store vectors as (1, C, 1, 1) load as well.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+SD = Dict[str, np.ndarray]
+
+
+def _t(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _conv(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))
+
+
+def _pw(w) -> np.ndarray:
+    """(in, out) pointwise kernel -> torch (out, in, 1, 1)."""
+    return _t(w)[:, :, None, None]
+
+
+def _arr(w) -> np.ndarray:
+    return np.array(w, copy=True)
+
+
+def _linear(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    sd[prefix + "weight"] = _t(p["weight"])
+    if "bias" in p:
+        sd[prefix + "bias"] = _arr(p["bias"])
+
+
+def _norm(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    sd[prefix + "weight"] = _arr(p["weight"])
+    sd[prefix + "bias"] = _arr(p["bias"])
+
+
+def _siglip_vision(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    sd[prefix + "embeddings.patch_embedding.weight"] = _conv(p["patch_embedding_weight"])
+    sd[prefix + "embeddings.patch_embedding.bias"] = _arr(p["patch_embedding_bias"])
+    sd[prefix + "embeddings.position_embedding.weight"] = _arr(p["position_embedding"])
+    i = 0
+    while f"layers_{i}" in p:
+        lp, q = prefix + f"encoder.layers.{i}.", p[f"layers_{i}"]
+        _norm(sd, q["norm1"], lp + "layer_norm1.")
+        _norm(sd, q["norm2"], lp + "layer_norm2.")
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, q["attn"][proj], lp + f"self_attn.{proj}.")
+        for fc in ("fc1", "fc2"):
+            _linear(sd, q["mlp"][fc], lp + f"mlp.{fc}.")
+        i += 1
+    _norm(sd, p["post_layernorm"], prefix + "post_layernorm.")
+    if "head" in p:
+        h = p["head"]
+        sd[prefix + "head.probe"] = _arr(h["probe"])
+        sd[prefix + "head.attention.in_proj_weight"] = _arr(h["in_proj_weight"])
+        sd[prefix + "head.attention.in_proj_bias"] = _arr(h["in_proj_bias"])
+        _linear(sd, h["out_proj"], prefix + "head.attention.out_proj.")
+        _norm(sd, h["layernorm"], prefix + "head.layernorm.")
+        _linear(sd, h["mlp"]["fc1"], prefix + "head.mlp.fc1.")
+        _linear(sd, h["mlp"]["fc2"], prefix + "head.mlp.fc2.")
+
+
+def _attn_projection(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    j = 0
+    while f"blocks_{j}" in p:
+        bp, q = prefix + f"blocks.{j}.", p[f"blocks_{j}"]
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(sd, q[n], bp + n + ".")
+        sd[bp + "attn.qkv.weight"] = _t(q["attn"]["qkv"])
+        sd[bp + "attn.q_bias"] = _arr(q["attn"]["q_bias"])
+        sd[bp + "attn.v_bias"] = _arr(q["attn"]["v_bias"])
+        _linear(sd, q["attn"]["proj"], bp + "attn.proj.")
+        _linear(sd, q["proj"], bp + "proj.")
+        _norm(sd, q["mlp"]["norm"], bp + "mlp.norm.")
+        for w in ("w0", "w1", "w2"):
+            _linear(sd, q["mlp"][w], bp + f"mlp.{w}.")
+        j += 1
+
+
+def _adapter(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    i = 0
+    while f"patch_quant_{i}" in p:
+        _attn_projection(sd, p[f"patch_quant_{i}"], prefix + f"patch_quants.{i}.0.")
+        i += 1
+    _attn_projection(sd, p["final_quant"], prefix + "final_quant.")
+    _attn_projection(sd, p["post_quant"], prefix + "post_quant.")
+    if "linear_proj" in p:
+        sd[prefix + "linear_proj.weight"] = _pw(p["linear_proj"]["weight"])
+
+
+def _style_split(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    _linear(sd, p["proj"], prefix + "proj.")
+
+
+def _convnext_layer(sd: SD, p: Mapping[str, Any], b: Mapping[str, Any], prefix: str,
+                    legacy: bool) -> None:
+    _style_split(sd, p["affine_pw1"], prefix + "affine_pw1.")
+    sd[prefix + "dwconv.weight"] = _conv(p["dwconv"]["weight"])
+    sd[prefix + "dwconv.bias"] = _arr(p["dwconv"]["bias"])
+    _norm(sd, p["norm"], prefix + "norm.")
+    sd[prefix + "pwconv1.weight"] = _pw(p["pwconv1"]["weight"])
+    sd[prefix + "pwconv1.bias"] = _arr(p["pwconv1"]["bias"])
+    sd[prefix + "pwconv2.weight"] = _conv(p["pwconv2"]["weight"])
+    sd[prefix + "pwconv2.bias"] = _arr(p["pwconv2"]["bias"])
+    sd[prefix + "gamma"] = _arr(p["gamma"])
+    if legacy:
+        sd[prefix + "noise_strength"] = _arr(p["noise_strength"])
+        sd[prefix + "noise_const"] = _arr(b["noise_const"])
+
+
+def _separable_upsample(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    _norm(sd, p["norm"], prefix + "norm.")
+    sd[prefix + "depthwise.weight"] = _conv(p["depthwise"]["weight"])
+    sd[prefix + "pointwise.weight"] = _conv(p["pointwise"]["weight"])
+
+
+def _self_attention_block(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    a, f = p["attn"], p["ff"]
+    sd[prefix + "attn.norm.gamma"] = _arr(a["norm"]["gamma"]).reshape(-1, 1, 1)
+    for n in ("to_q", "to_k", "to_v", "to_out"):
+        sd[prefix + f"attn.{n}.weight"] = _conv(a[n]["weight"])
+    sd[prefix + "attn.null_kv"] = _arr(a["null_kv"])
+    sd[prefix + "ff.0.gamma"] = _arr(f["norm"]["gamma"]).reshape(-1, 1, 1)
+    for ours, theirs in (("proj1", "1"), ("proj2", "3")):
+        sd[prefix + f"ff.{theirs}.weight"] = _conv(f[ours]["weight"])
+        sd[prefix + f"ff.{theirs}.bias"] = _arr(f[ours]["bias"])
+
+
+def _synthesis_block(sd: SD, p: Mapping[str, Any], b: Mapping[str, Any], prefix: str,
+                     legacy: bool) -> None:
+    if "seperate_upsample_conv" in p:
+        _separable_upsample(sd, p["seperate_upsample_conv"], prefix + "seperate_upsample_conv.")
+    if "conv0" in p:
+        _convnext_layer(sd, p["conv0"], b.get("conv0", {}), prefix + "conv0.", legacy)
+    i = 0
+    while f"convs1_{i}" in p:
+        _convnext_layer(sd, p[f"convs1_{i}"], b.get(f"convs1_{i}", {}),
+                        prefix + f"convs1.{i}.", legacy)
+        i += 1
+    if "torgb" in p:
+        t = p["torgb"]
+        sd[prefix + "torgb.weight"] = _conv(t["weight"])
+        sd[prefix + "torgb.bias"] = _arr(t["bias"])
+        _style_split(sd, t["affine"], prefix + "torgb.affine.")
+    if "last_upsample_conv" in p:
+        _separable_upsample(sd, p["last_upsample_conv"], prefix + "last_upsample_conv.")
+    i = 0
+    while f"self_attns_{i}" in p:
+        _self_attention_block(sd, p[f"self_attns_{i}"], prefix + f"self_attns.{i}.")
+        i += 1
+
+
+def _zconv(sd: SD, p: Mapping[str, Any], prefix: str, kind: str) -> None:
+    i3, i1 = {"down": (1, 2), "same": (0, 1), "up": (0, 2)}[kind]
+    sd[prefix + f"{i3}.0.weight"] = _conv(p["conv0_dw"]["weight"])
+    sd[prefix + f"{i3}.1.weight"] = _conv(p["conv0_pw"]["weight"])
+    _norm(sd, p["conv0_gn"], prefix + f"{i3}.2.")
+    sd[prefix + f"{i1}.0.weight"] = _conv(p["conv1_pw"]["weight"])
+    _norm(sd, p["conv1_gn"], prefix + f"{i1}.1.")
+
+
+def state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any], *,
+                        geometry: Mapping[str, Any]) -> SD:
+    """JAX Generator variables -> reference-layout torch state_dict (numpy).
+
+    geometry: z_resolution, block_resolutions, concat_z_block_indices and
+    legacy, the arguments convert_generator takes for the same tree."""
+    legacy = bool(geometry.get("legacy", False))
+    z_res = int(geometry["z_resolution"])
+    concat = list(geometry.get("concat_z_block_indices", ()))
+    buffers = buffers or {}
+    sd: SD = {}
+    if "vfm_encoder" in params:
+        _siglip_vision(sd, params["vfm_encoder"]["tower"],
+                       "vfm_encoder.encoder.vision_model.vision_model.")
+    _adapter(sd, params["ldm_adapter"], "ldm_adapter.")
+    for fc, q in params["mapping"]["mlp"].items():
+        _linear(sd, q, f"mapping.mlp.{fc}.")
+    if "x_avg" in buffers.get("mapping", {}):
+        sd["mapping.x_avg"] = _arr(buffers["mapping"]["x_avg"])
+    syn_p, syn_b = params["synthesis"], buffers.get("synthesis", {})
+    for idx, res in enumerate(geometry["block_resolutions"]):
+        _synthesis_block(sd, syn_p[f"b{idx}"], syn_b.get(f"b{idx}", {}),
+                         f"synthesis.blocks.{idx}.", legacy)
+        if idx in concat:
+            kind = "down" if res < 2 * z_res else ("same" if res == 2 * z_res else "up")
+            _zconv(sd, syn_p[f"z_convs_{idx}"], f"synthesis.z_convs.{idx}.", kind)
+    return sd
+
+
+def geometry_from_kwargs(kwargs: Mapping[str, Any]) -> Dict[str, Any]:
+    """The `geometry` of state_dict_from_jax for Generator keyword arguments."""
+    from .synthesis import synthesis_channels
+
+    sk = dict(kwargs.get("synthesis_kwargs") or {})
+    img_res = kwargs.get("img_resolution", 256)
+    return dict(
+        legacy=kwargs.get("legacy", False),
+        z_resolution=img_res // kwargs.get("resolution_compression_factor", 16),
+        concat_z_block_indices=list(kwargs.get("concat_z_block_indices", ())),
+        block_resolutions=synthesis_channels(img_res, kwargs.get("num_blocks", 6),
+                                             sk.get("channel_base", 32768),
+                                             sk.get("channel_max", 512))[0],
+    )
+
+
+@torch.no_grad()
+def load_state_dict_numpy(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
+    """Copy a numpy state_dict into `module` (strict on keys), onto each
+    parameter's own device and dtype; equal-size arrays are reshaped."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"state_dict mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
+    for key, dst in own.items():
+        src = np.asarray(sd[key])
+        if src.size != dst.numel():
+            raise ValueError(f"{key}: {src.shape} does not fit {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32)).reshape(dst.shape))
+
+
+def load_jax_variables(module: torch.nn.Module, params: Mapping[str, Any],
+                       buffers: Mapping[str, Any], *, geometry: Mapping[str, Any]) -> None:
+    """Put JAX Generator variables onto a port Generator."""
+    load_state_dict_numpy(module, state_dict_from_jax(params, buffers, geometry=geometry))
+

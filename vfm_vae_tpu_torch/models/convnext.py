@@ -1,0 +1,138 @@
+"""ConvNeXt-style modulated decoder layers (port of
+vfm_vae_tpu/models/convnext.py: ConvNeXtSynthesisLayer, ConvNeXtToRGBLayer,
+SeparableUpsampleWithFixedBlur).
+
+One code path on every device: the ConvNeXt layer always folds GroupNorm
+and the style into the K1 operands (A = a * style, b1_eff), and every
+pre-normalized upsample folds GroupNorm into the K2 operands. On the card
+the wrappers launch the hand-written kernels; on the CPU they run their
+plain twins, so the CPU tests also check the folding against the JAX
+package's unfused chain.
+"""
+
+from __future__ import annotations
+
+import math
+import numpy as np
+import torch
+
+from ..ops.kernels import fused_convnext_mlp, fused_upsample_blur
+from ..ops.kernels.fused_upsample import edge_blur
+from ..ops.pixelshuffle import pixel_shuffle
+from ..ops.resize import resize_bilinear
+from .layers import TRUNC02, Conv2d, GroupNorm32, Module, StyleSplit, param, randn_
+from .modulated import ModulatedPointwiseConv2DLayer, demod_coefs
+
+# Binomial low-pass kernels (convnext_utils.py:190-194).
+GAUSSIAN_KERNELS = {"3x3": [1, 2, 1], "4x4": [1, 3, 3, 1], "5x5": [1, 4, 6, 4, 1]}
+LAYER_SCALE_INIT = 1e-5
+
+
+class ConvNeXtSynthesisLayer(Module):
+    """dwconv -> (legacy noise) -> GN32 -> modulated pw expand -> GELU ->
+    pw contract -> layer scale -> residual (convnext_utils.py:78-142);
+    everything after the noise runs in K1."""
+
+    def __init__(self, channels: int, w_dim: int, kernel_size: int, block_index: int = 0,
+                 legacy: bool = False, device=None):
+        super().__init__()
+        C = channels
+        self.legacy = legacy
+        self.plain = False  # select K1's plain twin on the card (comparisons only)
+        self.affine_pw1 = StyleSplit(w_dim, C, bias_init=1, device=device)
+        self.dwconv = Conv2d(C, C, kernel_size, padding=kernel_size // 2, groups=C,
+                             weight_init=TRUNC02, bias_init="zeros", device=device)
+        if legacy:
+            res = 8 * 2 ** block_index
+            self.noise_strength = param(device=device)
+            self.register_buffer("noise_const", torch.empty(res, res, device=device))
+        self.norm = GroupNorm32(min(32, C // 4), C, device=device)
+        self.pwconv1 = ModulatedPointwiseConv2DLayer(C, 4 * C, device=device)
+        self.pwconv2 = Conv2d(4 * C, C, 1, weight_init=TRUNC02, bias_init="zeros", device=device)
+        self.gamma = param(C, device=device)
+
+    def reset_parameters(self, g):
+        if self.legacy:
+            self.noise_strength.zero_()
+            randn_(self.noise_const, g)
+        self.gamma.fill_(LAYER_SCALE_INIT)
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        x_in = x
+        style = self.affine_pw1(w).float()
+        x = self.dwconv(x)
+        if self.legacy:
+            H, W = x.shape[1], x.shape[2]
+            noise = (self.noise_const * self.noise_strength)[None, :, :, None]
+            if noise.shape[1:3] != (H, W):
+                noise = resize_bilinear(noise, size=(H, W))
+            x = x + noise.to(dt)
+        # gn(x) = x*a + c, so (gn(x)*s) @ W1^T * d + b1 = (x*(a*s)) @ W1^T * d + b1_eff.
+        a, c = self.norm.folded_affine(x)
+        w1 = self.pwconv1.weight[:, :, 0, 0]  # (4C, C)
+        w2 = self.pwconv2.weight[:, :, 0, 0]  # (C, 4C)
+        d = demod_coefs(w1, style)
+        A = a * style
+        b1_eff = ((c * style) @ w1.float().t()) * d + self.pwconv1.bias.float()[None, :]
+        return fused_convnext_mlp(
+            x, x_in, A.contiguous(), d.contiguous(), w1.to(dt).contiguous(), b1_eff.contiguous(),
+            w2.to(dt).contiguous(), self.pwconv2.bias.float().contiguous(),
+            self.gamma.float().contiguous(), plain=self.plain,
+        ).to(dt)
+
+
+class ConvNeXtToRGBLayer(Module):
+    """Modulated 1x1 to-RGB without demodulation (convnext_utils.py:145-187)."""
+
+    def __init__(self, in_channels: int, out_channels: int, w_dim: int, device=None):
+        super().__init__()
+        self.weight_gain = 1 / math.sqrt(in_channels)
+        self.weight = param(out_channels, in_channels, 1, 1, device=device)
+        self.bias = param(out_channels, device=device)
+        self.affine = StyleSplit(w_dim, in_channels, bias_init=1, device=device)
+
+    def reset_parameters(self, g):
+        randn_(self.weight, g, 0.1)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        style = self.affine(w) * self.weight_gain
+        xs = x * style[:, None, None, :].to(x.dtype)
+        y = xs @ self.weight[:, :, 0, 0].to(x.dtype).t()
+        return y + self.bias.to(y.dtype)
+
+
+class SeparableUpsampleWithFixedBlur(Module):
+    """GN -> dw3x3 -> pw1x1 -> PixelShuffle(2) -> normalized binomial blur
+    with edge-replicate padding (convnext_utils.py:197-256). The
+    pre-normalized form runs in K2; `pre_normalize=False` (the first block)
+    norms after the shuffle and stays plain PyTorch, as it stays plain XLA in
+    the JAX package. The slice ports the configuration the decoder builds:
+    upscale 2, blur on, odd taps."""
+
+    def __init__(self, in_channels: int, out_channels: int, blur_kernel: str = "3x3",
+                 pre_normalize: bool = True, device=None):
+        super().__init__()
+        self.pre_normalize = pre_normalize
+        self.plain = False  # select K2's plain twin on the card (comparisons only)
+        norm_ch = in_channels if pre_normalize else out_channels
+        self.norm = GroupNorm32(min(32, norm_ch // 4), norm_ch, device=device)
+        self.depthwise = Conv2d(in_channels, in_channels, 3, padding=1, groups=in_channels,
+                                bias=False, device=device)
+        self.pointwise = Conv2d(in_channels, out_channels * 4, 1, bias=False, device=device)
+        taps = np.asarray(GAUSSIAN_KERNELS[blur_kernel], np.float64)
+        if len(taps) % 2 == 0:
+            raise NotImplementedError("even-length blur taps are not ported")
+        self.taps = [float(t) for t in taps / taps.sum()]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pre_normalize:
+            a, c = self.norm.folded_affine(x)
+            return fused_upsample_blur(
+                x, a.contiguous(), c.contiguous(), self.depthwise.weight[:, 0].float().contiguous(),
+                self.pointwise.weight[:, :, 0, 0].to(x.dtype).contiguous(), self.taps,
+                plain=self.plain,
+            )
+        x = self.norm(pixel_shuffle(self.pointwise(self.depthwise(x)), 2))
+        return edge_blur(edge_blur(x, self.taps, 1), self.taps, 2)

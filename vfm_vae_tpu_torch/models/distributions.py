@@ -1,0 +1,23 @@
+"""Diagonal Gaussian latent (port of vfm_vae_tpu/models/distributions.py).
+Channel-last parameters (B, H, W, 2C): mean = [..., :C], logvar = [..., C:]."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+class DiagonalGaussianDistribution:
+    def __init__(self, parameters: torch.Tensor):
+        self.mean, logvar = parameters.chunk(2, dim=-1)
+        self.logvar = torch.clamp(logvar, -30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
+                            dtype=self.mean.dtype)
+        return self.mean + self.std * noise
+
+    def mode(self) -> torch.Tensor:
+        return self.mean

@@ -1,0 +1,205 @@
+"""ConvNeXt synthesis decoder (port of vfm_vae_tpu/models/synthesis.py:
+ZConv, MappingNetwork (cls2text, unconditional), SynthesisBlock (ConvNeXt
+and multiscale branch), SynthesisNetwork, synthesis_channels). Keys follow
+the reference: blocks.N.*, z_convs.N.* (nn.Sequential indices)."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from ..ops.bias_act import apply_activation
+from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
+from ..ops.resize import adaptive_avg_pool2d
+from .convnext import ConvNeXtSynthesisLayer, ConvNeXtToRGBLayer, SeparableUpsampleWithFixedBlur
+from .gigagan import SelfAttentionBlock
+from .layers import MLP, Conv2d, GroupNorm32, Module, holder, normalize_2nd_moment
+
+
+def synthesis_channels(img_resolution: int, num_blocks: int, channel_base: int, channel_max: int):
+    """(block resolutions, {block index: channels}) (generator.py:694-700)."""
+    res_start = img_resolution // (2 ** (num_blocks - 1))
+    block_resolutions = [res_start * (2 ** i) for i in range(num_blocks)]
+    scale = img_resolution / 256
+    channels = {idx: min(channel_base // int(res / scale), channel_max)
+                for idx, res in enumerate(block_resolutions)}
+    return block_resolutions, channels
+
+
+def _conv3x3(cin: int, cout: int, device) -> nn.Module:
+    return holder(**{
+        "0": Conv2d(cin, cin, 3, padding=1, groups=cin, bias=False, device=device),
+        "1": Conv2d(cin, cout, 1, bias=False, device=device),
+        "2": GroupNorm32(min(32, cout), cout, device=device),
+    })
+
+
+def _conv1x1(cin: int, cout: int, device) -> nn.Module:
+    return holder(**{
+        "0": Conv2d(cin, cout, 1, bias=False, device=device),
+        "1": GroupNorm32(min(32, cout), cout, device=device),
+    })
+
+
+class ZConv(Module):
+    """Concat-z injector for one block (generator.py:726-784, 839-868):
+    unshuffle -> 3x3 -> 1x1 below 2x the z resolution, 3x3 -> 1x1 at it,
+    3x3 -> shuffle -> 1x1 above it."""
+
+    def __init__(self, z_dim: int, out_dim: int, block_resolution: int, z_resolution: int,
+                 activation: str = "gelu", device=None):
+        super().__init__()
+        self.activation = activation
+        res, zres = block_resolution, z_resolution
+        if res < zres * 2:
+            self.kind, self.r = "down", int(zres / res * 2)
+            self.add_module("1", _conv3x3(z_dim * self.r ** 2, out_dim, device))
+            self.add_module("2", _conv1x1(out_dim, out_dim, device))
+        elif res == zres * 2:
+            self.kind, self.r = "same", 1
+            self.add_module("0", _conv3x3(z_dim, out_dim, device))
+            self.add_module("1", _conv1x1(out_dim, out_dim, device))
+        else:
+            self.kind, self.r = "up", int(res / zres / 2)
+            self.add_module("0", _conv3x3(z_dim, out_dim * self.r ** 2, device))
+            self.add_module("2", _conv1x1(out_dim, out_dim, device))
+
+    def _conv(self, key: str, x: torch.Tensor, act: bool) -> torch.Tensor:
+        seq = self._modules[key]
+        mods = [seq._modules[k] for k in sorted(seq._modules)]
+        for m in mods:
+            x = m(x)
+        if act:
+            x = apply_activation(x.float(), self.activation).to(x.dtype)
+        return x
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        if self.kind == "down":
+            z = self._conv("1", pixel_unshuffle(z, self.r), True)
+            return self._conv("2", z, False)
+        if self.kind == "same":
+            return self._conv("1", self._conv("0", z, True), False)
+        z = pixel_shuffle(self._conv("0", z, True), self.r)
+        return self._conv("2", z, False)
+
+
+class MappingNetwork(Module):
+    """Pooled z -> w (cls2text, unconditional; generator.py:582-652): two
+    lrelu FC layers with lr multiplier 0.01, the last one linear."""
+
+    def __init__(self, z_dim_input: int, z_dim_output: int, num_ws: int, device=None):
+        super().__init__()
+        self.num_ws = num_ws
+        self.mlp = MLP([z_dim_input] * 2 + [z_dim_output], activation="lrelu",
+                       lr_multiplier=0.01, linear_out=True, device=device)
+        self.register_buffer("x_avg", torch.zeros(z_dim_output, device=device))
+
+    def forward(self, z: torch.Tensor, truncation_psi: float = 1.0) -> torch.Tensor:
+        x = self.mlp(normalize_2nd_moment(z))
+        if truncation_psi != 1:
+            x = self.x_avg[None] + truncation_psi * (x - self.x_avg[None])
+        return x[:, None, :].expand(-1, self.num_ws, -1)
+
+
+class SynthesisBlock(Module):
+    """One resolution stage, ConvNeXt layers + multiscale to-RGB
+    (generator.py:322-579); self-attention with 8 heads, FF multiplier 4."""
+
+    def __init__(self, block_index: int, in_channels: int, out_channels: int,
+                 last_out_channels: Optional[int], w_dim: int, img_channels: int,
+                 is_first: bool, num_res_blocks: int, attn_depth: int,
+                 add_additional_convnext: bool = False, legacy: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if in_channels == 0:
+            raise NotImplementedError("the Fourier SynthesisInput first block is not ported")
+        self.dtype = dtype
+        kernel_size = 5 if block_index <= 1 else 7
+        blur = "3x3" if block_index <= 2 else "5x5"
+        per_res = 3 if (block_index <= 3 and add_additional_convnext) else 2
+        self.seperate_upsample_conv = SeparableUpsampleWithFixedBlur(
+            in_channels, out_channels, blur, pre_normalize=not is_first, device=device)
+        layer = dict(w_dim=w_dim, kernel_size=kernel_size, block_index=block_index,
+                     legacy=legacy, device=device)
+        self.conv0 = ConvNeXtSynthesisLayer(out_channels, **layer)
+        self.convs1 = nn.ModuleList(ConvNeXtSynthesisLayer(out_channels, **layer)
+                                    for _ in range(per_res * num_res_blocks))
+        self.self_attns = nn.ModuleList(
+            SelfAttentionBlock(out_channels, out_channels // 8, 8, 4, device=device)
+            for _ in range(attn_depth))
+        self.torgb = ConvNeXtToRGBLayer(out_channels, img_channels, w_dim, device=device)
+        if last_out_channels is not None:
+            self.last_upsample_conv = SeparableUpsampleWithFixedBlur(
+                last_out_channels, out_channels, blur, device=device)
+        else:
+            self.last_upsample_conv = None
+        self.num_ws = 2 + len(self.convs1)  # conv0 + convs1 + torgb
+
+    def forward(self, x, x_sum, ws):
+        x = self.seperate_upsample_conv(x.to(self.dtype))
+        x = self.conv0(x, ws[:, 0])
+        for i, layer in enumerate(self.convs1):
+            x = layer(x, ws[:, 1 + i])
+        for blk in self.self_attns:
+            x = blk(x)
+        x = x.to(self.dtype)
+        x_sum = x if self.last_upsample_conv is None else self.last_upsample_conv(x_sum) + x
+        img = self.torgb(x_sum, ws[:, -1]).float()
+        return x, x_sum, img
+
+
+class SynthesisNetwork(Module):
+    """Stack of synthesis blocks with concat-z injection (generator.py:655-912)."""
+
+    def __init__(self, w_dim: int, img_resolution: int, img_channels: int = 3,
+                 channel_base: int = 32768, channel_max: int = 512, num_blocks: int = 6,
+                 num_res_blocks: int = 3, z_resolution: int = 16, z_dim: int = 8,
+                 concat_z_block_indices: Sequence[int] = (),
+                 concat_z_mapped_dims: Sequence[int] = (), activation_for_concat_z: str = "gelu",
+                 attn_block_indices: Sequence[int] = (), attn_depths: Sequence[int] = (),
+                 add_additional_convnext: bool = False,
+                 legacy: bool = False, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        block_res, channels = synthesis_channels(img_resolution, num_blocks, channel_base,
+                                                 channel_max)
+        self.concat_z = list(concat_z_block_indices)
+        self.block_resolutions = block_res
+        blocks, zconvs = [], {}
+        for idx in range(num_blocks):
+            in_ch = channels[idx - 1] if idx > 0 else 0
+            if idx in self.concat_z:
+                zc = list(concat_z_mapped_dims)[idx]
+                in_ch += zc
+                zconvs[str(idx)] = ZConv(z_dim, zc, block_res[idx], z_resolution,
+                                         activation=activation_for_concat_z, device=device)
+            depth = (list(attn_depths)[list(attn_block_indices).index(idx)]
+                     if idx in list(attn_block_indices) else 0)
+            blocks.append(SynthesisBlock(
+                idx, in_ch, channels[idx], channels[idx - 1] if idx > 0 else None, w_dim,
+                img_channels, idx == 0, num_res_blocks, depth,
+                add_additional_convnext=add_additional_convnext, legacy=legacy, dtype=dtype,
+                device=device))
+        self.blocks = nn.ModuleList(blocks)
+        self.z_convs = nn.ModuleDict(zconvs)
+        self.num_ws = sum(b.num_ws for b in blocks)
+
+    def forward(self, z: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+        """z (B, zr, zr, z_dim), ws (B, num_ws, w_dim) -> the last block's image, fp32."""
+        ws = ws.float()
+        x = x_sum = img = None
+        w_idx = 0
+        for idx, block in enumerate(self.blocks):
+            if idx in self.concat_z:
+                zc = self.z_convs[str(idx)](z)
+                x = zc if x is None else torch.cat([x, zc.to(x.dtype)], dim=-1)
+            x, x_sum, img = block(x, x_sum, ws[:, w_idx:w_idx + block.num_ws])
+            w_idx += block.num_ws
+        return img
+
+
+def pooled_z(z: torch.Tensor, resolution: int) -> torch.Tensor:
+    """adaptive_avg_pool2d to (r, r), flattened to (B, r*r*C)."""
+    return adaptive_avg_pool2d(z, (resolution, resolution)).reshape(z.shape[0], -1)
+

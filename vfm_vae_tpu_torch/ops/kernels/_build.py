@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled with nvcc into one shared library with a plain C
+interface and loaded with ctypes; nothing includes PyTorch's headers, so a
+build takes seconds. The library lands in ``csrc/build/`` (git-ignored),
+named by a hash of the sources and flags, and is built at first use.
+Nothing is compiled or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "build"
+SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "vfm_fused_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vfm_fused_upsample_blur": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vfm_flash_attention_nullkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded library plus what its build printed and how long it took."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float, log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+
+    def check(self, err: int, name: str) -> None:
+        if err != 0:
+            msg = self.lib.vfm_error_string(err).decode()
+            raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+_lock = threading.Lock()
+_loaded: Optional[KernelLibrary] = None
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.isfile(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> str:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a half-written library is never loaded
+    return proc.stdout + proc.stderr
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of this dtype and shape on `device`."""
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    global _loaded
+    with _lock:
+        if _loaded is None:
+            path = BUILD_DIR / f"libvfm_kernels_{_digest()}.so"
+            t0 = time.perf_counter()
+            log = "" if path.exists() else _build(path)
+            seconds = time.perf_counter() - t0
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.vfm_error_string.argtypes = [ctypes.c_int]
+            lib.vfm_error_string.restype = ctypes.c_char_p
+            _loaded = KernelLibrary(lib, path, seconds, log)
+        return _loaded
