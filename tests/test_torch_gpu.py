@@ -71,3 +71,62 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):
             fn(**dict(args, **{first: args[first].transpose(1, 2).contiguous().transpose(1, 2)}))
         assert fn.launches == before, fn.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 36, 100, 577])
+def test_k3_backward_matches_twin_on_gpu(cuda, T):
+    """dQ, dK, dV and the per-sample null-token gradients of the backward
+    kernels against their plain twin, from the training forward's output
+    and log-sum-exp; T off the 64-row tiles exercises the masked edges."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(T)
+    q, k, v, dout = (torch.randn(2, T, 8, 64, generator=g, device=cuda).to(torch.bfloat16)
+                     for _ in range(4))
+    nk, nv = (torch.randn(2, 1, 8, 64, generator=g, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    out, lse = fa._launch_forward(q, k, v, nk, nv, 0.125, True)
+    ref_out, ref_lse = kernels.flash_attention_nullkv_reference(q, k, v, nk, nv, return_lse=True)
+    before = [fn.launches for fn in kernels.ALL_WRAPPERS[3:]]
+    dk, dv, dnk, dnv, delta = kernels.flash_attention_nullkv_bwd_dkv(q, k, v, nk, nv, out, dout,
+                                                                      lse)
+    dq = kernels.flash_attention_nullkv_bwd_dq(q, k, v, nk, nv, dout, lse, delta)
+    twin = kernels.flash_attention_nullkv_bwd_reference(q, k, v, nk, nv, out, lse, dout)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels.ALL_WRAPPERS[3:]] == [b + 1 for b in before]
+    # fp32 log-sum-exp of the same logits, summed in another order.
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max()) + 1e-5
+    for got, ref in zip((dq, dk, dv, dnk, dnv, delta), twin):
+        scale = float(ref.float().abs().max())
+        # P and dS rounded to bf16 at the same points, summed in another order.
+        assert float((got.float() - ref.float()).abs().max()) <= 4 * 2.0 ** -8 * scale
+
+
+@pytest.mark.gpu
+def test_functions_differentiate_through_the_kernels_on_gpu(cuda):
+    """With inputs that require grad, each wrapper runs its autograd
+    Function: the kernel forward (one launch) and a backward whose gradients
+    match the plain Function's; the raw launch refuses such inputs."""
+    from vfm_vae_tpu_torch.ops.kernels import fused_mlp
+
+    for fn, args in _cases(cuda, 5, 7, 37):
+        tensors = {k: v for k, v in args.items() if torch.is_tensor(v)}
+        extra = {k: v for k, v in args.items() if not torch.is_tensor(v)}
+        grads = []
+        for plain in (False, True):
+            leaves = {k: v.detach().requires_grad_() for k, v in tensors.items()}
+            before = fn.launches
+            out = fn(**leaves, **extra, plain=plain)
+            assert out.grad_fn is not None, fn.__name__
+            gout = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                               device=cuda).to(out.dtype)
+            grads.append(torch.autograd.grad(out, list(leaves.values()), gout))
+            assert fn.launches == before + (0 if plain else 1), fn.__name__
+        for name, a, b in zip(tensors, *grads):
+            scale = float(b.float().abs().max())
+            assert float((a.float() - b.float()).abs().max()) <= 4 * 2.0 ** -8 * scale, (
+                fn.__name__, name)
+    args = _cases(cuda)[0][1]
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        fused_mlp._launch(*(v.detach().requires_grad_() for v in args.values()))

@@ -143,7 +143,7 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
     kernels.reset_launch_counts()
     for wrapper, twin, args, extra in _cpu_calls():
         torch.testing.assert_close(wrapper(**args, **extra), twin(**args, **extra), rtol=0, atol=0)
-    assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.WRAPPERS}
+    assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
 
 
 def test_wrappers_raise_off_cpu_without_a_kernel():
@@ -154,7 +154,7 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
         meta = {k: v.to("meta") for k, v in args.items()}
         with pytest.raises(ValueError):
             wrapper(**meta, **extra)
-    assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.WRAPPERS}
+    assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
 
 
 def test_c_interface_matches_ctypes_signatures():
@@ -166,3 +166,127 @@ def test_c_interface_matches_ctypes_signatures():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
     assert 'extern "C" const char* vfm_error_string(int' in src
+
+
+# ------------------------------------------------------------------ backward
+
+
+def _grads_close(got, want, frac, names):
+    """Each gradient within `frac` of its own scale max|want|."""
+    for n, g, w in zip(names, got, want):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        assert g.shape == w.shape, n
+        np.testing.assert_allclose(g, w, rtol=0, atol=frac * float(np.abs(w).max()), err_msg=n)
+
+
+MLP_NAMES = ("x", "x_in", "A", "d", "w1", "b1", "w2", "b2", "gamma")
+
+
+@pytest.mark.parametrize("dtype,bwd_bf16", [("fp32", None), ("bf16", None), ("bf16", "0")])
+def test_fused_convnext_mlp_backward_matches_jax(dtype, bwd_bf16, monkeypatch):
+    """The port's Function (twin forward + the port of _fused_bwd) against
+    jax.vjp of fused_convnext_mlp(interpret=True), whose custom VJP runs
+    _fused_bwd; bf16 with the hidden chain stored in bf16 (the default) and
+    in fp32 (VFM_VAE_MLP_BWD_BF16=0)."""
+    import jax
+
+    if bwd_bf16 is None:
+        monkeypatch.delenv("VFM_VAE_MLP_BWD_BF16", raising=False)
+    else:
+        monkeypatch.setenv("VFM_VAE_MLP_BWD_BF16", bwd_bf16)
+    i = mlp_inputs(H=5, W=3)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    gout = np.random.default_rng(9).standard_normal(i["x"].shape).astype(np.float32)
+    jargs = [jnp.asarray(i[n], jdt if n in ("x", "x_in") else jnp.float32) for n in MLP_NAMES]
+    _, vjp = jax.vjp(lambda *a: j_mlp(*a, interpret=True), *jargs)
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(gout, jdt))]
+    want[4], want[6] = want[4].T, want[6].T  # w1, w2 gradients in the torch layout
+    t = port_mlp_args(i, tdt)
+    leaves = [t[n].requires_grad_() for n in MLP_NAMES]
+    out = kernels.fused_convnext_mlp(*leaves)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__.startswith("FusedConvNeXtMLP")
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(gout).to(tdt))
+    got = [g.float().numpy() for g in got]
+    # fp32: the same algorithm summed in another order. bf16: the same
+    # rounding points; a value on a rounding boundary may land one bf16 ulp
+    # apart, which a reduction over tokens spreads to a few ulps of the scale.
+    _grads_close(got, want, 1e-5 if dtype == "fp32" else 4 * 2.0 ** -8, MLP_NAMES)
+
+
+UPS_NAMES = ("x", "a", "c", "dw", "pw")
+
+
+@pytest.mark.parametrize("kb", [3, 5])
+def test_fused_upsample_blur_backward_matches_jax(kb):
+    """FusedUpsampleBlur (twin forward, VJP of the recomputed twin) against
+    jax.vjp of fused_upsample_blur(interpret=True): the custom VJP of the
+    fused leg plus XLA autodiff of the vertical leg, in fp32."""
+    import jax
+
+    i = upsample_inputs(H=3, W=5)
+    gout = np.random.default_rng(kb).standard_normal((2, 6, 10, 8)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: j_upsample(*a, TAPS[kb], interpret=True),
+                     *(jnp.asarray(i[n]) for n in UPS_NAMES))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(gout))]
+    want[3], want[4] = want[3].transpose(2, 0, 1), want[4].T  # dw, pw in the torch layout
+    t = port_upsample_args(i, torch.float32)
+    leaves = [t[n].requires_grad_() for n in UPS_NAMES]
+    out = kernels.fused_upsample_blur(*leaves, taps=TAPS[kb])
+    assert type(out.grad_fn).__name__.startswith("FusedUpsampleBlur")
+    got = [g.numpy() for g in torch.autograd.grad(out, leaves, torch.from_numpy(gout))]
+    # Same fp32 function, summed in another order.
+    _grads_close(got, want, 1e-5, UPS_NAMES)
+
+
+ATT_NAMES = ("q", "k", "v", "null_k", "null_v")
+
+
+@pytest.mark.parametrize("T", [1, 4, 10])
+def test_flash_attention_nullkv_backward_matches_jax(T):
+    """The backward twin (P from the saved log-sum-exp, D = rowsum(dO O)) and
+    the Function built on it, against jax.vjp of dot_product_attention_nullkv,
+    in fp32; the backward wrappers take the twin on the CPU and count nothing."""
+    import jax
+
+    i = attention_inputs(T=T)
+    gout = np.random.default_rng(T).standard_normal(i["q"].shape).astype(np.float32)
+    _, vjp = jax.vjp(j_nullkv, *(jnp.asarray(i[n]) for n in ATT_NAMES))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(gout))]
+    t = [torch.from_numpy(i[n]) for n in ATT_NAMES]
+    dout = torch.from_numpy(gout)
+    out, lse = kernels.flash_attention_nullkv_reference(*t, return_lse=True)
+    assert lse.shape == (2, 2, T) and lse.dtype == torch.float32
+    twin = kernels.flash_attention_nullkv_bwd_reference(*t, out, lse, dout)
+    # fp32 logits, softmax and products; summation order differs.
+    _grads_close(twin[:5], want, 1e-5, ATT_NAMES)
+    kernels.reset_launch_counts()
+    dk, dv, dnk, dnv, delta = kernels.flash_attention_nullkv_bwd_dkv(*t, out, dout, lse)
+    dq = kernels.flash_attention_nullkv_bwd_dq(*t, dout, lse, delta)
+    for a, b in zip((dq, dk, dv, dnk, dnv, delta), twin):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert sum(kernels.launch_counts().values()) == 0
+    leaves = [x.clone().requires_grad_() for x in t]
+    got = torch.autograd.grad(kernels.flash_attention_nullkv(*leaves), leaves, dout)
+    _grads_close([g.numpy() for g in got], want, 1e-5, ATT_NAMES)
+
+
+def test_raw_launches_refuse_tensors_that_require_grad():
+    """A kernel's raw launch has no grad_fn: called on inputs that require
+    grad outside its autograd.Function it raises, before any device check."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention, fused_mlp, fused_upsample
+
+    m = port_mlp_args(mlp_inputs(), torch.bfloat16)
+    u = port_upsample_args(upsample_inputs(), torch.bfloat16)
+    a = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in attention_inputs().items()}
+    m["w1"].requires_grad_()
+    u["pw"].requires_grad_()
+    a["null_k"].requires_grad_()
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        fused_mlp._launch(*m.values())
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        fused_upsample._launch(*u.values(), TAPS[3])
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        flash_attention._launch_forward(*a.values(), 0.25, True)
+    with torch.no_grad():  # no graph is recorded: the launch path is taken (and refuses the CPU)
+        with pytest.raises(ValueError):
+            fused_mlp._launch(*m.values())

@@ -16,7 +16,12 @@
 // and O += PV are mma.sync bf16 tiles; P is rounded to bf16 for the PV
 // product, as every flash kernel does.
 //
-// Layouts: q, k, v, out (B, T, N, 64) bf16; null_k, null_v (B, 1, N, 64) bf16.
+// Training mode: given an `lse` pointer, the kernel also writes each query
+// row's log-sum-exp over [null; k] (natural-log units, fp32), the residual
+// that the backward kernels (flash_attention_nullkv_bwd.cu) recompute P from.
+//
+// Layouts: q, k, v, out (B, T, N, 64) bf16; null_k, null_v (B, 1, N, 64) bf16;
+// lse (B, N, T) fp32 or null.
 #include "common.cuh"
 
 namespace {
@@ -32,8 +37,8 @@ constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads) flash_nullkv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ nk, const bf16* __restrict__ nv, bf16* __restrict__ out, int T,
-    int N, float scale_log2) {
+    const bf16* __restrict__ nk, const bf16* __restrict__ nv, bf16* __restrict__ out,
+    float* __restrict__ lse, int T, int N, float scale_log2) {
   __shared__ __align__(16) bf16 qs[kBQ * kLD];
   __shared__ __align__(16) bf16 ks[kBK * kLD];    // [key][d]
   __shared__ __align__(16) bf16 vts[kD * kLDV];   // [d][key]
@@ -166,19 +171,28 @@ __global__ void __launch_bounds__(kThreads) flash_nullkv_kernel(
           vfm::pack_bf16(o[nt][half * 2] * inv[half], o[nt][half * 2 + 1] * inv[half]);
     }
   }
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int tok = q0 + warp * 16 + g + half * 8;
+      if (tok < T)
+        lse[((size_t)b * N + h) * T + tok] = (m[half] + log2f(l[half])) * 0.6931471805599453f;
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" int vfm_flash_attention_nullkv(const void* q, const void* k, const void* v,
                                           const void* null_k, const void* null_v, void* out,
-                                          int B, int T, int N, int D, float scale, void* stream) {
+                                          float* lse, int B, int T, int N, int D, float scale,
+                                          void* stream) {
   if (D != kD) return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   dim3 grid((T + kBQ - 1) / kBQ, N, B);
   flash_nullkv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(null_k), static_cast<const bf16*>(null_v), static_cast<bf16*>(out),
-      T, N, scale_log2);
+      lse, T, N, scale_log2);
   return (int)cudaGetLastError();
 }

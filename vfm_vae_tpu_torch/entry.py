@@ -1,10 +1,17 @@
-"""Port entry points: the flagship f16d32 SigLIP2-L tokenizer.
+"""Port entry points: the flagship f16d32 SigLIP2-L tokenizer and its
+stage-0 training step.
 
 `flagship_generator` builds the configuration that the JAX package's
 `__graft_entry__.entry()` runs (a 256 px image is resized to 512 px for the frozen
 SigLIP2-L/16-512 tower, the attnproj adapter reads layers 0, 12 and -1,
 z is 16x16x32, and six ConvNeXt synthesis blocks decode 8 -> 256 px), with
 random weights drawn from an explicit torch.Generator.
+
+`flagship_trainer` builds stage 0 of the staged recipe
+(configs/vfm_vae_f16d32_siglip2_stage_0_strong_alignment.yaml) on the same
+generator: the StyleGAN-T projected discriminator, LPIPS, the loss, Adam
+and the EMA, as the `STAGE0_*` dicts below copy them from the YAML (the
+card's machine may have no yaml reader).
 
 Precision policy: bf16 compute with fp32 normalization statistics. TF32 is
 off for fp32 matrix products and convolutions (`configure_precision`):
@@ -19,8 +26,12 @@ from typing import Dict, List, Optional
 import torch
 
 from .models.convnext import ConvNeXtSynthesisLayer, SeparableUpsampleWithFixedBlur
-from .models.generator import Generator
+from .models.discriminator import ProjectedDiscriminator
+from .models.generator import Generator, trainable_names, trainable_path_predicates
 from .models.gigagan import SelfAttention
+from .train.loss import TotalLoss
+from .train.lpips import build_lpips
+from .train.train_step import Trainer
 
 # The keyword arguments of __graft_entry__.flagship_generator (JAX package).
 FLAGSHIP_KWARGS = dict(
@@ -59,6 +70,40 @@ FLAGSHIP_KWARGS = dict(
 )
 
 
+# Stage 0 (configs/vfm_vae_f16d32_siglip2_stage_0_strong_alignment.yaml).
+# G_kwargs beyond FLAGSHIP_KWARGS: the VF margins and weights (lines 43-46),
+# and the loss switches that vfm_vae_tpu/core/config.py:79-81 derives from
+# loss_kwargs (kl and vf weights > 0, lines 80-81; adaptive VF, line 82);
+# then the EQ-prior probabilities (lines 58-59) and the train mode (line 62).
+STAGE0_G = dict(
+    use_vf_loss=True, use_kl_loss=True, use_adaptive_vf_loss=True,
+    distmat_margin=0.0, cos_margin=0.0, distmat_weight=1.0, cos_weight=1.0,
+)
+STAGE0_EQ = dict(p_eq_prior=0.5, p_eq_prior_scale=0.25)  # lines 58-59
+STAGE0_TRAIN_MODE = "train_all"  # line 62
+# D_kwargs (lines 71-75); vfm_name follows G, as train/loop.py:156 sets it.
+STAGE0_D = dict(use_stylegan_t_discriminator=True, use_patchgan_discriminator=False,
+                get_interm_feat=False)
+# DINO ViT-S/16 (timm vit_small_patch16_224_dino) with the DPT taps.
+STAGE0_DINO = dict(hidden_size=384, num_layers=12, num_heads=6, mlp_dim=1536, patch_size=16,
+                   image_size=224, hooks=(2, 5, 8, 11), hook_patch=True)
+# loss_kwargs (lines 77-96).
+STAGE0_LOSS = dict(
+    compression_mode="continuous", kl_loss_weight=1e-6, vf_loss_weight=5.0,
+    use_adaptive_vf_loss=True, l1_pixel_loss_weight=1.0, l2_pixel_loss_weight=0.0,
+    perceptual_loss_weight=10.0, ssim_loss_weight=0.0,
+    multiscale_block_indices=[0, 1, 2, 3, 4],
+    multiscale_pixel_loss_weights=[0.1, 0.1, 0.1, 0.1, 0.1],
+    multiscale_pixel_loss_start_kimg=0, multiscale_pixel_loss_end_kimg=5000,
+    stylegan_t_discriminator_loss_weight=1.0, patchgan_discriminator_loss_weight=0.0,
+    feature_matching_loss_weight=0.0, use_stylegan_t_disc_warmup=False,
+    use_patchgan_disc_warmup=False, use_equivariance_regularization=True,
+)
+# G_opt_kwargs / D_opt_kwargs (lines 98-108) and the EMA (lines 116-117).
+STAGE0_OPT = dict(lr=1e-4, betas=(0.0, 0.99), eps=1e-8)
+STAGE0_EMA = dict(ema_kimg=160.0, ema_rampup=0.05)
+
+
 def configure_precision() -> None:
     """Full-fp32 matrix products and convolutions where fp32 is asked for."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,14 +119,40 @@ def flagship_generator(device, dtype: torch.dtype = torch.bfloat16,
     return Generator(**kwargs, dtype=dtype, device=device, generator=generator).eval()
 
 
+def flagship_trainer(device, batch_size: int, generator: torch.Generator,
+                     dtype: torch.dtype = torch.bfloat16, lpips_path: Optional[str] = None,
+                     allow_random_lpips: bool = False) -> Trainer:
+    """The stage-0 trainer on `device`: the flagship G (train_all: the SigLIP
+    tower frozen), the StyleGAN-T D with a frozen DINO ViT-S/16, LPIPS (a
+    local vgg.pth, or seeded random weights behind allow_random_lpips), the
+    loss, Adam for G and D and the EMA, all drawn from `generator`.
+    `batch_size` sets the EMA horizon's batch."""
+    configure_precision()
+    G = Generator(**FLAGSHIP_KWARGS, **STAGE0_G, dtype=dtype,
+                  device=device, generator=generator)
+    D = ProjectedDiscriminator(vfm_name=G.vfm_encoder.model_name, compute_dtype=dtype,
+                               dino_kwargs=STAGE0_DINO, device=device, generator=generator,
+                               **STAGE0_D)
+    lpips = build_lpips(device, lpips_path, allow_random_lpips=allow_random_lpips,
+                        generator=generator)
+    loss = TotalLoss(G, D, vfm_name=G.vfm_encoder.model_name, lpips_module=lpips,
+                     **STAGE0_LOSS)
+    g_trainable = trainable_names(G, trainable_path_predicates(STAGE0_TRAIN_MODE))
+    d_trainable = {n for n, _ in D.named_parameters() if not n.startswith("dino.")}
+    return Trainer(loss, g_trainable, d_trainable, STAGE0_OPT, STAGE0_OPT,
+                   batch_size=batch_size, **STAGE0_EMA)
+
+
 def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
-    """Every K1/K2/K3 call of one decode at image size `hw`, with the shapes
-    the decode gives it (batch excluded) and how many times it runs."""
+    """Every K1/K2/K3 call of one decode whose image is `hw` pixels a side
+    (the configured size, or an EQ bucket's: z scaled by 0.25 to 0.75 gives
+    a proportionally smaller image), with the shapes the decode gives it
+    (batch excluded) and how many times it runs."""
     sites: Dict[str, Dict[tuple, int]] = {"fused_convnext_mlp": {}, "fused_upsample_blur": {},
                                           "flash_attention_nullkv": {}}
-    scale = hw // G.synthesis.block_resolutions[-1]
+    top = G.synthesis.block_resolutions[-1]
     for block, res in zip(G.synthesis.blocks, G.synthesis.block_resolutions):
-        res = res * scale
+        res = res * hw // top
         for m in block.modules():
             if isinstance(m, ConvNeXtSynthesisLayer):
                 key = (("C", m.norm.weight.shape[0]), ("H", res))
@@ -98,3 +169,12 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
                 continue
             sites[name][key] = sites[name].get(key, 0) + 1
     return {name: [dict(dict(k), count=n) for k, n in d.items()] for name, d in sites.items()}
+
+
+def eq_image_size(G: Generator, eq) -> int:
+    """Side of the image that G decodes for an EQ bucket (scale, angle,
+    is_prior): a latent bucket resizes z by the scale, a prior bucket
+    shrinks the tower's grid and so z by the same factor, and the decoder
+    keeps its image-to-z ratio. The `hw` of kernel_sites."""
+    zr = G.ldm_adapter.z_resolution
+    return int(zr * eq[0]) * (G.synthesis.block_resolutions[-1] // zr)

@@ -1,23 +1,25 @@
 """LDM adapter, continuous + attnproj (port of vfm_vae_tpu/models/adapter.py:
-PlainAttention, GeGluMlp, AttnProjectionBlock, AttnProjection, LDMAdapter
-encode/decode). The VQ path is not ported. Parameter keys follow the
-reference (ldm_utils.py): patch_quants.N.0.blocks.M.*, final_quant.*,
-post_quant.*, linear_proj.weight."""
+PlainAttention, GeGluMlp, AttnProjectionBlock, AttnProjection,
+EquivarianceTransform, LDMAdapter encode/decode and its training encode
+with the VF and KL losses). The VQ path is not ported. Parameter keys
+follow the reference (ldm_utils.py): patch_quants.N.0.blocks.M.*,
+final_quant.*, post_quant.*, linear_proj.weight."""
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
 from ..ops.pixelshuffle import pixel_unshuffle
-from ..ops.resize import _adaptive_matrix
+from ..ops.resize import _adaptive_matrix, adaptive_avg_pool2d
 from .distributions import DiagonalGaussianDistribution
-from .layers import TRUNC02, Conv2d, LayerNormFp32, Linear, Module, holder, param
+from .layers import TRUNC02, Conv2d, LayerNormFp32, Linear, Module, holder, l2_normalize, param
 
 
 def tokens_to_map(x: torch.Tensor) -> torch.Tensor:
@@ -128,6 +130,30 @@ class AttnProjection(Module):
         return x
 
 
+class EquivarianceTransform:
+    """Host-side EQ bucket sampler (ldm_utils.py:491-517): returns
+    (scale, rot90 angle, is_prior) drawn from an explicit numpy Generator."""
+
+    SCALES = (0.25, 0.5, 0.75, 1.0)
+    PRIOR_SCALES = (0.25, 0.5, 0.75)
+
+    def __init__(self, apply: bool = False, p_eq_prior: float = 0.5,
+                 p_eq_prior_scale: float = 0.25):
+        self.apply = apply
+        self.p_eq_prior = p_eq_prior
+        self.p_eq_prior_scale = p_eq_prior_scale
+
+    def __call__(self, rng: np.random.Generator, validation: bool = False
+                 ) -> Tuple[float, int, bool]:
+        if not self.apply or validation:
+            return 1.0, 0, False
+        if rng.random() < self.p_eq_prior:
+            return float(rng.choice(self.SCALES)), int(rng.integers(0, 4)), False
+        if rng.random() < self.p_eq_prior_scale:
+            return float(rng.choice(self.PRIOR_SCALES)), 0, True
+        return 1.0, 0, True
+
+
 class LDMAdapter(Module):
     """Compress multi-level VFM features into z and decompress (ldm_utils.py:199-488)."""
 
@@ -135,10 +161,16 @@ class LDMAdapter(Module):
                  patch_in_dimensions: Sequence[int], patch_out_dimensions: Sequence[int],
                  decompress_factor: int, attnproj_quant_layers: int = 1,
                  attnproj_post_quant_layers: int = 1, z_resolution: int = 16,
-                 z_dimension: int = 32, use_vf_loss: bool = False, device=None):
+                 z_dimension: int = 32, use_vf_loss: bool = False, use_kl_loss: bool = False,
+                 distmat_margin: float = 0.0, cos_margin: float = 0.0,
+                 distmat_weight: float = 1.0, cos_weight: float = 1.0, device=None):
         super().__init__()
         self.patch_resolutions = list(patch_resolutions)
         self.z_resolution = z_resolution
+        self.use_vf_loss, self.use_kl_loss = use_vf_loss, use_kl_loss
+        self.distmat_margin, self.cos_margin = distmat_margin, cos_margin
+        self.distmat_weight, self.cos_weight = distmat_weight, cos_weight
+        self.vf_index = list(patch_from_layers).index(-1) if use_vf_loss else None
         final_in = sum(dout * (res // z_resolution) ** 2 if res > z_resolution else dout
                        for res, dout in zip(patch_resolutions, patch_out_dimensions))
         final_out = 2 * z_dimension
@@ -156,22 +188,57 @@ class LDMAdapter(Module):
             self.linear_proj = Conv2d(z_dimension, vf_dim, 1, bias=False,
                                       weight_init=("xavier_normal", 0.5), device=device)
 
-    def encode(self, patch_features: List[torch.Tensor],
-               generator: Optional[torch.Generator] = None,
-               return_z_before_quantize: bool = False) -> torch.Tensor:
-        """Features -> z (B, zr, zr, z_dim): the posterior mode, or a sample
-        drawn with `generator`; or the (mean || logvar) moments."""
+    def moments(self, patch_features: List[torch.Tensor]) -> torch.Tensor:
+        """Features -> the (mean || logvar) map (B, zr, zr, 2 z_dim); a smaller
+        EQ-prior grid gives a proportionally smaller zr."""
         mids = []
         for x, pq, res in zip(patch_features, self.patch_quants, self.patch_resolutions):
             x = getattr(pq, "0")(x)
             if res > self.z_resolution:
                 x = map_to_tokens(pixel_unshuffle(tokens_to_map(x), res // self.z_resolution))
             mids.append(x)
-        moments = tokens_to_map(self.final_quant(torch.cat(mids, dim=-1)))
+        return tokens_to_map(self.final_quant(torch.cat(mids, dim=-1)))
+
+    def encode(self, patch_features: List[torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               return_z_before_quantize: bool = False) -> torch.Tensor:
+        """Features -> z (B, zr, zr, z_dim): the posterior mode, or a sample
+        drawn with `generator`; or the (mean || logvar) moments."""
+        moments = self.moments(patch_features)
         if return_z_before_quantize:
             return moments
         dist = DiagonalGaussianDistribution(moments)
         return dist.mode() if generator is None else dist.sample(generator)
+
+    def encode_train(self, patch_features: List[torch.Tensor],
+                     generator: Optional[torch.Generator] = None):
+        """Training encode (adapter.py:350-404): z (the mode, or a posterior
+        sample drawn with `generator`), the VF loss against the detached
+        last-layer features and the mean KL; each loss is a zero scalar when
+        its flag is off."""
+        dist = DiagonalGaussianDistribution(self.moments(patch_features))
+        z = dist.mode() if generator is None else dist.sample(generator)
+        zero = z.new_zeros(())
+        kl_loss = dist.kl().mean() if self.use_kl_loss else zero
+        vf_loss = zero
+        if self.use_vf_loss:
+            aux_map = tokens_to_map(patch_features[self.vf_index].detach())
+            ht = z.shape[1]
+            if aux_map.shape[1] != ht:
+                aux_map = adaptive_avg_pool2d(aux_map, (ht, ht))
+            vf_loss = self.vf_loss(self.linear_proj(z), aux_map)
+        return z, vf_loss, kl_loss
+
+    def vf_loss(self, z_map: torch.Tensor, aux_map: torch.Tensor) -> torch.Tensor:
+        """Pairwise channel-cosine distance matrix + per-pixel cosine
+        (adapter.py:334-347, ldm_utils.py:385-395)."""
+        z_n = l2_normalize(map_to_tokens(z_map).float(), dim=-1)
+        aux_n = l2_normalize(map_to_tokens(aux_map).float(), dim=-1)
+        z_cos = torch.einsum("bic,bjc->bij", z_n, z_n)
+        aux_cos = torch.einsum("bic,bjc->bij", aux_n, aux_n)
+        loss_1 = torch.relu((z_cos - aux_cos).abs() - self.distmat_margin).mean()
+        loss_2 = torch.relu(1.0 - self.cos_margin - (z_n * aux_n).sum(-1)).mean()
+        return loss_1 * self.distmat_weight + loss_2 * self.cos_weight
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, H, W, z_dim) -> (B, H, W, z_dim * decompress_factor)."""

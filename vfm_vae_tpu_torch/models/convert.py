@@ -11,7 +11,11 @@ synthesis). Numpy only. Layout rules, inverted from that file:
   ours (in, out) 1x1 conv     -> torch (out, in, 1, 1)
   norms, biases, embeddings   -> unchanged
 
-`load_state_dict_numpy` puts such a dict on a port Generator; arrays whose
+`d_state_dict_from_jax` and `lpips_state_dict_from_jax` do the same for the
+JAX ProjectedDiscriminator (DINO, heads and the heads' spectral-norm u/v
+buffers) and LPIPS, into the port's own key layout.
+
+`load_state_dict_numpy` puts such a dict on a port module; arrays whose
 element count matches a parameter are reshaped to it, so reference
 checkpoints that store vectors as (1, C, 1, 1) load as well.
 """
@@ -208,6 +212,62 @@ def state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any], *
     return sd
 
 
+def _vit_block(sd: SD, q: Mapping[str, Any], prefix: str) -> None:
+    _norm(sd, q["norm1"], prefix + "layer_norm1.")
+    _norm(sd, q["norm2"], prefix + "layer_norm2.")
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _linear(sd, q["attn"][proj], prefix + f"self_attn.{proj}.")
+    for fc in ("fc1", "fc2"):
+        _linear(sd, q["mlp"][fc], prefix + f"mlp.{fc}.")
+
+
+def d_state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any]) -> SD:
+    """JAX ProjectedDiscriminator (StyleGAN-T branch) variables -> the port's
+    state_dict (numpy): dino.*, heads.N.{main0,main1}.{conv,bn}.*, heads.N.cls.*."""
+    sd: SD = {}
+    dino = params["dino"]
+    sd["dino.patch_embed.weight"] = _conv(dino["patch_weight"])
+    sd["dino.patch_embed.bias"] = _arr(dino["patch_bias"])
+    sd["dino.cls_token"] = _arr(dino["cls_token"])
+    sd["dino.pos_embed"] = _arr(dino["pos_embed"])
+    i = 0
+    while f"blocks_{i}" in dino:
+        _vit_block(sd, dino[f"blocks_{i}"], f"dino.blocks.{i}.")
+        i += 1
+    i = 0
+    while f"heads_{i}" in params:
+        hp, hb = params[f"heads_{i}"], (buffers or {}).get(f"heads_{i}", {})
+        for conv, path in ((hp["main0"]["conv"], ("main0", "conv")),
+                           (hp["main1"]["conv"], ("main1", "conv")), (hp["cls"], ("cls",))):
+            prefix = f"heads.{i}." + ".".join(path) + "."
+            sd[prefix + "weight"] = _arr(conv["weight"])
+            sd[prefix + "bias"] = _arr(conv["bias"])
+            b = hb
+            for k in path:
+                b = b[k]
+            sd[prefix + "u"], sd[prefix + "v"] = _arr(b["u"]), _arr(b["v"])
+        for blk in ("main0", "main1"):
+            _norm(sd, hp[blk]["bn"], f"heads.{i}.{blk}.bn.")
+        i += 1
+    return sd
+
+
+def lpips_state_dict_from_jax(params: Mapping[str, Any]) -> SD:
+    """JAX LPIPS params -> the port's state_dict (numpy): net.conv{i}.*, lin{k}.weight."""
+    sd: SD = {}
+    net = params["net"]
+    i = 0
+    while f"conv{i}_weight" in net:
+        sd[f"net.conv{i}.weight"] = _conv(net[f"conv{i}_weight"])
+        sd[f"net.conv{i}.bias"] = _arr(net[f"conv{i}_bias"])
+        i += 1
+    k = 0
+    while f"lin{k}_weight" in params:
+        sd[f"lin{k}.weight"] = _t(params[f"lin{k}_weight"])[:, :, None, None]
+        k += 1
+    return sd
+
+
 def geometry_from_kwargs(kwargs: Mapping[str, Any]) -> Dict[str, Any]:
     """The `geometry` of state_dict_from_jax for Generator keyword arguments."""
     from .synthesis import synthesis_channels
@@ -237,7 +297,7 @@ def load_state_dict_numpy(module: torch.nn.Module, sd: Mapping[str, np.ndarray])
         src = np.asarray(sd[key])
         if src.size != dst.numel():
             raise ValueError(f"{key}: {src.shape} does not fit {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32)).reshape(dst.shape))
+        dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)).reshape(dst.shape))
 
 
 def load_jax_variables(module: torch.nn.Module, params: Mapping[str, Any],

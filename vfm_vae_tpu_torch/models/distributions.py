@@ -21,3 +21,8 @@ class DiagonalGaussianDistribution:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL to the standard normal, summed per sample: (B,)."""
+        var = torch.exp(self.logvar)
+        return 0.5 * (self.mean.square() + var - 1.0 - self.logvar).sum(dim=(1, 2, 3))

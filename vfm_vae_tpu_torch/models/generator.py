@@ -1,27 +1,32 @@
-"""VFM-VAE Generator, tokenizer API (port of vfm_vae_tpu/models/generator.py:
-`encode` and `decode`): frozen SigLIP encoder -> LDM adapter -> diagonal
-Gaussian z; z -> adapter decompress -> mapping -> ConvNeXt synthesis.
+"""VFM-VAE Generator (port of vfm_vae_tpu/models/generator.py): the
+tokenizer API `encode` and `decode` (frozen SigLIP encoder -> LDM adapter ->
+diagonal Gaussian z; z -> adapter decompress -> mapping -> ConvNeXt
+synthesis), the training `forward` with equivariance regularisation and the
+adapter's VF and KL losses, and the train_mode freezing rules
+(`trainable_path_predicates`, `trainable_names`).
 
 Constructor keywords are the JAX Generator's. The slice ports the
 unconditional, continuous, attnproj, ConvNeXt, multiscale configuration;
-other values raise. The training-only keywords of the flagship and tiny
-configurations (use_kl_loss, num_fp16_res, conv_clamp, label_dim) are
-accepted and have no effect on encode/decode.
+other values raise. Keywords that no computation of the port reads
+(num_fp16_res, conv_clamp, label_dim; use_adaptive_vf_loss, which the loss
+reads) are accepted.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from ..ops.resize import resize_bilinear, rot90
 from .adapter import LDMAdapter
+from .dataclasses import GeneratorForwardOutput
 from .layers import Module, init_parameters
 from .synthesis import MappingNetwork, SynthesisNetwork, pooled_z
 from .vfm import VFMEncoder
 
-# Keywords of the flagship and tiny configurations that only training reads.
-_TRAINING_ONLY = {"use_kl_loss", "num_fp16_res", "conv_clamp", "label_dim"}
+# Keywords of the flagship and tiny configurations that no port computation reads.
+_TRAINING_ONLY = {"num_fp16_res", "conv_clamp", "label_dim", "use_adaptive_vf_loss"}
 
 
 class Generator(Module):
@@ -63,6 +68,11 @@ class Generator(Module):
         legacy: bool = False,
         synthesis_kwargs: Optional[Dict[str, Any]] = None,
         use_vf_loss: bool = False,
+        use_kl_loss: bool = False,
+        distmat_margin: float = 0.0,
+        cos_margin: float = 0.0,
+        distmat_weight: float = 1.0,
+        cos_weight: float = 1.0,
         dtype: torch.dtype = torch.float32,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -100,7 +110,8 @@ class Generator(Module):
         self.ldm_adapter = LDMAdapter(
             patch_from_layers, [patch_res] * len(patch_from_layers), patch_in_dimensions,
             patch_out_dimensions, decompress_factor, attnproj_quant_layers,
-            attnproj_post_quant_layers, z_resolution, z_dimension, use_vf_loss, device=device,
+            attnproj_post_quant_layers, z_resolution, z_dimension, use_vf_loss, use_kl_loss,
+            distmat_margin, cos_margin, distmat_weight, cos_weight, device=device,
         )
         self.synthesis = SynthesisNetwork(
             w_dim=z_dim_for_mapping_mlp_output, img_resolution=img_resolution,
@@ -138,8 +149,52 @@ class Generator(Module):
         ws = self.mapping(pooled_z(z, self.z_pooled_resolution), truncation_psi)
         return self.synthesis(z, ws)
 
+    def forward(self, img: torch.Tensor, eq: Tuple[float, int, bool] = (1.0, 0, False),
+                generator: Optional[torch.Generator] = None,
+                update_buffers: bool = False) -> GeneratorForwardOutput:
+        """Training forward (generator.py:257-304). img (B, H, W, 3) in [0, 1];
+        eq = (scale, rot90 angle, is_prior) from EquivarianceTransform. A prior
+        bucket shrinks the tower's input; a latent bucket resizes and rotates
+        z. `generator` draws the posterior sample (None: the mode).
+        update_buffers advances the mapping's x_avg, as the G phase does."""
+        scale, angle, prior = eq
+        feats = self.vfm_encoder.encode_image(img, scale if prior else 1.0, prior)
+        z, vf_loss, kl_loss = self.ldm_adapter.encode_train(feats, generator)
+        if not prior:
+            if scale != 1.0:
+                z = resize_bilinear(z, scale_factor=scale)
+            z = rot90(z, angle, dims=(2, 1))
+        z = self.ldm_adapter.decode(z)
+        ws = self.mapping(pooled_z(z, self.z_pooled_resolution), update_x_avg=update_buffers)
+        gen_img, gen_ms = self.synthesis(z, ws, return_multiscale=True)
+        return GeneratorForwardOutput(gen_img, gen_ms, vf_loss, kl_loss, scale, angle)
+
+    def vf_anchor(self) -> torch.nn.Parameter:
+        """The adaptive VF weight's anchor (adapter.py:406-412): the last
+        final-quant block's GeGLU output projection."""
+        return self.ldm_adapter.final_quant.blocks[-1].mlp.w2.weight
+
     def use_plain_kernels(self, plain: bool = True) -> None:
         """Route every K1-K3 site to its plain PyTorch twin (comparison runs)."""
         for m in self.modules():
             if hasattr(m, "plain"):
                 m.plain = plain
+
+
+def trainable_path_predicates(train_mode: str) -> List[str]:
+    """Parameter-name prefixes that train under `train_mode`
+    (generator.py:338-372) for the unconditional configuration; the VFM
+    tower never trains."""
+    if train_mode == "train_all":
+        return ["synthesis", "mapping.mlp", "ldm_adapter"]
+    if train_mode == "train_decoder":
+        return ["synthesis", "mapping.mlp", "ldm_adapter.post_quant"]
+    raise NotImplementedError(f"train_mode {train_mode!r} is not ported")
+
+
+def trainable_names(module: torch.nn.Module, predicates: Sequence[str]) -> Set[str]:
+    """The port's form of trainable_mask (generator.py:375-387): the set of
+    parameter names under one of the prefixes, never inside the VFM."""
+    return {name for name, _ in module.named_parameters()
+            if any(name == p or name.startswith(p + ".") for p in predicates)
+            and not name.startswith("vfm_encoder.")}

@@ -96,8 +96,13 @@ class MappingNetwork(Module):
                        lr_multiplier=0.01, linear_out=True, device=device)
         self.register_buffer("x_avg", torch.zeros(z_dim_output, device=device))
 
-    def forward(self, z: torch.Tensor, truncation_psi: float = 1.0) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, truncation_psi: float = 1.0,
+                update_x_avg: bool = False) -> torch.Tensor:
+        """update_x_avg: the training forward's moving average of the mapped
+        latent (beta 0.995, synthesis.py:497-500), replaced out of place."""
         x = self.mlp(normalize_2nd_moment(z))
+        if update_x_avg:
+            self.x_avg = (x.detach().float().mean(0) * (1 - 0.995) + self.x_avg * 0.995)
         if truncation_psi != 1:
             x = self.x_avg[None] + truncation_psi * (x - self.x_avg[None])
         return x[:, None, :].expand(-1, self.num_ws, -1)
@@ -185,10 +190,13 @@ class SynthesisNetwork(Module):
         self.z_convs = nn.ModuleDict(zconvs)
         self.num_ws = sum(b.num_ws for b in blocks)
 
-    def forward(self, z: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-        """z (B, zr, zr, z_dim), ws (B, num_ws, w_dim) -> the last block's image, fp32."""
+    def forward(self, z: torch.Tensor, ws: torch.Tensor, return_multiscale: bool = False):
+        """z (B, zr, zr, z_dim), ws (B, num_ws, w_dim) -> the last block's
+        image, fp32; with return_multiscale also the other blocks' images,
+        largest first (synthesis.py:686-711)."""
         ws = ws.float()
         x = x_sum = img = None
+        multiscale = []
         w_idx = 0
         for idx, block in enumerate(self.blocks):
             if idx in self.concat_z:
@@ -196,7 +204,9 @@ class SynthesisNetwork(Module):
                 x = zc if x is None else torch.cat([x, zc.to(x.dtype)], dim=-1)
             x, x_sum, img = block(x, x_sum, ws[:, w_idx:w_idx + block.num_ws])
             w_idx += block.num_ws
-        return img
+            if idx != len(self.blocks) - 1:
+                multiscale.append(img)
+        return (img, multiscale[::-1]) if return_multiscale else img
 
 
 def pooled_z(z: torch.Tensor, resolution: int) -> torch.Tensor:

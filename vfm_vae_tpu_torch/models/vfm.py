@@ -1,7 +1,7 @@
 """Frozen vision-foundation-model encoder, SigLIP family (port of
 vfm_vae_tpu/models/vfm.py: presets, `vfm_preset` with its local
-config.json fallback, `VFMEncoder.preprocess`, `_hidden_indices` and
-`encode_image`). Parameter keys follow the reference wrapper:
+config.json fallback, `VFMEncoder.preprocess` with the EQ-prior
+down-scale, `_hidden_indices` and `encode_image`). Parameter keys follow the reference wrapper:
 encoder.vision_model.vision_model.<HF SiglipVisionTransformer keys>."""
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ class VFMEncoder(Module):
         super().__init__()
         if "siglip" not in model_name.lower():
             raise NotImplementedError(f"only the SigLIP family is ported: {model_name!r}")
+        self.model_name = model_name
         self.preset = vfm_preset(model_name)
         self.scale_factor = scale_factor
         self.patch_from_layers = list(patch_from_layers)
@@ -94,8 +95,13 @@ class VFMEncoder(Module):
         n = self.preset["num_layers"]
         return [i if i >= 0 else n + (i + 1) for i in self.patch_from_layers if i != -1]
 
-    def preprocess(self, img: torch.Tensor) -> torch.Tensor:
-        """[0, 1] NHWC -> SigLIP input: bilinear x scale_factor, (x - 0.5) / 0.5."""
+    def preprocess(self, img: torch.Tensor, eq_scale_factor: float = 1.0,
+                   is_eq_prior: bool = False) -> torch.Tensor:
+        """[0, 1] NHWC -> SigLIP input: for an EQ-prior bucket an antialiased
+        bilinear down-scale first (vfm.py:248-267), then bilinear x
+        scale_factor, (x - 0.5) / 0.5."""
+        if is_eq_prior and eq_scale_factor < 1.0:
+            img = resize_bilinear(img, scale_factor=eq_scale_factor, antialias=True)
         if self.scale_factor != 1.0:
             img = resize_bilinear(img, scale_factor=self.scale_factor,
                                   antialias=self.scale_factor < 1.0)
@@ -103,9 +109,12 @@ class VFMEncoder(Module):
         return (img - mean) / std
 
     @torch.no_grad()
-    def encode_image(self, img: torch.Tensor) -> List[torch.Tensor]:
-        """(B, H, W, 3) in [0, 1] -> one fp32 (B, N, D) feature per patch_from_layers entry."""
-        x = self.preprocess(img).to(self.dtype)
+    def encode_image(self, img: torch.Tensor, eq_scale_factor: float = 1.0,
+                     is_eq_prior: bool = False) -> List[torch.Tensor]:
+        """(B, H, W, 3) in [0, 1] -> one fp32 (B, N, D) feature per
+        patch_from_layers entry. The tower is frozen: no gradient is recorded,
+        and a smaller EQ-prior grid interpolates the position embedding."""
+        x = self.preprocess(img, eq_scale_factor, is_eq_prior).to(self.dtype)
         hidden, last = self.tower(x, collect=self._hidden_indices())
         n = self.preset["num_layers"]
         feats = [last if i == -1 else hidden[i if i >= 0 else n + (i + 1)]

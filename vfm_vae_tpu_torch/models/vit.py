@@ -65,14 +65,16 @@ class ViTMLP(Module):
 
 
 class ViTBlock(Module):
-    """Pre-LN block (HF SiglipEncoderLayer names)."""
+    """Pre-LN block (HF SiglipEncoderLayer names); `act` "gelu" is the exact
+    GELU of the DINO blocks, "gelu_tanh" SigLIP's."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_dim: int, eps: float = 1e-6, device=None):
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int, eps: float = 1e-6,
+                 act: str = "gelu_tanh", device=None):
         super().__init__()
         self.layer_norm1 = LayerNormFp32(dim, eps, device=device)
         self.self_attn = MultiHeadSelfAttention(dim, num_heads, device=device)
         self.layer_norm2 = LayerNormFp32(dim, eps, device=device)
-        self.mlp = ViTMLP(dim, mlp_dim, device=device)
+        self.mlp = ViTMLP(dim, mlp_dim, act, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x))

@@ -20,9 +20,12 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu")
+SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu",
+           "flash_attention_nullkv_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -35,7 +38,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vfm_fused_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vfm_fused_upsample_blur": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vfm_flash_attention_nullkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "vfm_flash_attention_nullkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "vfm_flash_attention_nullkv_bwd_dkv": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
+    "vfm_flash_attention_nullkv_bwd_dq": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
 }
 
 
@@ -87,6 +92,15 @@ def _build(out: Path) -> str:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a half-written library is never loaded
     return proc.stdout + proc.stderr
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record through a raw kernel launch: the
+    kernel's output has no grad_fn, so its inputs would get no gradient. The
+    launch belongs inside its torch.autograd.Function."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: raw kernel launch on tensors that require grad; "
+                           "call it through its autograd.Function")
 
 
 def check_tensor(t, name: str, dtype, shape, device) -> None:

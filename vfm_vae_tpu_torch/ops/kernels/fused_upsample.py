@@ -17,6 +17,12 @@ reaches device memory.
 
 Weights use the torch layout: dw (Ci, 3, 3), pw (4Co, Ci) with output
 channel c*4 + q for subpixel q.
+
+Gradients: `FusedUpsampleBlur` is the port of the JAX custom VJP
+(vfm_vae_tpu/ops/pallas/fused_upsample.py:258-276) widened to both legs,
+since the vertical leg is a kernel here: its forward is the K2 kernels, its
+backward recomputes the plain twin under autograd and pulls its VJP, as
+`_fused_bwd` does with jax.vjp(_forward_jnp).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..pixelshuffle import pixel_shuffle
-from ._build import check_tensor, library
+from ._build import check_tensor, library, refuse_grad
 
 
 def edge_blur(s: torch.Tensor, taps: Sequence[float], dim: int) -> torch.Tensor:
@@ -58,15 +64,8 @@ def fused_upsample_blur_reference(x, a, c, dw, pw, taps):
     return edge_blur(edge_blur(s, taps, 2), taps, 1)
 
 
-def fused_upsample_blur(x, a, c, dw, pw, taps: Sequence[float], *, plain: bool = False):
-    """x (B, H, W, Ci); a, c (B, Ci) folded GN affine; dw (Ci, 3, 3); pw
-    (4Co, Ci); taps: normalized odd-length 1-D blur (<= 5 taps). Returns
-    (B, 2H, 2W, Co). CPU tensors (or plain=True) run the twin; CUDA tensors
-    launch the kernels: bf16 x and pw, fp32 a, c, dw, Ci and Co multiples
-    of 32."""
-    taps = [float(v) for v in taps]
-    if plain or x.device.type == "cpu":
-        return fused_upsample_blur_reference(x, a, c, dw, pw, taps)
+def _launch(x, a, c, dw, pw, taps):
+    refuse_grad("fused_upsample_blur", x, a, c, dw, pw)
     B, H, W, Ci = x.shape
     Co = pw.shape[0] // 4
     if Ci % 32 or Co % 32 or len(taps) % 2 == 0 or len(taps) > 5:
@@ -91,6 +90,43 @@ def fused_upsample_blur(x, a, c, dw, pw, taps: Sequence[float], *, plain: bool =
     lib.check(err, "fused_upsample_blur")
     fused_upsample_blur.launches += 1
     return out
+
+
+def _forward(x, a, c, dw, pw, taps, plain: bool):
+    if plain or x.device.type == "cpu":
+        return fused_upsample_blur_reference(x, a, c, dw, pw, taps)
+    return _launch(x, a, c, dw, pw, taps)
+
+
+class FusedUpsampleBlur(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, c, dw, pw, taps, plain: bool):
+        ctx.save_for_backward(x, a, c, dw, pw)
+        ctx.taps = taps
+        return _forward(x, a, c, dw, pw, taps, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = fused_upsample_blur_reference(*inputs, ctx.taps)
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(got) if t.requires_grad else None for t in inputs), None, None)
+
+
+def fused_upsample_blur(x, a, c, dw, pw, taps: Sequence[float], *, plain: bool = False):
+    """x (B, H, W, Ci); a, c (B, Ci) folded GN affine; dw (Ci, 3, 3); pw
+    (4Co, Ci); taps: normalized odd-length 1-D blur (<= 5 taps). Returns
+    (B, 2H, 2W, Co). CPU tensors (or plain=True) run the twin; CUDA tensors
+    launch the kernels: bf16 x and pw, fp32 a, c, dw, Ci and Co multiples
+    of 32. Differentiable through FusedUpsampleBlur."""
+    taps = [float(v) for v in taps]
+    args = (x, a, c, dw, pw)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FusedUpsampleBlur.apply(*args, taps, plain)
+    return _forward(*args, taps, plain)
 
 
 fused_upsample_blur.launches = 0

@@ -1,7 +1,9 @@
 """Resampling with torch's F.interpolate / adaptive-pool conventions as
-matrix products (port of vfm_vae_tpu/ops/resize.py, bilinear and adaptive
-average pooling; the resampling matrices are the JAX package's, built with
-numpy on the host)."""
+matrix products (port of vfm_vae_tpu/ops/resize.py: bilinear, bicubic,
+adaptive average pooling and the integer-angle rot90; the resampling
+matrices are the JAX package's, built with numpy on the host). The angle of
+`rot90` is a host integer: eager PyTorch takes the host-sampled EQ angle, so
+the JAX package's traced-angle variant has no counterpart here."""
 
 from __future__ import annotations
 
@@ -111,6 +113,21 @@ def resize_bilinear(x: torch.Tensor, size=None, scale_factor=None, antialias: bo
     Mh = resize_matrix(int(x.shape[1]), oh, "linear", antialias)
     Mw = resize_matrix(int(x.shape[2]), ow, "linear", antialias)
     return _apply_hw(x, Mh, Mw)
+
+
+def resize_bicubic(x: torch.Tensor, size=None, scale_factor=None, antialias: bool = False):
+    """F.interpolate(mode='bicubic', align_corners=False) on NHWC; with
+    antialias, PIL's support-scaled cubic (a = -0.5)."""
+    oh, ow = _out_hw(x.shape, size, scale_factor)
+    Mh = resize_matrix(int(x.shape[1]), oh, "cubic", antialias)
+    Mw = resize_matrix(int(x.shape[2]), ow, "cubic", antialias)
+    return _apply_hw(x, Mh, Mw)
+
+
+def rot90(x: torch.Tensor, k: int, dims=(2, 1)) -> torch.Tensor:
+    """jnp.rot90(x, k, axes=dims) for a host integer k (identity when k % 4 == 0)."""
+    k = int(k) % 4
+    return torch.rot90(x, k, dims=list(dims)) if k else x
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:

@@ -1,0 +1,311 @@
+"""GAN + reconstruction losses, the stage-0 subset (port of
+vfm_vae_tpu/train/loss.py; reference training/loss.py).
+
+`g_terms` returns the vector of raw G loss terms in G_TERMS order (zero for
+the terms the configuration turns off); the train step derives the
+training gradient from the weighted sum and the adaptive VF weight from
+gradients of the rec-weighted sum and of the VF term at the adapter anchor.
+The safe-loss checks are tensor operations, as in the JAX package. Value
+ranges: real images in [0, 1], generated in [-1, 1].
+
+Not ported, and refused at construction: PatchGAN and feature matching
+(stage 3), SSIM (stage 2), CLIP and matching-aware losses, the
+discriminator warm-up state machine, the discrete (VQ) mode and the blur
+schedule (a blur sigma above 0).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..core import stats as tstats
+from ..ops.resize import resize_bicubic, resize_bilinear, rot90
+
+G_TERMS = (
+    "l1_pixel_loss",
+    "l2_pixel_loss",
+    "perceptual_loss",
+    "ssim_loss",
+    "multiscale_pixel_loss",
+    "stylegan_t_gen_loss",
+    "patchgan_gen_loss",
+    "feature_matching_loss",
+    "clip_loss",
+    "vf_loss",
+    "kl_loss",
+    "vq_loss",
+    "entropy_loss",
+)
+# Terms subject to the 10x-previous check (loss.py:884); the rest only get
+# the finiteness check.
+G_REC_TERMS = ("l1_pixel_loss", "l2_pixel_loss", "perceptual_loss", "ssim_loss",
+               "multiscale_pixel_loss")
+# Terms tracked across steps (loss.py:858-868).
+G_TRACKED = G_TERMS[:9]
+D_TERMS = (
+    "stylegan_t_gen_loss",
+    "stylegan_t_real_loss",
+    "patchgan_gen_loss",
+    "patchgan_real_loss",
+    "matching_aware_loss",
+)
+SAFE_LOSS_CHECKING_START_NIMG = 50_000
+
+
+@dataclass
+class LossState:
+    """Cross-step G loss state: the previous tracked terms and whether there are any."""
+
+    prev_g_loss: torch.Tensor  # (len(G_TRACKED),) fp32
+    has_prev: torch.Tensor  # () bool
+
+
+def init_loss_state(device) -> LossState:
+    return LossState(torch.zeros(len(G_TRACKED), device=device),
+                     torch.zeros((), dtype=torch.bool, device=device))
+
+
+def blur_image(img: torch.Tensor, blur_sigma: float) -> torch.Tensor:
+    """The 2^-x blur of loss.py:224-231 at sigma 0 (the identity); larger
+    sigmas belong to the unported blur schedule."""
+    if int(blur_sigma * 3) > 0:
+        raise NotImplementedError("blur_sigma > 0 is not ported")
+    return img
+
+
+def hinge_d_loss(logits: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "real":
+        return torch.relu(1.0 - logits).mean()
+    return torch.relu(1.0 + logits).mean()
+
+
+class ImageTransform:
+    """EQ alignment of real images and multiscale target resizing
+    (loss.py:167-192); the angle is a host integer."""
+
+    def __init__(self, apply_equivariance: bool, interpolation: str):
+        self.apply_equivariance = apply_equivariance
+        self.interpolation = interpolation
+
+    def _resize(self, img, *, size=None, scale_factor=None):
+        fn = resize_bicubic if self.interpolation == "bicubic" else resize_bilinear
+        if size is not None:
+            return fn(img, size=(size, size), antialias=size < img.shape[1])
+        return fn(img, scale_factor=scale_factor, antialias=scale_factor < 1.0)
+
+    def __call__(self, img, eq_scale_factor: float, eq_angle_factor: int):
+        if self.apply_equivariance:
+            if eq_scale_factor != 1.0:
+                img = self._resize(img, scale_factor=eq_scale_factor)
+            img = rot90(img, eq_angle_factor, dims=(2, 1))
+        return img
+
+    def multiscale(self, img, targets):
+        return [self._resize(img, size=int(t.shape[1])) for t in targets]
+
+
+class TotalLoss:
+    """Stage-0 loss configuration bound to the port's G, D and LPIPS modules.
+    Keywords are the JAX TotalLoss's (training/loss.py:77-112)."""
+
+    def __init__(
+        self,
+        G,
+        D,
+        vfm_name: str,
+        resume_kimg: int = 0,
+        use_equivariance_regularization: bool = False,
+        lpips_module=None,
+        blur_init_sigma: float = 2.0,
+        blur_fade_kimg: int = 0,
+        l1_pixel_loss_weight: float = 1.0,
+        l2_pixel_loss_weight: float = 0.0,
+        perceptual_loss_weight: float = 10.0,
+        ssim_loss_weight: float = 0.0,
+        multiscale_pixel_loss_weights: Sequence[float] = (),
+        multiscale_block_indices: Sequence[int] = (),
+        multiscale_pixel_loss_start_kimg: int = 0,
+        multiscale_pixel_loss_end_kimg: int = 2000,
+        vf_loss_weight: float = 0.0,
+        use_adaptive_vf_loss: bool = False,
+        clip_loss_weight: float = 0.0,
+        matching_aware_loss_weight: float = 0.0,
+        compression_mode: str = "continuous",
+        kl_loss_weight: float = 1e-6,
+        stylegan_t_discriminator_loss_weight: float = 1.0,
+        patchgan_discriminator_loss_weight: float = 0.0,
+        feature_matching_loss_weight: float = 1.0,
+        use_stylegan_t_disc_warmup: bool = False,
+        use_patchgan_disc_warmup: bool = False,
+        total_kimg: int = 0,
+    ):
+        unsupported = {
+            "patchgan_discriminator_loss_weight": patchgan_discriminator_loss_weight > 0,
+            "ssim_loss_weight": ssim_loss_weight > 0,
+            "clip_loss_weight": clip_loss_weight > 0,
+            "matching_aware_loss_weight": matching_aware_loss_weight > 0,
+            "use_stylegan_t_disc_warmup": use_stylegan_t_disc_warmup,
+            "use_patchgan_disc_warmup": use_patchgan_disc_warmup,
+            "compression_mode": compression_mode != "continuous",
+            "blur_fade_kimg": blur_fade_kimg > 1,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(f"TotalLoss: not ported for {bad}")
+        self.G, self.D, self.lpips = G, D, lpips_module
+        name = vfm_name.lower()
+        interp = "bicubic" if any(k in name for k in ("qwen", "dino", "eva")) else "bilinear"
+        self.img_transform = ImageTransform(use_equivariance_regularization, interp)
+        self.resume_kimg = resume_kimg
+        self.l1_pixel_loss_weight = l1_pixel_loss_weight
+        self.l2_pixel_loss_weight = l2_pixel_loss_weight
+        self.perceptual_loss_weight = perceptual_loss_weight
+        self.multiscale_pixel_loss_weights = list(multiscale_pixel_loss_weights)
+        self.multiscale_block_indices = list(multiscale_block_indices)
+        self.multiscale_pixel_loss_start_kimg = multiscale_pixel_loss_start_kimg
+        self.multiscale_pixel_loss_end_kimg = multiscale_pixel_loss_end_kimg
+        self.vf_loss_weight = vf_loss_weight
+        self.use_adaptive_vf_loss = use_adaptive_vf_loss
+        self.kl_loss_weight = kl_loss_weight
+        self.stylegan_t_discriminator_loss_weight = stylegan_t_discriminator_loss_weight
+        self.stylegan_t_on = stylegan_t_discriminator_loss_weight > 0
+        self.pixel_loss_on = l1_pixel_loss_weight > 0 or l2_pixel_loss_weight > 0
+        self.perceptual_loss_on = perceptual_loss_weight > 0
+        self.multiscale_pixel_loss_on = sum(self.multiscale_pixel_loss_weights) > 0
+
+    # ------------------------------------------------------------ G terms
+
+    def g_terms(self, real_img: torch.Tensor, eq: Tuple[float, int, bool], cur_nimg: float,
+                generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0,
+                update_buffers: bool = True):
+        """(terms list in G_TERMS order, aux). Differentiable with respect to
+        G's parameters; D runs with its parameters in the graph, so the caller
+        takes gradients with respect to G's parameters only (loss.py:317-456).
+        `generator` draws the posterior sample and D's augmentation and crop."""
+        stats: Dict[str, torch.Tensor] = {}
+        gen_out = self.G(real_img, eq, generator=generator, update_buffers=update_buffers)
+        gen_img = gen_out.gen_img
+        zero = gen_img.new_zeros(())
+        terms = {name: zero for name in G_TERMS}
+
+        if self.stylegan_t_on:
+            logits = self.D(blur_image(gen_img, blur_sigma), generator).stylegan_t_logits
+            terms["stylegan_t_gen_loss"] = (-logits).mean()
+            tstats.report(stats, "Loss/G/stylegan_t/fake_scores", logits)
+            tstats.report(stats, "Loss/G/stylegan_t/fake_signs", torch.sign(logits))
+
+        eq_scale, eq_angle, _ = eq
+        real_t = self.img_transform(real_img, eq_scale, eq_angle)
+        real_pm1 = real_t * 2.0 - 1.0
+
+        if self.pixel_loss_on and self.l1_pixel_loss_weight > 0:
+            terms["l1_pixel_loss"] = (real_pm1 - gen_img).abs().mean()
+        if self.pixel_loss_on and self.l2_pixel_loss_weight > 0:
+            terms["l2_pixel_loss"] = (real_pm1 - gen_img).square().mean()
+        if self.perceptual_loss_on:
+            terms["perceptual_loss"] = self.lpips(real_pm1, gen_img).mean()
+
+        if self.multiscale_pixel_loss_on:
+            real_ms = self.img_transform.multiscale(real_t, gen_out.gen_multiscale_imgs)
+            in_window = float(self.multiscale_pixel_loss_start_kimg * 1e3 <= cur_nimg
+                              < self.multiscale_pixel_loss_end_kimg * 1e3)
+            ms_total = zero
+            for i, gen_ms in enumerate(gen_out.gen_multiscale_imgs):
+                w = (self.multiscale_pixel_loss_weights[self.multiscale_block_indices.index(i)]
+                     if i in self.multiscale_block_indices else 0.0)
+                li = (real_ms[i] * 2 - 1 - gen_ms).abs().mean()
+                ms_total = ms_total + w * li
+                tstats.report(stats, f"Loss/G/multiscale_pixel_loss_block{i:01d}", li)
+            terms["multiscale_pixel_loss"] = ms_total * in_window
+
+        if self.vf_loss_weight > 0:
+            terms["vf_loss"] = gen_out.vf_loss
+        terms["kl_loss"] = gen_out.kl_loss
+        aux = {"stats": stats, "gen_img": gen_img.detach()}
+        return [terms[name] for name in G_TERMS], aux
+
+    def g_weights(self, cur_vf_weight) -> torch.Tensor:
+        """Weights in G_TERMS order (loss.py:458-475); `cur_vf_weight` may be a tensor."""
+        vf = torch.as_tensor(cur_vf_weight, dtype=torch.float32)
+        w = self.rec_weights().to(vf.device)
+        if self.stylegan_t_on:
+            w[G_TERMS.index("stylegan_t_gen_loss")] = self.stylegan_t_discriminator_loss_weight
+        w[G_TERMS.index("kl_loss")] = self.kl_loss_weight
+        w[G_TERMS.index("vf_loss")] = vf
+        return w
+
+    def rec_weights(self) -> torch.Tensor:
+        """The weights that select main_rec_loss (loss.py:794-810)."""
+        w = torch.zeros(len(G_TERMS))
+        idx = {n: i for i, n in enumerate(G_TERMS)}
+        if self.pixel_loss_on:
+            w[idx["l1_pixel_loss"]] = self.l1_pixel_loss_weight
+            w[idx["l2_pixel_loss"]] = self.l2_pixel_loss_weight
+        if self.perceptual_loss_on:
+            w[idx["perceptual_loss"]] = self.perceptual_loss_weight
+        if self.multiscale_pixel_loss_on:
+            w[idx["multiscale_pixel_loss"]] = 1.0
+        return w
+
+    # ------------------------------------------------------------ G safety
+
+    def g_safe(self, terms: Sequence[torch.Tensor], state: LossState, cur_nimg: float):
+        """Safe-loss check (loss.py:499-519): (skip, per-term safe marks, new state)."""
+        vals = torch.stack([terms[G_TERMS.index(n)].detach().float() for n in G_TRACKED])
+        finite = torch.isfinite(vals)
+        too_large = (state.prev_g_loss > 1e-6) & (vals > state.prev_g_loss * 10)
+        is_rec = torch.tensor([n in G_REC_TERMS for n in G_TRACKED], device=vals.device)
+        unsafe = torch.where(is_rec, ~finite | too_large, ~finite)
+        active = cur_nimg > self.resume_kimg * 1e3 + SAFE_LOSS_CHECKING_START_NIMG
+        unsafe = unsafe & state.has_prev & active
+        skip = unsafe.any()
+        clean = torch.nan_to_num(vals, nan=0.0, posinf=0.0, neginf=0.0)
+        new_state = LossState(torch.where(skip, state.prev_g_loss, clean), state.has_prev | ~skip)
+        return skip, (~unsafe).to(torch.int32), new_state
+
+    # ------------------------------------------------------------ D loss
+
+    def d_loss(self, real_img: torch.Tensor, eq: Tuple[float, int, bool], cur_nimg: float,
+               generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0):
+        """Scalar D loss + aux; G runs without gradient (loss.py:523-546)."""
+        with torch.no_grad():
+            gen_img = self.G(real_img, eq, generator=generator).gen_img
+        return self.d_loss_from_gen(gen_img, real_img, eq, cur_nimg, generator, blur_sigma)
+
+    def d_loss_from_gen(self, gen_img, real_img, eq, cur_nimg: float,
+                        generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0):
+        """D loss given a generated image (loss.py:548-654), with the safe
+        check and nan_to_num of the total."""
+        stats: Dict[str, torch.Tensor] = {}
+        gen_d = self.D(blur_image(gen_img.detach(), blur_sigma), generator).stylegan_t_logits
+        eq_scale, eq_angle, _ = eq
+        real_t = self.img_transform(real_img, eq_scale, eq_angle) * 2.0 - 1.0
+        real_d = self.D(blur_image(real_t, blur_sigma), generator).stylegan_t_logits
+        zero = gen_d.new_zeros(())
+        terms = {name: zero for name in D_TERMS}
+        if self.stylegan_t_on:
+            terms["stylegan_t_gen_loss"] = hinge_d_loss(gen_d, "fake")
+            terms["stylegan_t_real_loss"] = hinge_d_loss(real_d, "real")
+            tstats.report(stats, "Loss/D/stylegan_t/fake_scores", gen_d)
+            tstats.report(stats, "Loss/D/stylegan_t/fake_signs", torch.sign(gen_d))
+            tstats.report(stats, "Loss/D/stylegan_t/real_scores", real_d)
+            tstats.report(stats, "Loss/D/stylegan_t/real_signs", torch.sign(real_d))
+        st = terms["stylegan_t_gen_loss"] + terms["stylegan_t_real_loss"]
+        d_total = self.stylegan_t_discriminator_loss_weight * st
+
+        vals = torch.stack([terms[n].detach() for n in D_TERMS])
+        active = cur_nimg > self.resume_kimg * 1e3 + SAFE_LOSS_CHECKING_START_NIMG
+        unsafe = (~torch.isfinite(vals) | (vals.abs() > 1e4)) & active
+        skip = unsafe.any()
+        tstats.report(stats, "Loss/D/stylegan_t/gen_loss", terms["stylegan_t_gen_loss"])
+        tstats.report(stats, "Loss/D/stylegan_t/real_loss", terms["stylegan_t_real_loss"])
+        tstats.report(stats, "Loss/D/stylegan_t/loss", st)
+        tstats.report(stats, "Loss/D/skipped", skip.float())
+        for i, n in enumerate(D_TERMS):
+            tstats.report(stats, f"Loss/D/is_safe/{n}", (~unsafe[i]).float())
+        d_total = torch.where(skip, zero, torch.nan_to_num(d_total, nan=0.0, posinf=0.0,
+                                                            neginf=0.0))
+        return d_total, {"stats": stats, "skip": skip}
