@@ -18,12 +18,31 @@
    evaluation. K3's backward kernels (dK/dV and dQ) run against their
    plain twin and fp32 autograd at the flagship and EQ sequence lengths,
    and are timed beside the twin and SDPA's forward+backward.
+   The encoder's kernels: K6 (fused int8 quantize + GEMM, dynamic and
+   static scale) and K10 (its bare int8 GEMM) against their plain twins at
+   every tower Linear shape of one encode at B=2 and B=32 (one bf16 ulp
+   allowed; the twins agree bit for bit by construction) and on a
+   constructed case of exact halves (half to even), with the kernel's, the
+   twin's, torch._int_mm's and cuBLAS bf16's times and the bound; K4
+   (flash attention without a null token) against its twin and a float64
+   evaluation at the tower's bf16 site, the adapter's fp32 sites and one
+   d=128 shape, with SDPA's time and the bound.
 4. Slice phase: answers three encode -> decode requests of B=4 random
    256x256 images through the kernels, checks shapes, finiteness and the
    launch counts per decode, reruns one request with the plain twins
    selected and once more in fp32, prints the latent and pixel agreement,
    and prints the round trip's images/s at two batch sizes.
-5. Training phase: the stage-0 trainer (entry.flagship_trainer: full-width,
+5. Int8 serving phase (the README's fast serving configuration, bench.py's
+   run_int8): with VFM_VAE_USE_PALLAS_FLASH=1 and VFM_VAE_ADAPTER_ATTN=
+   3mm-flash, enable_int8_tower calibrates the tower on 32 random images,
+   three encode -> decode requests of B=4 run through K6, K4 and K1-K3;
+   gates on shapes, finiteness, the launch counts entry.kernel_sites
+   predicts, the latent moments against the same path with K6's twin, and
+   the int8 moments' and decode's distance from fp32 against the all-plain
+   int8 path's; prints
+   the int8-vs-bf16 drift, encode-only and round-trip img/s with the bf16
+   and the int8 tower at B=4 and B=32, and a profile of one int8 encode.
+6. Training phase: the stage-0 trainer (entry.flagship_trainer: full-width,
    full-depth G with the 24-layer SigLIP2-L, the StyleGAN-T D with a
    12-layer DINO ViT-S/16, random-weight LPIPS) takes 1 warm-up and 3 timed
    [D, G] steps at B=4 over EQ buckets drawn from a seeded numpy generator
@@ -92,6 +111,12 @@ SOURCES = {
     "flash_attention_nullkv_bwd_dq": (
         "vfm_vae_tpu_torch/csrc/flash_attention_nullkv_bwd.cu",
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+    # K4, K6 and K10 (the encoder's kernels).
+    "flash_attention_nonull": ("vfm_vae_tpu_torch/csrc/flash_attention_nullkv.cu",
+                               "vfm_vae_tpu/ops/pallas/flash_attention.py:53"),
+    "int8_matmul": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu",
+                    "vfm_vae_tpu/ops/pallas/int8_matmul.py:60"),
+    "int8_matmul_raw": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu", "tools/bench_int8_kernel.py:132"),
 }
 PER_DECODE = {"fused_convnext_mlp": 38, "fused_upsample_blur": 10, "flash_attention_nullkv": 6}
 # K3's backward against its twin: the same bounds as the forward (P and dS
@@ -100,9 +125,30 @@ BWD_TOLERANCE = TOLERANCES["flash_attention_nullkv"]
 # Stage-0 EQ buckets (scale, rot90 angle, is_prior) that the training phase
 # forces beside the drawn one: identity, a latent bucket, a prior bucket.
 FORCED_BUCKETS = [(1.0, 0, False), (0.5, 1, False), (0.75, 0, True)]
-# H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3), for the bounds.
+# H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, fp32 outside
+# the tensor cores, HBM3), for the bounds.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# K6 against its twin: the same quantize, exact int32 sums and the same fp32
+# epilogue order, so the two should agree bit for bit; the gate allows one
+# bf16 ulp of the twin's value anywhere. K4 in bf16 takes K3's bounds; in
+# fp32 the kernel and the twin differ only in summation order and exp2 vs
+# exp: max |kernel - twin| <= 1e-5 of max |twin|.
+INT8_ULPS = 1.0
+FLASH_FP32_MAX_REL = 1e-5
+# int8 serving, rel-L1 of the latent moments: the kernel path against the
+# same path with K6's plain twin at every tower Linear (the same scales, the
+# same K4 kernel). K6 and its twin agree bit for bit, so this isolates K6 in
+# the path. The all-plain path (K4's twin too) is held to the fp32 tower
+# instead (TRUTH_FACTOR): K4 and its twin round the probabilities at other
+# points (one bf16 ulp apart, as K3), and with the static int8 grid after
+# every attention such differences move values across rounding boundaries
+# and re-draw the quantization noise of the layers after them: on the card
+# (random weights) kernel vs all-plain came out as far apart as the int8
+# tower is from the bf16 tower (PERF.md, PR 3).
+INT8_MOMENTS_REL_L1 = 1e-2
 
 
 def gpu_line() -> str:
@@ -416,6 +462,235 @@ def k3_backward_phase(flagship_sites, eq_T, B: int = 2) -> dict:
     return acc, fb
 
 
+def bf16_ulps(got, ref) -> float:
+    """max |got - ref| in units of one bf16 ulp of the twin's value (2^-7 of
+    its binade; the smallest normal's ulp below it)."""
+    import torch
+
+    r = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    _, e = torch.frexp(r)
+    ulp = torch.ldexp(torch.ones_like(r), e - 8)
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def int8_work(M: int, K: int, N: int, raw: bool):
+    """(operations, bytes) of one K6 (or K10) call: x read once (bf16, raw
+    int8), the int8 weight once, ws and b once, y written once (bf16, raw int8)."""
+    ops = 2 * M * N * K
+    if raw:
+        return ops, M * K + N * K + M * N
+    return ops, 2 * M * K + N * K + 8 * N + 2 * M * N
+
+
+def int8_bound(M, K, N, raw=False):
+    ops, byts = int8_work(M, K, N, raw)
+    a, b = ops / PEAK_INT8_OPS * 1e3, byts / PEAK_BYTES_PER_S * 1e3
+    return max(a, b), ("operations" if a >= b else "bytes")
+
+
+def kernel_int8_phase(sites, batches=(2, 32)) -> dict:
+    """K6 (dynamic and static) and K10 against their twins at every tower
+    Linear shape of one encode, at B=2 and B=32 (M = B x 1024 tokens); a
+    constructed-ties case; times of the kernel, the twin, the library
+    (torch._int_mm with the quantize and rescale as PyTorch ops, timed and
+    never used) and cuBLAS bf16 on the same shape; the bound."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(808)
+    failed = []
+
+    # Ties: absmax 127 (scale 1), entries on .5, identity weight, unit scales:
+    # the output is the quantized row itself, which must round half to even.
+    K = 1024
+    x = torch.randint(-126, 126, (256, K), generator=gen, device=dev).float() + 0.5
+    x[:, 0] = 127.0
+    eye, ones = torch.eye(K, device=dev).to(torch.int8), torch.ones(K, device=dev)
+    xb = x.to(torch.bfloat16)
+    for label, args in (("dynamic", ()), ("static", (torch.tensor(1.0, device=dev),))):
+        got = kernels.int8_matmul(xb, eye, ones, None, *args)
+        twin = kernels.int8_matmul(xb, eye, ones, None, *args, plain=True)
+        torch.cuda.synchronize()
+        exact = torch.equal(got.float(), torch.round(x)) and torch.equal(got, twin)
+        away = int((torch.round(x) != torch.trunc(x + torch.sign(x) * 0.5)).sum())
+        print(f"[kernel-int8] ties {label}: 256 x {K} rows with absmax 127, {away} entries "
+              f"where half-to-even differs from half-away: kernel == rint(x) == twin {exact} "
+              f"{'OK' if exact else 'FAIL'}", flush=True)
+        if not exact:
+            failed.append(f"ties {label}")
+
+    summary = {"int8_matmul": dict(max_abs_err=0.0, max_ulps=0.0),
+               "int8_matmul_raw": dict(max_abs_err=0.0)}
+    for B in batches:
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, static_ms=0.0, static_plain_ms=0.0,
+                   static_library_ms=0.0, bf16_ms=0.0, raw_ms=0.0, raw_plain_ms=0.0,
+                   raw_library_ms=0.0, bound_ms=0.0, raw_bound_ms=0.0)
+        by = {}
+        for site in sites:
+            M, K, N, n = site["M"] * B, site["K"], site["N"], site["count"]
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+            ws = torch.rand(N, generator=gen, device=dev) * 2e-4 + 1e-4
+            b = torch.randn(N, generator=gen, device=dev) * 0.1
+            a_s = (x.float().abs().amax() / 127).reshape(())
+            xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+            w_bf = torch.randn(N, K, generator=gen, device=dev).to(torch.bfloat16)
+            res = {}
+            for mode, extra in (("dynamic", ()), ("static", (a_s,))):
+                got = kernels.int8_matmul(x, wq, ws, b, *extra)
+                ref = kernels.int8_matmul(x, wq, ws, b, *extra, plain=True)
+                torch.cuda.synchronize()
+                ulps = bf16_ulps(got, ref)
+                max_abs = float((got.float() - ref.float()).abs().max())
+                finite = bool(torch.isfinite(got.float()).all())
+                ok = finite and ulps <= INT8_ULPS
+                summary["int8_matmul"]["max_abs_err"] = max(summary["int8_matmul"]["max_abs_err"],
+                                                            max_abs)
+                summary["int8_matmul"]["max_ulps"] = max(summary["int8_matmul"]["max_ulps"], ulps)
+                ms = cuda_time_ms(lambda: kernels.int8_matmul(x, wq, ws, b, *extra))
+                plain_ms = cuda_time_ms(lambda: kernels.int8_matmul(x, wq, ws, b, *extra,
+                                                                    plain=True), reps=5)
+                lib_ms = cuda_time_ms(lambda: int_mm_library(x, wq, ws, b, *extra))
+                res[mode] = (ms, plain_ms, lib_ms)
+                print(f"[kernel-int8] {mode} M={M} K={K} N={N} (B={B}): max_abs={max_abs:.3e} "
+                      f"max_ulps={ulps:g} (tol {INT8_ULPS:g}) finite={finite} kernel_ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} x{n}/encode "
+                      f"{'OK' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failed.append(f"{mode} M={M} K={K} N={N}")
+            got = kernels.int8_matmul_raw(xq, wq)
+            ref = kernels.int8_matmul_raw(xq, wq, plain=True)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, ref)
+            raw_ms = cuda_time_ms(lambda: kernels.int8_matmul_raw(xq, wq))
+            raw_plain = cuda_time_ms(lambda: kernels.int8_matmul_raw(xq, wq, plain=True), reps=5)
+            raw_lib = cuda_time_ms(lambda: (torch._int_mm(xq, wq.t()) >> 8).to(torch.int8))
+            bf16_ms = cuda_time_ms(lambda: x @ w_bf.t())
+            bnd, b_by = int8_bound(M, K, N)
+            rbnd, _ = int8_bound(M, K, N, raw=True)
+            by[b_by] = by.get(b_by, 0) + n
+            print(f"[kernel-int8] raw (K10) M={M} K={K} N={N}: bit-exact {exact} kernel_ms="
+                  f"{raw_ms:.4f} plain_ms={raw_plain:.4f} library_ms={raw_lib:.4f}; bound "
+                  f"{bnd:.4f} ms ({b_by}), raw {rbnd:.4f} ms; cuBLAS bf16 {bf16_ms:.4f} ms; "
+                  f"kernel {int8_work(M, K, N, False)[0] / res['static'][0] / 1e9:.1f} TOP/s "
+                  f"static, {int8_work(M, K, N, True)[0] / raw_ms / 1e9:.1f} raw "
+                  f"{'OK' if exact else 'FAIL'}", flush=True)
+            if not exact:
+                failed.append(f"raw M={M} K={K} N={N}")
+            for key, val in (("ms", res["dynamic"][0]), ("plain_ms", res["dynamic"][1]),
+                             ("library_ms", res["dynamic"][2]), ("static_ms", res["static"][0]),
+                             ("static_plain_ms", res["static"][1]),
+                             ("static_library_ms", res["static"][2]), ("bf16_ms", bf16_ms),
+                             ("raw_ms", raw_ms), ("raw_plain_ms", raw_plain),
+                             ("raw_library_ms", raw_lib), ("bound_ms", bnd),
+                             ("raw_bound_ms", rbnd)):
+                tot[key] += val * n
+            del x, wq, xq, w_bf
+        print(f"[kernel-int8] all {sum(s['count'] for s in sites)} K6 sites of one encode at "
+              f"B={B}: dynamic {tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}, library "
+              f"{tot['library_ms']:.4f}), static {tot['static_ms']:.4f} ms (plain "
+              f"{tot['static_plain_ms']:.4f}, library {tot['static_library_ms']:.4f}), K10 "
+              f"{tot['raw_ms']:.4f} ms (library {tot['raw_library_ms']:.4f}), cuBLAS bf16 "
+              f"{tot['bf16_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms "
+              f"({max(by, key=by.get)})", flush=True)
+        summary["int8_matmul"].update(
+            batch=B, ms=tot["ms"], plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
+            static_ms=tot["static_ms"], static_plain_ms=tot["static_plain_ms"],
+            static_library_ms=tot["static_library_ms"], bf16_ms=tot["bf16_ms"],
+            bound_ms=tot["bound_ms"], bound_by=max(by, key=by.get))
+        summary["int8_matmul_raw"].update(
+            batch=B, ms=tot["raw_ms"], plain_ms=tot["raw_plain_ms"],
+            library_ms=tot["raw_library_ms"], bound_ms=tot["raw_bound_ms"],
+            bound_by=max(by, key=by.get))
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: kernel-int8 phase FAILED at {failed}")
+    return summary
+
+
+def int_mm_library(x, wq, ws, b, a_s=None):
+    """The same function as K6 through one library GEMM (torch._int_mm, int8
+    x int8 -> int32) with the quantize and the rescale as PyTorch ops."""
+    import torch
+
+    xf = x.float()
+    if a_s is None:
+        s = (xf.abs().amax(-1, keepdim=True) / 127).clamp_min(1e-8)
+        xq = torch.round(xf / s).to(torch.int8)
+        return (torch._int_mm(xq, wq.t()).float() * s * ws + b).to(x.dtype)
+    xq = torch.round(xf * (1 / a_s.clamp_min(1e-8))).clamp(-127, 127).to(torch.int8)
+    return (torch._int_mm(xq, wq.t()).float() * (a_s * ws) + b).to(x.dtype)
+
+
+def flash_work(B, Tq, Tk, N, D, itemsize):
+    """(operations, bytes) of one K4 call: S = qK^T and O = PV; q, k, v read
+    once, O written once."""
+    return 4 * B * N * Tq * Tk * D, (2 * B * Tq * N * D + 2 * B * Tk * N * D) * itemsize
+
+
+def kernel_flash_phase(sites, B: int = 2) -> dict:
+    """K4 against its twin and an fp64 evaluation at every encode site (the
+    tower's bf16 T=1024 16 x 64, the adapter's fp32 sites) and at one d=128
+    shape; kernel, twin and SDPA times and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(909)
+    cases = [(dict(s), torch.bfloat16 if s["at"] == "tower" else torch.float32) for s in sites]
+    cases.append((dict(T=1024, N=8, D=128, at="d128", count=0), torch.bfloat16))
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by, worst_abs, failed = {}, 0.0, []
+    for site, dt in cases:
+        T, N, D, n = site["T"], site["N"], site["D"], site["count"]
+        q, k, v = (torch.randn(B, T, N, D, generator=gen, device=dev).to(dt) for _ in range(3))
+        got = kernels.flash_attention_nonull(q, k, v)
+        ref = kernels.flash_attention_nonull(q, k, v, plain=True)
+        truth = attention_fp64(q, k, v)
+        torch.cuda.synchronize()
+        max_abs, max_rel, mean_rel = rel_errors(got, ref)
+        k_truth, p_truth = rel_errors(got, truth)[2], rel_errors(ref, truth)[2]
+        finite = bool(torch.isfinite(got.float()).all())
+        if dt == torch.bfloat16:
+            tol_max, tol_mean = TOLERANCES["flash_attention_nullkv"]
+        else:
+            tol_max, tol_mean = FLASH_FP32_MAX_REL, FLASH_FP32_MAX_REL
+        ok = (finite and max_rel <= tol_max and mean_rel <= tol_mean
+              and k_truth <= TRUTH_FACTOR * p_truth + 1e-7)
+        ms = cuda_time_ms(lambda: kernels.flash_attention_nonull(q, k, v))
+        plain_ms = cuda_time_ms(lambda: kernels.flash_attention_nonull(q, k, v, plain=True))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        ops, byts = flash_work(B, T, T, N, D, q.element_size())
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+        a, bb = ops / peak * 1e3, byts / PEAK_BYTES_PER_S * 1e3
+        bnd, b_by = max(a, bb), ("operations" if a >= bb else "bytes")
+        print(f"[kernel-flash] {site['at']} {str(dt).split('.')[-1]} T={T} N={N} D={D} B={B}: "
+              f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol_max:g}) mean_rel="
+              f"{mean_rel:.3e} (tol {tol_mean:g}) vs_fp64 kernel={k_truth:.3e} plain="
+              f"{p_truth:.3e} finite={finite} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({b_by}) "
+              f"{ops / ms / 1e9:.1f} TFLOP/s x{n}/encode {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"{site['at']} T={T} D={D}")
+        worst_abs = max(worst_abs, max_abs)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bnd)):
+            tot[key] += val * n
+        by[b_by] = by.get(b_by, 0) + n
+    if failed:
+        raise SystemExit(f"chip_smoke: kernel-flash phase FAILED at {failed}")
+    print(f"[kernel-flash] all K4 sites of one encode at B={B}: kernel {tot['ms']:.4f} ms, plain "
+          f"{tot['plain_ms']:.4f} ms, sdpa {tot['library_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms", flush=True)
+    return {"flash_attention_nonull": dict(max_abs_err=worst_abs, batch=B,
+                                           bound_by=max(by, key=by.get), **tot)}
+
+
 def randomize_zero_init_branches(G, seed: int) -> None:
     """Give the zero/tiny-initialised branches (layer scale, legacy noise
     strength, attention/FF output projections, null KV) O(0.1-1) values, so
@@ -548,6 +823,221 @@ def profile_device(fn, label: str, top: int = 15) -> None:
         ms = e.self_device_time_total / 1e3
         print(f"[profile] {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count:<4d} {e.key[:100]}",
               flush=True)
+
+
+def attention_fp64(q, k, v):
+    """Softmax attention evaluated in float64: the reference K4 is held to."""
+    import torch
+
+    s = torch.einsum("btnh,bsnh->bnts", q.double(), k.double()) * q.shape[-1] ** -0.5
+    return torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.double())
+
+
+FLASH_SWITCHES = {"VFM_VAE_USE_PALLAS_FLASH": "1", "VFM_VAE_ADAPTER_ATTN": "3mm-flash"}
+
+
+class serving_env:
+    """The int8 serving switches for the length of a `with`: the flash
+    switches always, VFM_VAE_INT8_VFM as given (enable_int8_tower sets it);
+    every variable is restored on exit."""
+
+    def __init__(self, int8: bool):
+        self.want = dict(FLASH_SWITCHES, VFM_VAE_INT8_VFM="1" if int8 else None)
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.want}
+        for k, v in self.want.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def encode_sites(G, int8: bool) -> list:
+    """kernel_sites' K6 and K4 sites of one flagship encode with the serving
+    switches on (the int8 ones only when `int8`)."""
+    from vfm_vae_tpu_torch.entry import kernel_sites
+
+    with serving_env(int8):
+        sites = kernel_sites(G, 256)
+    return sites
+
+
+def predicted_serving(sites: dict, n_req: int) -> dict:
+    """Launches of the int8-serving phase: the calibration pass runs the
+    tower once (K6 dynamic at every Linear, K4 at the tower's attentions);
+    each request runs one encode (K6, K4 tower + adapter) and one decode
+    (K1-K3); the ceiling probe runs K10 once per distinct K6 shape."""
+    from vfm_vae_tpu_torch.ops import kernels
+
+    want = {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
+    for name, ss in sites.items():
+        want[name] += n_req * sum(s["count"] for s in ss)
+    want["int8_matmul"] += sum(s["count"] for s in sites["int8_matmul"])
+    want["flash_attention_nonull"] += sum(s["count"] for s in sites["flash_attention_nonull"]
+                                          if s["at"] == "tower")
+    want["int8_matmul_raw"] += len({(s["K"], s["N"]) for s in sites["int8_matmul"]})
+    return want
+
+
+def ceiling_probes(G, B: int, tokens: int) -> list:
+    """K6's ceiling at the served shapes: for each distinct (K, N) of the
+    tower's Linears, the first such Linear's int8 mirror and random int8
+    activations of the served batch (M = B x tokens) for K10."""
+    import torch
+
+    from vfm_vae_tpu_torch.models.layers import Linear
+
+    gen = torch.Generator(device=next(G.parameters()).device).manual_seed(23)
+    probes = {}
+    for m in G.vfm_encoder.tower.encoder.layers.modules():
+        if isinstance(m, Linear) and tuple(m.wq.shape) not in probes:
+            N, K = m.wq.shape
+            xq = torch.randint(-127, 128, (B * tokens, K), generator=gen, device=m.wq.device,
+                               dtype=torch.int8)
+            probes[(N, K)] = (m, xq)
+    return list(probes.values())
+
+
+def int8_serving_phase(G, card: str) -> dict:
+    """The README's fast serving configuration on the flagship G: the flash
+    switches on, enable_int8_tower on 32 seeded random 256 px images
+    (bench.py's run_int8), three encode -> decode requests at B=4, gates on
+    shapes, finiteness, launch counts, the latent moments against the same
+    path with K6's twin, and the int8 encode's and decode's distance from
+    fp32 against the all-plain int8 path's; img/s of
+    encode-only and round trip with the bf16 and the int8 tower at B=4 and
+    B=32; one profiled int8 encode."""
+    import torch
+
+    from vfm_vae_tpu_torch.entry import FLAGSHIP_KWARGS
+    from vfm_vae_tpu_torch.models.generator import Generator
+    from vfm_vae_tpu_torch.models.layers import Linear
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.ops.quantized import enable_int8_tower
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    B, n_req = 4, 3
+    requests = [torch.rand((B, 256, 256, 3), generator=gen, device=dev) for _ in range(n_req)]
+    calib = torch.rand((32, 256, 256, 3), generator=gen, device=dev)
+
+    # References before the tower is quantized: the bf16 tower with the flash
+    # switches on (kernels, and the plain twins), and an fp32 encode and
+    # round trip through the plain twins.
+    with serving_env(int8=False):
+        m_bf = G.encode(requests[0], return_z_before_quantize=True)
+        x_bf = G.decode(G.encode(requests[0]))
+        G.use_plain_kernels(True)
+        m_bf_p = G.encode(requests[0], return_z_before_quantize=True)
+        G.use_plain_kernels(False)
+    G32 = Generator(**FLAGSHIP_KWARGS, dtype=torch.float32, device=dev)
+    G32.load_state_dict(G.state_dict())
+    G32.use_plain_kernels(True)
+    m_32 = G32.encode(requests[0], return_z_before_quantize=True)
+    x_32 = G32.decode(G32.encode(requests[0]))
+    torch.cuda.synchronize()
+    del G32
+    torch.cuda.empty_cache()
+
+    with serving_env(int8=True):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_cal = enable_int8_tower(G, calib)
+        torch.cuda.synchronize()
+        print(f"[int8] enable_int8_tower: {n_cal} Linears calibrated on {calib.shape[0]} images "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        sites = encode_sites(G, int8=True)
+        if not all(s["static"] for s in sites["int8_matmul"]):
+            raise SystemExit("chip_smoke: a tower Linear has no calibrated scale")
+        outs = []
+        for img in requests:
+            z = G.encode(img)
+            outs.append((z, G.decode(z)))
+        probes = ceiling_probes(G, B, sites["int8_matmul"][0]["M"])
+        for lin, xq in probes:
+            kernels.int8_matmul_raw(xq, lin.wq)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = predicted_serving(sites, n_req)
+        print(f"[int8] launches over calibration + {n_req} requests: {launches}; predicted "
+              f"{want}", flush=True)
+        if launches != want:
+            raise SystemExit("chip_smoke: int8 serving launch counts differ from kernel_sites' "
+                             "prediction")
+        for i, (z, x) in enumerate(outs):
+            if tuple(z.shape) != (B, 16, 16, 32) or tuple(x.shape) != (B, 256, 256, 3):
+                raise SystemExit(f"chip_smoke: int8 request {i}: shapes {tuple(z.shape)} "
+                                 f"{tuple(x.shape)}")
+            if not (torch.isfinite(z).all() and torch.isfinite(x).all()):
+                raise SystemExit(f"chip_smoke: int8 request {i}: non-finite output")
+
+        m_k = G.encode(requests[0], return_z_before_quantize=True)
+        x_k = outs[0][1]
+        tower_linears = [m for m in G.vfm_encoder.modules() if isinstance(m, Linear)]
+        for m in tower_linears:
+            m.plain = True
+        m_k6p = G.encode(requests[0], return_z_before_quantize=True)
+        G.use_plain_kernels(True)
+        m_p = G.encode(requests[0], return_z_before_quantize=True)
+        x_p = G.decode(G.encode(requests[0]))
+        G.use_plain_kernels(False)
+        torch.cuda.synchronize()
+        mom_k6 = rel_l1(m_k, m_k6p)
+        mom_k32, mom_p32 = rel_l1(m_k, m_32), rel_l1(m_p, m_32)
+        err_k, err_p = rel_l1(x_k, x_32), rel_l1(x_p, x_32)
+        print(f"[int8] latent moments, rel-L1: kernel path vs K6's twin in the same path "
+              f"{mom_k6:.3e} (tol {INT8_MOMENTS_REL_L1:g}); vs fp32 tower kernel int8 "
+              f"{mom_k32:.3e} plain int8 {mom_p32:.3e} (limit {TRUTH_FACTOR} x plain); "
+              f"reported, not gated (random weights): kernel vs all-plain int8 "
+              f"{rel_l1(m_k, m_p):.3e}, bf16 tower K4 kernel vs twin {rel_l1(m_bf, m_bf_p):.3e}, "
+              f"int8 vs bf16 tower {rel_l1(m_k, m_bf):.3e}, bf16 tower vs fp32 "
+              f"{rel_l1(m_bf, m_32):.3e}", flush=True)
+        print(f"[int8] decode vs fp32 round trip: rel-L1 kernel int8 {err_k:.3e}, plain int8 "
+              f"{err_p:.3e} (limit {TRUTH_FACTOR} x plain), bf16-tower kernel "
+              f"{rel_l1(x_bf, x_32):.3e}; PSNR int8 vs bf16 tower {psnr(x_k, x_bf):.2f} dB, "
+              f"int8 vs fp32 {psnr(x_k, x_32):.2f} dB", flush=True)
+        if not (mom_k6 <= INT8_MOMENTS_REL_L1 and mom_k32 <= TRUTH_FACTOR * mom_p32 + 1e-6
+                and err_k <= TRUTH_FACTOR * err_p + 1e-6):
+            raise SystemExit("chip_smoke: the kernel int8 path disagrees with K6's twin in the "
+                             "path, or is further from fp32 than the plain int8 path")
+        for lin, xq in probes:
+            x = torch.randn(xq.shape, generator=gen, device=dev).to(torch.bfloat16)
+            a_s = getattr(lin, "as")
+            k6 = cuda_time_ms(lambda: kernels.int8_matmul(x, lin.wq, lin.ws, lin.bias, a_s))
+            k10 = cuda_time_ms(lambda: kernels.int8_matmul_raw(xq, lin.wq))
+            M, K = xq.shape
+            print(f"[int8] served shape M={M} K={K} N={lin.wq.shape[0]} (B={B}): K6 static "
+                  f"{k6:.4f} ms, its ceiling K10 {k10:.4f} ms ({100 * k10 / k6:.0f}%)", flush=True)
+
+    for bs in (4, 32):
+        img = torch.rand((bs, 256, 256, 3), generator=gen, device=dev)
+        line = []
+        for tower in ("bf16", "int8"):
+            with serving_env(int8=tower == "int8"):
+                for what, fn in (("encode", lambda: G.encode(img)),
+                                 ("round trip", lambda: G.decode(G.encode(img)))):
+                    fn()
+                    torch.cuda.synchronize()
+                    reps = 5
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    dt = (time.perf_counter() - t0) / reps
+                    line.append(f"{tower} tower {what} {bs / dt:.2f} img/s ({dt * 1e3:.1f} ms)")
+        print(f"[int8] B={bs} on {card}, flash switches on: " + "; ".join(line), flush=True)
+    with serving_env(int8=True):
+        profile_device(lambda: G.encode(img), f"int8 encode B={img.shape[0]}")
+    return launches
 
 
 def bn_fed_bias(name: str) -> bool:
@@ -801,8 +1291,12 @@ def main() -> int:
     summary.update(bwd)
     summary["flash_attention_nullkv"].update(
         fwd_bwd_ms=k3_fb["ms"], library_fwd_bwd_ms=k3_fb["library_ms"])
+    enc = encode_sites(G, int8=True)
+    summary.update(kernel_int8_phase(enc["int8_matmul"]))
+    summary.update(kernel_flash_phase(enc["flash_attention_nonull"]))
 
     launches = {"round_trip": slice_phase(G, card)}
+    launches["int8_serving"] = int8_serving_phase(G, card)
     del G
     torch.cuda.empty_cache()
     tr, state, real, launches["train_step"] = train_phase(card)

@@ -161,8 +161,10 @@ def test_kernel_sites_cover_every_kernel_call(slice_pair):
                for m in pg.modules())
     n_k3 = sum(isinstance(m, SelfAttention) for m in pg.modules())
     counts = {name: sum(s["count"] for s in v) for name, v in sites.items()}
+    # The encode's K4 and K6 sites are empty unless the flash switches or the
+    # int8 tower are on (tests/test_torch_int8.py).
     assert counts == {"fused_convnext_mlp": n_k1, "fused_upsample_blur": n_k2,
-                      "flash_attention_nullkv": n_k3}
+                      "flash_attention_nullkv": n_k3, "flash_attention_nonull": 0, "int8_matmul": 0}
     assert (n_k1, n_k2, n_k3) == (16, 6, 1)
 
 
@@ -202,4 +204,4 @@ def test_port_imports_neither_jax_nor_transformers():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 34
+    assert int(out.stdout.strip()) >= 36

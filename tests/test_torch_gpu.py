@@ -88,13 +88,13 @@ def test_k3_backward_matches_twin_on_gpu(cuda, T):
               for _ in range(2))
     out, lse = fa._launch_forward(q, k, v, nk, nv, 0.125, True)
     ref_out, ref_lse = kernels.flash_attention_nullkv_reference(q, k, v, nk, nv, return_lse=True)
-    before = [fn.launches for fn in kernels.ALL_WRAPPERS[3:]]
+    before = [fn.launches for fn in kernels.BACKWARD_WRAPPERS]
     dk, dv, dnk, dnv, delta = kernels.flash_attention_nullkv_bwd_dkv(q, k, v, nk, nv, out, dout,
                                                                       lse)
     dq = kernels.flash_attention_nullkv_bwd_dq(q, k, v, nk, nv, dout, lse, delta)
     twin = kernels.flash_attention_nullkv_bwd_reference(q, k, v, nk, nv, out, lse, dout)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in kernels.ALL_WRAPPERS[3:]] == [b + 1 for b in before]
+    assert [fn.launches for fn in kernels.BACKWARD_WRAPPERS] == [b + 1 for b in before]
     # fp32 log-sum-exp of the same logits, summed in another order.
     assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max()) + 1e-5
     for got, ref in zip((dq, dk, dv, dnk, dnv, delta), twin):
@@ -130,3 +130,59 @@ def test_functions_differentiate_through_the_kernels_on_gpu(cuda):
     args = _cases(cuda)[0][1]
     with pytest.raises(RuntimeError, match="autograd.Function"):
         fused_mlp._launch(*(v.detach().requires_grad_() for v in args.values()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(2048, 1024, 1024), (77, 4096, 1024), (300, 96, 136)])
+def test_int8_matmul_matches_twin_on_gpu(cuda, M, K, N):
+    """K6 (dynamic and static) and K10 against their twins, bit for bit: the
+    same quantize, exact int32 sums and the same epilogue order. Shapes off
+    the tiles exercise the ragged rows, columns and K stages."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
+    ws = torch.rand(N, generator=g, device=cuda) * 1e-2 + 1e-4
+    b = torch.randn(N, generator=g, device=cuda)
+    a_s = x.float().abs().amax() / 127 * 0.5  # clips the top half of the range
+    before = kernels.int8_matmul.launches
+    for args in ((x, wq, ws, b), (x, wq, ws, None), (x, wq, ws, b, a_s)):
+        got, ref = kernels.int8_matmul(*args), kernels.int8_matmul(*args, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), len(args)
+    assert kernels.int8_matmul.launches == before + 3
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+    assert torch.equal(kernels.int8_matmul_raw(xq, wq), kernels.int8_matmul_raw(xq, wq, plain=True))
+
+
+@pytest.mark.gpu
+def test_int8_matmul_rounds_ties_to_even_on_gpu(cuda):
+    """Rows with absmax 127 (scale 1) and entries on .5: with an identity
+    weight and unit scales the output is the quantized row, half to even."""
+    K = 256
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randint(-126, 126, (64, K), generator=g, device=cuda).float() + 0.5
+    x[:, 0] = 127.0
+    eye = torch.eye(K, device=cuda).to(torch.int8)
+    ones = torch.ones(K, device=cuda)
+    got = kernels.int8_matmul(x.to(torch.bfloat16), eye, ones)
+    torch.cuda.synchronize()
+    assert torch.equal(got.float(), torch.round(x))  # torch.round: half to even
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D,Tq,Tk", [("bf16", 64, 1024, 1024), ("bf16", 128, 256, 384),
+                                           ("fp32", 64, 256, 256), ("bf16", 64, 100, 37)])
+def test_flash_attention_nonull_matches_twin_on_gpu(cuda, dtype, D, Tq, Tk):
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator(device=cuda).manual_seed(D + Tq)
+    q = torch.randn(2, Tq, 4, D, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(2, Tk, 4, D, generator=g, device=cuda).to(dt) for _ in range(2))
+    before = kernels.flash_attention_nonull.launches
+    got = kernels.flash_attention_nonull(q, k, v)
+    ref = kernels.flash_attention_nonull(q, k, v, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention_nonull.launches == before + 1
+    scale = float(ref.float().abs().max())
+    # bf16: probabilities rounded at other points (K3's bound); fp32: summation order.
+    tol = 4 * 2.0 ** -8 * scale if dt == torch.bfloat16 else 1e-5 * scale
+    assert float((got.float() - ref.float()).abs().max()) <= tol

@@ -131,11 +131,25 @@ def _cpu_calls(dt=torch.bfloat16):
     m = port_mlp_args(mlp_inputs(), dt)
     u = port_upsample_args(upsample_inputs(), dt)
     a = {k: torch.from_numpy(v).to(dt) for k, v in attention_inputs().items()}
+    f = {k: a[k][:, :, :, :8].repeat(1, 1, 1, 8).contiguous() for k in ("q", "k", "v")}  # D=64
+    r = np.random.default_rng(7)
+    i8 = dict(x=torch.from_numpy(r.standard_normal((6, 64)).astype(np.float32)).to(dt),
+              wq=torch.from_numpy(r.integers(-127, 128, (16, 64)).astype(np.int8)),
+              ws=torch.rand(16), b=torch.randn(16))
+    raw = dict(xq=i8["wq"][:6].clone(), wq=i8["wq"])
     return [
         (kernels.fused_convnext_mlp, kernels.fused_convnext_mlp_reference, m, {}),
         (kernels.fused_upsample_blur, kernels.fused_upsample_blur_reference, u,
          {"taps": TAPS[3]}),
         (kernels.flash_attention_nullkv, kernels.flash_attention_nullkv_reference, a, {}),
+        (kernels.flash_attention_nonull, kernels.flash_attention_nonull_reference, f, {}),
+        (kernels.int8_matmul, lambda **k: kernels.int8_matmul_reference(mode="dynamic", **k),
+         i8, {}),
+        (kernels.int8_matmul,
+         lambda a_s, **k: kernels.int8_matmul_reference(mode="static", a_s=a_s, **k), i8,
+         {"a_s": torch.tensor(0.02)}),
+        (kernels.int8_matmul_raw,
+         lambda xq, wq: kernels.int8_matmul_reference(xq, wq, None, None, "raw"), raw, {}),
     ]
 
 

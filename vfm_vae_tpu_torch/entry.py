@@ -7,6 +7,11 @@ SigLIP2-L/16-512 tower, the attnproj adapter reads layers 0, 12 and -1,
 z is 16x16x32, and six ConvNeXt synthesis blocks decode 8 -> 256 px), with
 random weights drawn from an explicit torch.Generator.
 
+`int8_serving_generator` is the flagship with the README's fast serving
+configuration: the frozen tower mirrored to int8 and calibrated (W8A8
+through K6), the decoder in bf16 (vfm_vae_tpu/ops/quantized.py:
+enable_int8_tower).
+
 `flagship_trainer` builds stage 0 of the staged recipe
 (configs/vfm_vae_f16d32_siglip2_stage_0_strong_alignment.yaml) on the same
 generator: the StyleGAN-T projected discriminator, LPIPS, the loss, Adam
@@ -21,14 +26,20 @@ an E[x^2] - E[x]^2 variance from low-precision operands.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import torch
 
+from .models import layers
+from .models.adapter import PlainAttention
 from .models.convnext import ConvNeXtSynthesisLayer, SeparableUpsampleWithFixedBlur
 from .models.discriminator import ProjectedDiscriminator
 from .models.generator import Generator, trainable_names, trainable_path_predicates
 from .models.gigagan import SelfAttention
+from .models.vit import MultiHeadSelfAttention
+from .ops.attention import flash_eligible_shape
+from .ops.quantized import enable_int8_tower, int8_vfm_enabled
 from .train.loss import TotalLoss
 from .train.lpips import build_lpips
 from .train.train_step import Trainer
@@ -119,6 +130,19 @@ def flagship_generator(device, dtype: torch.dtype = torch.bfloat16,
     return Generator(**kwargs, dtype=dtype, device=device, generator=generator).eval()
 
 
+def int8_serving_generator(device, calib_imgs: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
+                           generator: Optional[torch.Generator] = None,
+                           **overrides) -> Generator:
+    """flagship_generator + enable_int8_tower: the tower's Linears mirrored to
+    int8 and their static activation scales calibrated on `calib_imgs`
+    ((B, H, W, 3) in [0, 1] on `device`); sets VFM_VAE_INT8_VFM=1 for the
+    process. The flash switches (VFM_VAE_USE_PALLAS_FLASH,
+    VFM_VAE_ADAPTER_ATTN) are the caller's."""
+    G = flagship_generator(device, dtype, generator, **overrides)
+    enable_int8_tower(G, calib_imgs)
+    return G
+
+
 def flagship_trainer(device, batch_size: int, generator: torch.Generator,
                      dtype: torch.dtype = torch.bfloat16, lpips_path: Optional[str] = None,
                      allow_random_lpips: bool = False) -> Trainer:
@@ -144,30 +168,61 @@ def flagship_trainer(device, batch_size: int, generator: torch.Generator,
 
 
 def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
-    """Every K1/K2/K3 call of one decode whose image is `hw` pixels a side
-    (the configured size, or an EQ bucket's: z scaled by 0.25 to 0.75 gives
-    a proportionally smaller image), with the shapes the decode gives it
-    (batch excluded) and how many times it runs."""
-    sites: Dict[str, Dict[tuple, int]] = {"fused_convnext_mlp": {}, "fused_upsample_blur": {},
-                                          "flash_attention_nullkv": {}}
+    """Every kernel call of one decode whose image is `hw` pixels a side (the
+    configured size, or an EQ bucket's: z scaled by 0.25 to 0.75 gives a
+    proportionally smaller image), and of one encode of an `hw`-pixel image,
+    with the shapes they are given (batch excluded) and how many times they
+    run. The decode's K1/K2/K3 sites always run; the encode's sites run as
+    the process is set now: K6 ("int8_matmul", M = tokens per image) at every
+    tower Linear when the tower's int8 path is on (VFM_VAE_INT8_VFM=1, or a
+    caller's int8 scope), K4 ("flash_attention_nonull") at every tower and
+    adapter attention that the flash rule admits (the flash switches)."""
+    sites: Dict[str, Dict[tuple, int]] = {
+        name: {} for name in ("fused_convnext_mlp", "fused_upsample_blur", "flash_attention_nullkv",
+                              "flash_attention_nonull", "int8_matmul")}
+
+    def add(name, key):
+        sites[name][key] = sites[name].get(key, 0) + 1
+
     top = G.synthesis.block_resolutions[-1]
     for block, res in zip(G.synthesis.blocks, G.synthesis.block_resolutions):
         res = res * hw // top
         for m in block.modules():
             if isinstance(m, ConvNeXtSynthesisLayer):
-                key = (("C", m.norm.weight.shape[0]), ("H", res))
-                name = "fused_convnext_mlp"
+                add("fused_convnext_mlp", (("C", m.norm.weight.shape[0]), ("H", res)))
             elif isinstance(m, SeparableUpsampleWithFixedBlur) and m.pre_normalize:
                 ci = m.depthwise.weight.shape[0]
                 co = m.pointwise.weight.shape[0] // 4
-                key = (("Ci", ci), ("Co", co), ("H", res // 2), ("taps", tuple(m.taps)))
-                name = "fused_upsample_blur"
+                add("fused_upsample_blur",
+                    (("Ci", ci), ("Co", co), ("H", res // 2), ("taps", tuple(m.taps))))
             elif isinstance(m, SelfAttention):
-                key = (("T", res * res), ("N", m.heads), ("D", m.dim_head))
-                name = "flash_attention_nullkv"
-            else:
-                continue
-            sites[name][key] = sites[name].get(key, 0) + 1
+                add("flash_attention_nullkv", (("T", res * res), ("N", m.heads), ("D", m.dim_head)))
+
+    enc = G.vfm_encoder
+    grid = int(hw * enc.scale_factor) // enc.patch_size
+    T = grid * grid
+    int8_on = int8_vfm_enabled() or layers._INT8_SCOPE[0]
+    for m in enc.tower.encoder.layers.modules():
+        if isinstance(m, MultiHeadSelfAttention):
+            d = m.q_proj.weight.shape[0] // m.num_heads
+            if flash_eligible_shape(T, T, d, False):
+                add("flash_attention_nonull",
+                    (("T", T), ("N", m.num_heads), ("D", d), ("at", "tower")))
+        elif int8_on and isinstance(m, layers.Linear):
+            add("int8_matmul", (("M", T), ("K", m.weight.shape[1]), ("N", m.weight.shape[0]),
+                                ("static", m._buffers["as"] is not None)))
+    ad = G.ldm_adapter
+    quants = [(getattr(pq, "0"), T) for pq in ad.patch_quants]
+    quants.append((ad.final_quant, (grid * ad.z_resolution // ad.patch_resolutions[0]) ** 2))
+    variant = os.environ.get("VFM_VAE_ADAPTER_ATTN", "3mm-xla")
+    prefer = variant == "3mm-flash" or not variant.startswith("3mm")
+    for proj, tokens in quants:
+        for m in proj.modules():
+            if isinstance(m, PlainAttention):
+                d = m.wide // m.num_heads
+                if flash_eligible_shape(tokens, tokens, d, False, prefer):
+                    add("flash_attention_nonull",
+                        (("T", tokens), ("N", m.num_heads), ("D", d), ("at", "adapter")))
     return {name: [dict(dict(k), count=n) for k, n in d.items()] for name, d in sites.items()}
 
 

@@ -8,6 +8,7 @@ final_quant.*, post_quant.*, linear_proj.weight."""
 from __future__ import annotations
 
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +39,14 @@ def map_to_tokens(x: torch.Tensor) -> torch.Tensor:
 class PlainAttention(Module):
     """Dimension-changing attention (ldm_utils.py:55-93): qkv biases
     (q_bias, 0, v_bias); for in_dim > out_dim the output is the head mean,
-    adaptively pooled to out_dim when the head width differs."""
+    adaptively pooled to out_dim when the head width differs.
+
+    VFM_VAE_ADAPTER_ATTN picks the form, as in the JAX package
+    (adapter.py:63-87): "3mm-xla" (default) three products from slices of
+    the packed weight and SDPA; "3mm-flash" the same products with the flash
+    path preferred; anything else ("packed") one packed product, a
+    contiguous last-axis split into q, k, v and the flash path preferred.
+    The flash path (K4) runs where ops.attention's rule admits the shape."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int, device=None):
         super().__init__()
@@ -48,6 +56,7 @@ class PlainAttention(Module):
         self.q_bias = param(self.wide, device=device)
         self.v_bias = param(self.wide, device=device)
         self.proj = Linear(out_dim, out_dim, weight_init=TRUNC02, bias_init="zeros", device=device)
+        self.plain = False  # select K4's plain twin on the card (comparisons only)
 
     def reset_parameters(self, g):
         self.q_bias.zero_()
@@ -58,11 +67,22 @@ class PlainAttention(Module):
         wide, heads = self.wide, self.num_heads
         hd = wide // heads
         w = self.qkv.weight.to(x.dtype)
-        q = x @ w[:wide].t() + self.q_bias.to(x.dtype)
-        k = x @ w[wide:2 * wide].t()
-        v = x @ w[2 * wide:].t() + self.v_bias.to(x.dtype)
+        variant = os.environ.get("VFM_VAE_ADAPTER_ATTN", "3mm-xla")
+        if variant.startswith("3mm"):
+            q = x @ w[:wide].t() + self.q_bias.to(x.dtype)
+            k = x @ w[wide:2 * wide].t()
+            v = x @ w[2 * wide:].t() + self.v_bias.to(x.dtype)
+            prefer = variant == "3mm-flash"
+        else:
+            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+            qkv = x @ w.t() + bias.to(x.dtype)
+            # The split's views keep the packed row stride; the kernel takes
+            # contiguous operands.
+            q, k, v = (t.contiguous() for t in qkv.split(wide, dim=-1))
+            prefer = True
         out = dot_product_attention(q.reshape(B, N, heads, hd), k.reshape(B, N, heads, hd),
-                                    v.reshape(B, N, heads, hd))
+                                    v.reshape(B, N, heads, hd), prefer_flash=prefer,
+                                    plain=self.plain)
         if self.in_dim > self.out_dim:
             out = out.mean(dim=2)
             if hd != self.out_dim:

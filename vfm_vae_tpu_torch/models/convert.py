@@ -18,11 +18,17 @@ buffers) and LPIPS, into the port's own key layout.
 `load_state_dict_numpy` puts such a dict on a port module; arrays whose
 element count matches a parameter are reshaped to it, so reference
 checkpoints that store vectors as (1, C, 1, 1) load as well.
+
+The JAX package keeps the int8 tower mirror in a separate 'int8' collection
+(ops/quantized.py: wq (K, N) int8, ws (N,), as () at each tower Linear's
+path); `state_dict_from_jax(..., int8=)` carries it into the port's Linear
+buffers (wq transposed to (N, K)), `load_state_dict_numpy` creates those
+buffers, and `int8_collection_from_state_dict` is the inverse.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -82,6 +88,56 @@ def _siglip_vision(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
         _norm(sd, h["layernorm"], prefix + "head.layernorm.")
         _linear(sd, h["mlp"]["fc1"], prefix + "head.mlp.fc1.")
         _linear(sd, h["mlp"]["fc2"], prefix + "head.mlp.fc2.")
+
+
+_TOWER = "vfm_encoder.encoder.vision_model.vision_model."
+INT8_LEAVES = ("wq", "ws", "as")
+
+
+def _leaves(tree: Mapping[str, Any], path: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _port_linear(path: tuple) -> str:
+    """JAX path of a tower Linear ('layers_3', 'attn', 'q_proj') -> the
+    port's module name under the tower."""
+    if path[0] == "head":
+        return "head.attention.out_proj" if path[1] == "out_proj" else "head.mlp." + path[2]
+    block = "self_attn" if path[1] == "attn" else "mlp"
+    return f"encoder.layers.{path[0].split('_')[1]}.{block}.{path[2]}"
+
+
+def _jax_linear(name: str) -> tuple:
+    """The inverse of _port_linear."""
+    p = name.split(".")
+    if p[0] == "head":
+        return ("head", "out_proj") if p[1] == "attention" else ("head", "mlp", p[2])
+    return (f"layers_{p[2]}", "attn" if p[3] == "self_attn" else "mlp", p[4])
+
+
+def _siglip_int8(sd: SD, tower: Mapping[str, Any]) -> None:
+    for path, v in _leaves(tower):
+        leaf = path[-1]
+        sd[_TOWER + _port_linear(path[:-1]) + "." + leaf] = _t(v) if leaf == "wq" else _arr(v)
+
+
+def int8_collection_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's int8 buffers (wq, ws, as of the tower's Linears) -> the JAX
+    'int8' collection {'vfm_encoder': {'tower': ...}}, numpy leaves."""
+    tower: Dict[str, Any] = {}
+    for key, val in sd.items():
+        name, _, leaf = key.rpartition(".")
+        if not key.startswith(_TOWER) or leaf not in INT8_LEAVES:
+            continue
+        node = tower
+        for k in _jax_linear(name[len(_TOWER):]):
+            node = node.setdefault(k, {})
+        node[leaf] = _t(val) if leaf == "wq" else _arr(val)
+    return {"vfm_encoder": {"tower": tower}} if tower else {}
 
 
 def _attn_projection(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
@@ -184,19 +240,23 @@ def _zconv(sd: SD, p: Mapping[str, Any], prefix: str, kind: str) -> None:
 
 
 def state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any], *,
-                        geometry: Mapping[str, Any]) -> SD:
+                        geometry: Mapping[str, Any],
+                        int8: Optional[Mapping[str, Any]] = None) -> SD:
     """JAX Generator variables -> reference-layout torch state_dict (numpy).
 
     geometry: z_resolution, block_resolutions, concat_z_block_indices and
-    legacy, the arguments convert_generator takes for the same tree."""
+    legacy, the arguments convert_generator takes for the same tree. int8:
+    the JAX 'int8' collection, whose tower mirror becomes the Linears'
+    wq / ws / as buffers."""
     legacy = bool(geometry.get("legacy", False))
     z_res = int(geometry["z_resolution"])
     concat = list(geometry.get("concat_z_block_indices", ()))
     buffers = buffers or {}
     sd: SD = {}
     if "vfm_encoder" in params:
-        _siglip_vision(sd, params["vfm_encoder"]["tower"],
-                       "vfm_encoder.encoder.vision_model.vision_model.")
+        _siglip_vision(sd, params["vfm_encoder"]["tower"], _TOWER)
+    if int8 and "vfm_encoder" in int8:
+        _siglip_int8(sd, int8["vfm_encoder"]["tower"])
     _adapter(sd, params["ldm_adapter"], "ldm_adapter.")
     for fc, q in params["mapping"]["mlp"].items():
         _linear(sd, q, f"mapping.mlp.{fc}.")
@@ -287,7 +347,16 @@ def geometry_from_kwargs(kwargs: Mapping[str, Any]) -> Dict[str, Any]:
 @torch.no_grad()
 def load_state_dict_numpy(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
     """Copy a numpy state_dict into `module` (strict on keys), onto each
-    parameter's own device and dtype; equal-size arrays are reshaped."""
+    parameter's own device and dtype; equal-size arrays are reshaped. int8
+    mirror entries (wq, ws, as) create their buffers on the Linear."""
+    for key, src in sd.items():
+        prefix, _, leaf = key.rpartition(".")
+        if leaf in INT8_LEAVES:
+            lin = module.get_submodule(prefix)
+            if getattr(lin, leaf) is None:
+                dtype = torch.int8 if leaf == "wq" else torch.float32
+                setattr(lin, leaf, torch.empty(np.shape(src), dtype=dtype,
+                                               device=lin.weight.device))
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     unexpected = sorted(set(sd) - set(own))
@@ -297,11 +366,14 @@ def load_state_dict_numpy(module: torch.nn.Module, sd: Mapping[str, np.ndarray])
         src = np.asarray(sd[key])
         if src.size != dst.numel():
             raise ValueError(f"{key}: {src.shape} does not fit {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)).reshape(dst.shape))
+        dt = np.int8 if dst.dtype == torch.int8 else np.float32
+        dst.copy_(torch.from_numpy(np.array(src, dtype=dt)).reshape(dst.shape))
 
 
 def load_jax_variables(module: torch.nn.Module, params: Mapping[str, Any],
-                       buffers: Mapping[str, Any], *, geometry: Mapping[str, Any]) -> None:
-    """Put JAX Generator variables onto a port Generator."""
-    load_state_dict_numpy(module, state_dict_from_jax(params, buffers, geometry=geometry))
+                       buffers: Mapping[str, Any], *, geometry: Mapping[str, Any],
+                       int8: Optional[Mapping[str, Any]] = None) -> None:
+    """Put JAX Generator variables (and its 'int8' collection) onto a port Generator."""
+    load_state_dict_numpy(module, state_dict_from_jax(params, buffers, geometry=geometry,
+                                                      int8=int8))
 

@@ -11,8 +11,9 @@ JAX package's initializers from an explicit torch.Generator.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from ..ops.bias_act import apply_activation
 from ..ops.groupnorm import group_norm, group_stats, layer_norm
+from ..ops.quantized import int8_linear, int8_linear_prequant, int8_linear_prequant_static
 
 
 class Module(nn.Module):
@@ -245,8 +247,48 @@ class Conv2d(Module):
         return y
 
 
+# Inside an int8_linear_scope() every Linear runs as a W8A8 int8 matmul
+# (ops/quantized.py): the frozen tower at serving time (VFM_VAE_INT8_VFM=1).
+# Under int8_calibration_scope() the mirrored Linears also record the absmax
+# of their input into the dict the scope yields. Eager and single-threaded,
+# as the JAX package's trace-time flags are.
+_INT8_SCOPE = [False]
+_INT8_CALIB: list = [None]
+
+
+@contextlib.contextmanager
+def int8_linear_scope(enabled: bool = True):
+    prev = _INT8_SCOPE[0]
+    _INT8_SCOPE[0] = enabled
+    try:
+        yield
+    finally:
+        _INT8_SCOPE[0] = prev
+
+
+@contextlib.contextmanager
+def int8_calibration_scope():
+    """int8 scope on, and each mirrored Linear's input absmax (fp32, the max
+    over its calls) collected into the yielded {Linear: tensor} dict."""
+    prev_s, prev_c = _INT8_SCOPE[0], _INT8_CALIB[0]
+    amax: Dict["Linear", torch.Tensor] = {}
+    _INT8_SCOPE[0], _INT8_CALIB[0] = True, amax
+    try:
+        yield amax
+    finally:
+        _INT8_SCOPE[0], _INT8_CALIB[0] = prev_s, prev_c
+
+
 class Linear(Module):
-    """nn.Linear ((out, in) weight); torch default init unless given."""
+    """nn.Linear ((out, in) weight); torch default init unless given.
+
+    An int8 mirror (ops/quantized.prequantize_linears) adds the buffers `wq`
+    int8 (out, in) and `ws` fp32 (out,), and calibration `as` fp32 (); they
+    are None until then. Inside the int8 scope the layer picks its path as
+    the JAX Linear does (layers.py:309-341): mirror and calibrating: record
+    the absmax, then the dynamic path; mirror with `as`: the static path;
+    mirror alone: the dynamic path; no mirror: per-call weight quantization.
+    Each of these is K6 on the card (its twin on the CPU, or with `plain`)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  weight_init=None, bias_init=None, device=None):
@@ -255,6 +297,9 @@ class Linear(Module):
         self.weight_init, self.bias_init = weight_init, bias_init
         self.weight = param(out_features, in_features, device=device)
         self.bias = param(out_features, device=device) if bias else None
+        for name in ("wq", "ws", "as"):
+            self.register_buffer(name, None)
+        self.plain = False  # select K6's plain twin on the card (comparisons only)
 
     def reset_parameters(self, g):
         bound = 1.0 / math.sqrt(self.in_features)
@@ -263,10 +308,24 @@ class Linear(Module):
             _init(self.bias, g, self.bias_init, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _INT8_SCOPE[0]:
+            return self._int8_forward(x)
         y = x @ self.weight.to(x.dtype).t()
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+    def _int8_forward(self, x: torch.Tensor) -> torch.Tensor:
+        wq, ws, a_s = self._buffers["wq"], self._buffers["ws"], self._buffers["as"]
+        if wq is None:
+            return int8_linear(x, self.weight, self.bias, plain=self.plain)
+        calib = _INT8_CALIB[0]
+        if calib is not None:
+            amax = x.detach().abs().amax().float()
+            calib[self] = amax if self not in calib else torch.maximum(calib[self], amax)
+        elif a_s is not None:
+            return int8_linear_prequant_static(x, wq, ws, a_s, self.bias, plain=self.plain)
+        return int8_linear_prequant(x, wq, ws, self.bias, plain=self.plain)
 
 
 def _init(p: torch.Tensor, g: torch.Generator, how, bound: float) -> None:

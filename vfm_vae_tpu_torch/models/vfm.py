@@ -1,7 +1,8 @@
 """Frozen vision-foundation-model encoder, SigLIP family (port of
 vfm_vae_tpu/models/vfm.py: presets, `vfm_preset` with its local
 config.json fallback, `VFMEncoder.preprocess` with the EQ-prior
-down-scale, `_hidden_indices` and `encode_image`). Parameter keys follow the reference wrapper:
+down-scale, `_hidden_indices` and `encode_image` with the int8 tower
+scope). Parameter keys follow the reference wrapper:
 encoder.vision_model.vision_model.<HF SiglipVisionTransformer keys>."""
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
+from ..ops.quantized import int8_vfm_enabled
 from ..ops.resize import resize_bilinear
+from . import layers
 from .layers import Module, holder
 from .vit import SigLIPVisionTower
 
@@ -113,9 +116,13 @@ class VFMEncoder(Module):
                      is_eq_prior: bool = False) -> List[torch.Tensor]:
         """(B, H, W, 3) in [0, 1] -> one fp32 (B, N, D) feature per
         patch_from_layers entry. The tower is frozen: no gradient is recorded,
-        and a smaller EQ-prior grid interpolates the position embedding."""
+        and a smaller EQ-prior grid interpolates the position embedding.
+        The tower runs int8 (ops/quantized.py) when VFM_VAE_INT8_VFM=1 or a
+        caller's int8 scope is active (vfm.py:278-292: the env opt-in alone
+        must not switch a caller's scope off)."""
         x = self.preprocess(img, eq_scale_factor, is_eq_prior).to(self.dtype)
-        hidden, last = self.tower(x, collect=self._hidden_indices())
+        with layers.int8_linear_scope(int8_vfm_enabled() or layers._INT8_SCOPE[0]):
+            hidden, last = self.tower(x, collect=self._hidden_indices())
         n = self.preset["num_layers"]
         feats = [last if i == -1 else hidden[i if i >= 0 else n + (i + 1)]
                  for i in self.patch_from_layers]

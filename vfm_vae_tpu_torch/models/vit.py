@@ -4,8 +4,10 @@ ViTMLP, ViTBlock, MAPHead params, interpolate_pos_embed).
 
 Parameter names follow HF's SiglipVisionTransformer (embeddings.*,
 encoder.layers.N.*, post_layernorm.*, head.*), the layout the reference
-checkpoints carry. Attention runs on PyTorch's SDPA, as the JAX package
-leaves it to XLA's.
+checkpoints carry. Attention runs through ops.attention: PyTorch's SDPA by
+default, as the JAX package leaves it to XLA's, and the K4 flash kernel
+where its opt-in rule admits the shape. Under the int8 scope the Linears
+run W8A8 through K6 (ops/quantized.py).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ class MultiHeadSelfAttention(Module):
         self.k_proj = Linear(dim, dim, device=device)
         self.v_proj = Linear(dim, dim, device=device)
         self.out_proj = Linear(dim, dim, device=device)
+        self.plain = False  # select K4's plain twin on the card (comparisons only)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, D = x.shape
@@ -50,7 +53,8 @@ class MultiHeadSelfAttention(Module):
         q = self.q_proj(x).reshape(B, N, h, D // h)
         k = self.k_proj(x).reshape(B, N, h, D // h)
         v = self.v_proj(x).reshape(B, N, h, D // h)
-        return self.out_proj(dot_product_attention(q, k, v).reshape(B, N, D))
+        out = dot_product_attention(q, k, v, plain=self.plain)
+        return self.out_proj(out.reshape(B, N, D))
 
 
 class ViTMLP(Module):

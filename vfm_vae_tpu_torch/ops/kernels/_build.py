@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface and loaded with ctypes; nothing includes PyTorch's headers, so a
-build takes seconds. The library lands in ``csrc/build/`` (git-ignored),
-named by a hash of the sources and flags, and is built at first use.
+The sources are compiled with nvcc, one process per source and all at once,
+then linked into one shared library with a plain C interface and loaded with
+ctypes; nothing includes PyTorch's headers, so a build takes seconds. The
+library lands in ``csrc/build/`` (git-ignored), named by a hash of the
+sources and flags, and is built at first use.
 Nothing is compiled or loaded at import time.
 """
 
@@ -25,11 +26,11 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu",
-           "flash_attention_nullkv_bwd.cu")
+           "flash_attention_nullkv_bwd.cu", "int8_matmul.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "vfm_flash_attention_nullkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vfm_flash_attention_nullkv_bwd_dkv": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
     "vfm_flash_attention_nullkv_bwd_dq": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "vfm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -83,15 +86,24 @@ def _digest() -> str:
 
 def _build(out: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a half-written library is never loaded
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{s}:\n{log}" for s, p, log in zip(SOURCES, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out)  # atomic: a half-written library is never loaded
+    return "".join(logs) + link.stdout + link.stderr
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -1,5 +1,6 @@
 """K3: flash attention over [null_k; k], [null_v; v] (GigaGAN's learned
-null token), forward and backward.
+null token), forward and backward; K4: flash attention without a null
+token, forward.
 
 Forward replaces the TPU kernel vfm_vae_tpu/ops/pallas/flash_attention.py:
 flash_attention_nullkv (jax's library Pallas flash kernel behind a
@@ -21,6 +22,15 @@ recomputes the probabilities.
 `flash_attention_nullkv` is the entry point: when autograd records, it runs
 through `FlashAttentionNullKV`, whose forward and backward launch the
 kernels on the card and run the twins on the CPU.
+
+K4 (`flash_attention_nonull`) replaces vfm_vae_tpu/ops/pallas/flash_attention.py:
+flash_attention, the library kernel with full-sequence blocks that the JAX
+package routes the SigLIP tower and the adapter's AttnProjections to when
+ops/attention.py's eligibility rule admits them. It is a mode of the same
+CUDA source: null pointers for the null token, so the key walk starts at
+key 0 of k; head dims 64 and 128; bf16 operands on the tensor cores, or
+fp32 operands (the adapter computes in fp32) with fp32 FMA on the CUDA cores
+and no TF32. Forward only.
 """
 
 from __future__ import annotations
@@ -224,3 +234,49 @@ def flash_attention_nullkv(q, k, v, null_k, null_v, scale: Optional[float] = Non
 flash_attention_nullkv.launches = 0
 flash_attention_nullkv_bwd_dkv.launches = 0
 flash_attention_nullkv_bwd_dq.launches = 0
+
+
+def flash_attention_nonull_reference(q, k, v, scale: Optional[float] = None):
+    """Plain twin of K4: fp32 logits and softmax, probabilities rounded to
+    the input dtype, fp32-accumulated product (jax.nn.dot_product_attention)."""
+    dt = q.dtype
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    return torch.einsum("bnts,bsnh->btnh", probs.float(), v.float()).to(dt)
+
+
+def flash_attention_nonull(q, k, v, scale: Optional[float] = None, *, plain: bool = False):
+    """q (B, Tq, N, D), k and v (B, Tk, N, D) -> (B, Tq, N, D). CPU tensors
+    (or plain=True) run the twin; CUDA tensors launch the kernel: bf16 or
+    fp32, contiguous, D in (64, 128). No backward yet: inputs that require
+    grad are refused on every device."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_nonull (K4) has no backward yet (ROADMAP Queue 2, "
+                           "'K4 backward'); call it under torch.no_grad or keep the call "
+                           "site on SDPA (VFM_VAE_ADAPTER_ATTN=3mm-xla)")
+    if plain or q.device.type == "cpu":
+        return flash_attention_nonull_reference(q, k, v, scale)
+    B, Tq, N, D = q.shape
+    Tk = k.shape[1]
+    if D not in (64, 128) or q.dtype not in (torch.bfloat16, torch.float32) or Tk == 0:
+        raise ValueError(f"flash_attention_nonull: head dim {D}, {q.dtype}, Tk={Tk}; the "
+                         "kernel takes D in (64, 128), bf16 or fp32 and Tk > 0")
+    dev = q.device
+    check_tensor(q, "q", q.dtype, (B, Tq, N, D), dev)
+    check_tensor(k, "k", q.dtype, (B, Tk, N, D), dev)
+    check_tensor(v, "v", q.dtype, (B, Tk, N, D), dev)
+    lib = library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lib.vfm_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), B, Tq, Tk, N, D, scale,
+                                          int(q.dtype == torch.float32), stream)
+    lib.check(err, "flash_attention_nonull")
+    flash_attention_nonull.launches += 1
+    return out
+
+
+flash_attention_nonull.launches = 0
