@@ -359,6 +359,32 @@ def test_flash_attention_refuses_grad():
         kernels.flash_attention_nonull(q, k, v)
 
 
+@pytest.mark.parametrize("flash", [None, "1"])
+def test_training_adapter_attention_under_the_flash_switch(flash, monkeypatch):
+    """A trainable adapter attention at an eligible shape (T=256, heads of
+    64) under the default 3mm-xla form: without VFM_VAE_USE_PALLAS_FLASH it
+    trains through SDPA; with the switch set the rule admits it, and K4,
+    which has no backward yet, refuses instead of dropping the gradient."""
+    monkeypatch.delenv("VFM_VAE_ADAPTER_ATTN", raising=False)
+    monkeypatch.delenv("VFM_VAE_NO_PALLAS_FLASH", raising=False)
+    if flash is None:
+        monkeypatch.delenv("VFM_VAE_USE_PALLAS_FLASH", raising=False)
+    else:
+        monkeypatch.setenv("VFM_VAE_USE_PALLAS_FLASH", flash)
+    g = torch.Generator().manual_seed(0)
+    pm = PlainAttention(128, 64, 2)
+    with torch.no_grad():
+        for p in pm.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    x = torch.randn((1, 256, 128), generator=g)
+    if flash is None:
+        pm(x).square().sum().backward()
+        assert pm.qkv.weight.grad is not None and pm.qkv.weight.grad.abs().sum() > 0
+    else:
+        with pytest.raises(RuntimeError, match=r"K4 backward"):
+            pm(x)
+
+
 @pytest.mark.parametrize("variant", ["3mm-flash", "packed"])
 def test_adapter_attention_variants_match_3mm_xla(variant, monkeypatch):
     """PlainAttention's three forms agree with each other, in both packages,
