@@ -53,7 +53,8 @@
    launch counts that entry.kernel_sites predicts; prints ms per D and G
    step, peak memory and a profile of one G step. One deterministic step
    then runs with the kernels, with the plain twins and in fp32, and its
-   loss terms and per-module gradient norms are compared.
+   loss terms and per-module gradient norms are compared quantity by
+   quantity (--determinism-trials N repeats it on N batches).
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -61,6 +62,7 @@ line is the kernel summary JSON; the last line is the device JSON.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -1252,15 +1254,25 @@ def train_phase(card: str, B: int = 4):
     return tr, state, reals[0], launches
 
 
-def determinism_phase(tr, state, real, eq=(1.0, 0, False)) -> None:
-    """One [D, G] step with no random draws (posterior mode, no DiffAugment,
-    D resizes instead of cropping), without the update: the kernel path, the
+def determinism_phase(tr, state, real, trials: int = 1) -> None:
+    """[D, G] steps with no random draws (posterior mode, no DiffAugment, D
+    resizes instead of cropping), without the update: the kernel path, the
     plain-twin path (bf16) and an fp32 plain copy on the same weights and
-    batch. Each loss term and each module's gradient norm of the kernel path
-    must be as close to fp32 as the plain bf16 path is: TRUTH_FACTOR on the
-    median relative error. The median, because a few quantities (a D head's
-    gradient, which hangs on the statistics of four images) move by several
-    percent between any two bf16 evaluations and would decide a mean alone."""
+    batch. Trial 0 takes the training phase's first batch at the identity
+    bucket; trial i > 0 a batch drawn from a generator seeded i at
+    FORCED_BUCKETS[i % 3].
+
+    The gate is paired: for each loss term and module gradient norm, the
+    kernel path's relative error vs fp32 over the plain path's, and the
+    median of these ratios must be at most TRUTH_FACTOR. Most quantities
+    carry an error that both bf16 paths share (ratio near 1), a few (a D
+    head's gradient, which hangs on the statistics of four images) move by
+    several percent between any two bf16 evaluations. Unpaired, the median
+    kernel error over the median plain error read 0.86-1.07 in four runs
+    of one tree on the H100 and past 1.5 in another: the two medians fall on
+    different quantities. The paired median read 0.98-1.00 in the same four
+    runs, and 0.96-1.15 over eight batches of a later run whose unpaired
+    ratios spread over 0.59-1.70. The unpaired reading is printed beside it."""
     import torch
 
     from vfm_vae_tpu_torch.entry import flagship_trainer
@@ -1270,13 +1282,13 @@ def determinism_phase(tr, state, real, eq=(1.0, 0, False)) -> None:
     bufs = {"G": {k: v.clone() for k, v in tr.G.named_buffers()},
             "D": {k: v.clone() for k, v in tr.D.named_buffers()}}
 
-    def run(t, st):
+    def run(t, st, img, eq):
         for mod, key in ((t.G, "G"), (t.D, "D")):  # spectral-norm u/v and x_avg as they were
             for k, v in mod.named_buffers():
                 v.copy_(bufs[key][k])
         t.record_grad_norms, t.grad_norms = True, {}
-        _, d_total, aux = t.d_gradients(st, real, eq)
-        _, terms, _, _, g_total = t.g_gradients(st, real, eq, update_buffers=False)
+        _, d_total, aux = t.d_gradients(st, img, eq)
+        _, terms, _, _, g_total = t.g_gradients(st, img, eq, update_buffers=False)
         t.record_grad_norms = False
         out = {"D total": float(d_total), "G total": float(g_total)}
         out.update({"G " + n: float(v) for n, v in zip(G_TERMS, terms) if float(v) != 0.0})
@@ -1287,37 +1299,60 @@ def determinism_phase(tr, state, real, eq=(1.0, 0, False)) -> None:
         out.update({"|grad| " + k: math.sqrt(v) for k, v in groups.items()})
         return out
 
-    kern = run(tr, state)
-    tr.G.use_plain_kernels(True)
-    plain = run(tr, state)
-    tr.G.use_plain_kernels(False)
     tr32 = flagship_trainer(dev, real.shape[0], torch.Generator(device=dev).manual_seed(0),
                             dtype=torch.float32, allow_random_lpips=True)
     tr32.G.load_state_dict(tr.G.state_dict())
     tr32.D.load_state_dict(tr.D.state_dict())
     tr32.loss.lpips.load_state_dict(tr.loss.lpips.state_dict())
     tr32.G.use_plain_kernels(True)
-    exact = run(tr32, tr32.init_state())
-    del tr32
+    state32 = tr32.init_state()
+    failed = []
+    for trial in range(trials):
+        if trial == 0:
+            img, eq = real, (1.0, 0, False)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(trial)
+            img = torch.rand(real.shape, generator=gen, device=dev)
+            eq = FORCED_BUCKETS[trial % len(FORCED_BUCKETS)]
+        kern = run(tr, state, img, eq)
+        tr.G.use_plain_kernels(True)
+        plain = run(tr, state, img, eq)
+        tr.G.use_plain_kernels(False)
+        exact = run(tr32, state32, img, eq)
+        keys = [k for k in exact if exact[k] != 0.0]
+        ek = [abs(kern[k] - exact[k]) / abs(exact[k]) for k in keys]
+        ep = [abs(plain[k] - exact[k]) / abs(exact[k]) for k in keys]
+        # Below 1e-6 a relative error is fp32's own rounding: equal floors
+        # make two such quantities a ratio of 1.
+        ratios = [max(a, 1e-6) / max(b, 1e-6) for a, b in zip(ek, ep)]
+        lines = [f"[determinism] trial {trial} eq={eq} {k}: fp32 {exact[k]:.6g} kernel "
+                 f"{kern[k]:.6g} (rel {a:.2e}) plain {plain[k]:.6g} (rel {b:.2e})"
+                 for k, a, b in zip(keys, ek, ep)]
+        print("\n".join(lines), flush=True)
+        paired, mk, mp = (statistics.median(v) for v in (ratios, ek, ep))
+        ok = paired <= TRUTH_FACTOR
+        summary = (f"[determinism] trial {trial} eq={eq}: {len(keys)} quantities (loss terms, "
+                   f"per-module gradient norms): median of kernel/plain relative errors vs fp32 "
+                   f"{paired:.3f} (limit {TRUTH_FACTOR}); kernel worse in "
+                   f"{sum(r > 1 for r in ratios)}/{sum(r != 1 for r in ratios)}; unpaired median "
+                   f"kernel {mk:.3e} plain {mp:.3e} (ratio {mk / max(mp, 1e-12):.3f}; means "
+                   f"{sum(ek) / len(ek):.3e} and {sum(ep) / len(ep):.3e}) {'OK' if ok else 'FAIL'}")
+        print(summary, flush=True)
+        if not ok:
+            print("\n".join(lines + [summary]), file=sys.stderr, flush=True)
+            failed.append(trial)
+    del tr32, state32
     torch.cuda.empty_cache()
-    keys = [k for k in exact if exact[k] != 0.0]
-    ek = [abs(kern[k] - exact[k]) / abs(exact[k]) for k in keys]
-    ep = [abs(plain[k] - exact[k]) / abs(exact[k]) for k in keys]
-    for k, a, b in zip(keys, ek, ep):
-        print(f"[determinism] {k}: fp32 {exact[k]:.6g} kernel {kern[k]:.6g} (rel {a:.2e}) "
-              f"plain {plain[k]:.6g} (rel {b:.2e})", flush=True)
-    mk, mp = statistics.median(ek), statistics.median(ep)
-    ok = mk <= TRUTH_FACTOR * mp + 1e-6
-    print(f"[determinism] {len(keys)} quantities (loss terms, per-module gradient norms): median "
-          f"relative error vs fp32 kernel {mk:.3e} plain {mp:.3e} (limit {TRUTH_FACTOR} x plain; "
-          f"means {sum(ek) / len(ek):.3e} and {sum(ep) / len(ep):.3e}) {'OK' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise SystemExit("chip_smoke: the kernel training step is further from fp32 than the "
-                         "plain bf16 step")
+    if failed:
+        raise SystemExit(f"chip_smoke: the kernel training step is further from fp32 than the "
+                         f"plain bf16 step (trials {failed})")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--determinism-trials", type=int, default=1,
+                    help="batches of the deterministic kernel/plain/fp32 step (default 1)")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "vfm_vae_tpu_torch")):
         raise SystemExit("chip_smoke: the vfm_vae_tpu_torch package is not beside this script")
     sys.path.insert(0, HERE)
@@ -1375,7 +1410,7 @@ def main() -> int:
     del G
     torch.cuda.empty_cache()
     tr, state, real, launches["train_step"] = train_phase(card)
-    determinism_phase(tr, state, real)
+    determinism_phase(tr, state, real, args.determinism_trials)
 
     entries = []
     for name, s in summary.items():
