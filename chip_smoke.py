@@ -55,6 +55,16 @@
    then runs with the kernels, with the plain twins and in fp32, and its
    loss terms and per-module gradient norms are compared quantity by
    quantity (--determinism-trials N repeats it on N batches).
+7. The opt-in kernels and K4's backward: K5 (GroupNorm moments) against
+   its twin and fp64 sums at every K5 site of a decode and the EQ shapes,
+   repeatable bit for bit; K9 (K1 pipelined) against K1 at every K1 site,
+   0 ulps; K7 and K8 (depthwise conv + statistics, and without) against
+   their twins at every ConvNeXt dwconv shape; K4's backward against its
+   twin and fp64 at the training path's sites. With every opt-in switch
+   of the JAX package on (ALL_SWITCHES), three round-trip requests and
+   the stage-0 steps run under the gates above, with img/s and step times
+   beside the default path in turns; the dwconv probe launches K7 and K8
+   at the 38 dwconvs of a decode in a window of their own.
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -121,7 +131,34 @@ SOURCES = {
     "int8_matmul": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu",
                     "vfm_vae_tpu/ops/pallas/int8_matmul.py:60"),
     "int8_matmul_raw": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu", "tools/bench_int8_kernel.py:132"),
+    # K4's backward (the library kernels behind the JAX K4's custom VJP), K5,
+    # K9, and the dwconv probe's K7 and K8.
+    "flash_attention_nonull_bwd_dkv": (
+        "vfm_vae_tpu_torch/csrc/flash_attention_nullkv_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "flash_attention_nonull_bwd_dq": (
+        "vfm_vae_tpu_torch/csrc/flash_attention_nullkv_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+    "channel_moments": ("vfm_vae_tpu_torch/csrc/group_stats.cu",
+                        "vfm_vae_tpu/ops/pallas/group_stats.py:44"),
+    "fused_convnext_mlp_pipelined": ("vfm_vae_tpu_torch/csrc/fused_mlp.cu",
+                                     "vfm_vae_tpu/ops/pallas/fused_mlp.py:150"),
+    "dwconv_noise_stats": ("vfm_vae_tpu_torch/csrc/dwconv_stats.cu",
+                           "vfm_vae_tpu/ops/pallas/dwconv_stats.py:107"),
+    "depthwise_conv2d_same": ("vfm_vae_tpu_torch/csrc/dwconv_stats.cu",
+                              "vfm_vae_tpu/ops/pallas/dwconv.py:53"),
 }
+# kernel_sites' entries that no forward pass launches: the dwconv probe's
+# kernels, and K4's backward (one launch per training pull through the adapter).
+PROBE_KERNELS = ("dwconv_noise_stats", "depthwise_conv2d_same")
+K4_BWD = ("flash_attention_nonull_bwd_dkv", "flash_attention_nonull_bwd_dq")
+ENCODE_KERNELS = ("flash_attention_nonull", "int8_matmul") + K4_BWD
+# K5 and K7's statistics against fp64 sums: |s2 - exact| <= STATS_REL * exact
+# and |s1 - exact| <= STATS_REL * sum |x| (fp32 sums over up to 65,536 rows).
+STATS_REL = 1e-5
+# K7 and K8 against their twins: the same rounding points, the k^2 taps
+# summed in another order in the fp32 accumulator: one bf16 ulp of t.
+DWCONV_ULPS = 1.0
 PER_DECODE = {"fused_convnext_mlp": 38, "fused_upsample_blur": 10, "flash_attention_nullkv": 6}
 # K3's backward against its twin: the same bounds as the forward (P and dS
 # rounded to bf16 at the same points, summed in another order).
@@ -175,6 +212,31 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time per call of `fn`: the self device time of every kernel it
+    launches over `reps` calls in a profiler window (torch.profiler /
+    CUPTI), without the host's time between them; None if the profiler saw
+    no device time. The CUDA-event times above include the host's when a
+    call's kernels are shorter than its Python and launch overhead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / reps if busy else None
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def kernel_inputs(name: str, site: dict, B: int, gen, dev):
@@ -748,6 +810,8 @@ def slice_phase(G, card: str) -> dict:
         if launches[name] != per * n_req:
             raise SystemExit(f"chip_smoke: {name} launched {launches[name]} times, "
                              f"expected {per} per decode x {n_req}")
+    if any(n for name, n in launches.items() if name not in PER_DECODE):
+        raise SystemExit("chip_smoke: an opt-in kernel launched on the default path")
     for i, (z, x) in enumerate(outs):
         if tuple(z.shape) != (B, 16, 16, 32) or tuple(x.shape) != (B, 256, 256, 3):
             raise SystemExit(f"chip_smoke: request {i}: shapes {tuple(z.shape)} {tuple(x.shape)}")
@@ -779,6 +843,7 @@ def slice_phase(G, card: str) -> dict:
           f"PSNR kernel {psnr(x_k, x_32):.2f} dB plain {psnr(x_p, x_32):.2f} dB", flush=True)
     if not (dec_kp <= DECODE_REL_L1 and dec_k32 <= TRUTH_FACTOR * dec_p32 + 1e-6):
         raise SystemExit("chip_smoke: kernel decode disagrees with the plain / fp32 decode")
+    refs = dict(img=requests[0], z=z_k, x=x_k, x_plain=x_p, x_32=x_32)
 
     for bs in (4, 32):
         img = torch.rand((bs, 256, 256, 3), generator=gen, device=dev)
@@ -793,7 +858,7 @@ def slice_phase(G, card: str) -> dict:
         print(f"[slice] round trip B={bs}: {dt * 1e3:.1f} ms/batch, {bs / dt:.2f} img/s "
               f"on {card} (first reading, random weights)", flush=True)
     profile_round_trip(G, img)
-    return launches
+    return launches, refs
 
 
 def profile_round_trip(G, img, top: int = 15) -> None:
@@ -835,15 +900,18 @@ def attention_fp64(q, k, v):
 
 
 FLASH_SWITCHES = {"VFM_VAE_USE_PALLAS_FLASH": "1", "VFM_VAE_ADAPTER_ATTN": "3mm-flash"}
+# Every opt-in kernel switch of the JAX package: K5, K9 and the flash
+# switches (K4, and K4's backward in training).
+ALL_SWITCHES = dict(FLASH_SWITCHES, VFM_VAE_PALLAS_STATS="1", VFM_VAE_MLP_PIPELINE="1")
+NO_SWITCHES = {k: None for k in ALL_SWITCHES}
 
 
-class serving_env:
-    """The int8 serving switches for the length of a `with`: the flash
-    switches always, VFM_VAE_INT8_VFM as given (enable_int8_tower sets it);
-    every variable is restored on exit."""
+class env_vars:
+    """The environment variables `want` (None: unset) for the length of a
+    `with`; every variable is restored on exit."""
 
-    def __init__(self, int8: bool):
-        self.want = dict(FLASH_SWITCHES, VFM_VAE_INT8_VFM="1" if int8 else None)
+    def __init__(self, want: dict):
+        self.want = want
 
     def __enter__(self):
         self.saved = {k: os.environ.get(k) for k in self.want}
@@ -860,6 +928,19 @@ class serving_env:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def serving_env(int8: bool) -> env_vars:
+    """The int8 serving switches: the flash switches always,
+    VFM_VAE_INT8_VFM as given (enable_int8_tower sets it)."""
+    return env_vars(dict(FLASH_SWITCHES, VFM_VAE_INT8_VFM="1" if int8 else None))
+
+
+def forward_counts(sites: dict) -> dict:
+    """Launches of one forward pass (encode + decode) per kernel_sites entry,
+    leaving out the probe's kernels and K4's backward."""
+    return {name: sum(s["count"] for s in ss) for name, ss in sites.items()
+            if name not in PROBE_KERNELS + K4_BWD}
 
 
 def encode_sites(G, int8: bool) -> list:
@@ -880,8 +961,8 @@ def predicted_serving(sites: dict, n_req: int) -> dict:
     from vfm_vae_tpu_torch.ops import kernels
 
     want = {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
-    for name, ss in sites.items():
-        want[name] += n_req * sum(s["count"] for s in ss)
+    for name, n in forward_counts(sites).items():
+        want[name] += n_req * n
     want["int8_matmul"] += sum(s["count"] for s in sites["int8_matmul"])
     want["flash_attention_nonull"] += sum(s["count"] for s in sites["flash_attention_nonull"]
                                           if s["at"] == "tower")
@@ -1126,23 +1207,40 @@ def bn_fed_bias(name: str) -> bool:
 
 
 def predicted_launches(G, buckets) -> dict:
-    """Launches of one [D, G] step per bucket: G runs forward in the D phase
-    and in the G phase (K1-K3 forward at each site of that bucket's decode),
-    and two backward passes reach the decoder in the G phase (the adaptive
-    VF weight's pull of the reconstruction terms and the training pull), each
-    running K3's two backward kernels at every attention site. The VF pull
-    stops at z; K1 and K2 backward are PyTorch."""
+    """Launches of one [D, G] step per bucket, under the switches set now: G
+    runs forward in the D phase and in the G phase (every forward kernel at
+    each site of that bucket's encode and decode), and two backward passes
+    reach the decoder in the G phase (the adaptive VF weight's pull of the
+    reconstruction terms and the training pull), each running K3's two
+    backward kernels at every attention site. Both anchor pulls stop at the
+    anchor (the last final_quant block's MLP output projection), upstream of
+    which lie the encode side's attentions, so only the training pull runs
+    K4's backward there, once at each site; post_quant (the decode side)
+    lies downstream of it and takes two. A latent bucket encodes the full
+    image, a prior bucket the shrunk one. K1/K9's, K2's and K5's backward
+    passes are PyTorch."""
     from vfm_vae_tpu_torch.entry import eq_image_size, kernel_sites
     from vfm_vae_tpu_torch.ops import kernels
 
     want = {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
+    full = G.synthesis.block_resolutions[-1]
     for eq in buckets:
-        sites = kernel_sites(G, eq_image_size(G, eq))
-        for name, ss in sites.items():
-            want[name] += 2 * sum(s["count"] for s in ss)
+        # A latent bucket encodes the full image and resizes z; a prior bucket
+        # shrinks the tower's input with z.
+        dec = kernel_sites(G, eq_image_size(G, eq))
+        enc = kernel_sites(G, eq_image_size(G, eq) if eq[2] else full)
+        sites = {name: [s for s in (enc if name in ENCODE_KERNELS else dec)[name]
+                        if s.get("at") != "post_quant"]
+                 + [s for s in dec[name] if name in ENCODE_KERNELS and s["at"] == "post_quant"]
+                 for name in dec}
+        for name, n in forward_counts(sites).items():
+            want[name] += 2 * n
         n_att = sum(s["count"] for s in sites["flash_attention_nullkv"])
         want["flash_attention_nullkv_bwd_dkv"] += 2 * n_att
         want["flash_attention_nullkv_bwd_dq"] += 2 * n_att
+        for name in K4_BWD:  # post_quant lies downstream of the anchor: both pulls
+            want[name] += sum(s["count"] * (2 if s["at"] == "post_quant" else 1)
+                              for s in sites[name])
     return want
 
 
@@ -1159,8 +1257,6 @@ def train_phase(card: str, B: int = 4):
 
     from vfm_vae_tpu_torch.entry import STAGE0_EQ, flagship_trainer
     from vfm_vae_tpu_torch.models.adapter import EquivarianceTransform
-    from vfm_vae_tpu_torch.ops import kernels
-    from vfm_vae_tpu_torch.train.train_step import G_STAT_NAMES
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1170,7 +1266,6 @@ def train_phase(card: str, B: int = 4):
     torch.cuda.synchronize()
     params = named_params(tr)
     trainable = {"G." + n for n in tr.g_params} | {"D." + n for n in tr.d_params}
-    frozen = [n for n in params if n not in trainable]
     n_all = sum(p.numel() for p in params.values())
     n_tr = sum(params[n].numel() for n in trainable)
     print(f"[train] stage-0 trainer: {n_all / 1e6:.1f} M parameters ({n_tr / 1e6:.1f} M "
@@ -1183,9 +1278,32 @@ def train_phase(card: str, B: int = 4):
     buckets = [eqt(np.random.default_rng(5))] + FORCED_BUCKETS
     res = tr.G.synthesis.block_resolutions[-1]
     reals = [torch.rand((B, res, res, 3), generator=gen, device=dev) for _ in buckets]
-    before = {n: p.detach().clone() for n, p in params.items()}
     state = tr.init_state()
+    state, launches = train_steps(tr, state, buckets, reals, gen, card, "train")
+    profile_device(lambda: tr.g_step(state, reals[1], buckets[1], gen),
+                   f"G step B={B} eq={buckets[1]}")
+    return tr, state, reals[0], launches
+
+
+def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
+    """One [D, G] step per bucket (the first a warm-up), timed, with the
+    training gates: finite losses, a nonzero first-step gradient for every
+    trainable tensor, every trainable tensor changed and every frozen one
+    (SigLIP, DINO, LPIPS) bit-identical, every EMA tensor moved, and the
+    launch counts predicted_launches gives for the switches set now.
+    Returns (state, launches)."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.train.train_step import G_STAT_NAMES
+
+    B = reals[0].shape[0]
+    params = named_params(tr)
+    trainable = {"G." + n for n in tr.g_params} | {"D." + n for n in tr.d_params}
+    frozen = [n for n in params if n not in trainable]
+    before = {n: p.detach().clone() for n, p in params.items()}
     ema0 = {k: v.clone() for k, v in state.ema.items()}
+    nimg0 = state.cur_nimg
     want = predicted_launches(tr.G, buckets)
 
     torch.cuda.synchronize()
@@ -1209,23 +1327,25 @@ def train_phase(card: str, B: int = 4):
         vals = torch.stack([v for v in stats.values()] + [d_total.reshape(1).expand(3),
                                                           g_total.reshape(1).expand(3)])
         if not bool(torch.isfinite(vals).all()):
-            raise SystemExit(f"chip_smoke: step {i}: a loss term is not finite")
+            raise SystemExit(f"chip_smoke: {label} step {i}: a loss term is not finite")
         mean = {k: float(v[1] / v[0]) for k, v in stats.items()}
         terms = " ".join(f"{n}={mean[G_STAT_NAMES[n]]:.4g}" for n in
                          ("l1_pixel_loss", "perceptual_loss", "multiscale_pixel_loss",
                           "stylegan_t_gen_loss", "vf_loss", "kl_loss"))
-        print(f"[train] step {i} ({'warm-up' if i == 0 else 'timed'}) eq={eq} z "
+        print(f"[{label}] step {i} ({'warm-up' if i == 0 else 'timed'}) eq={eq} z "
               f"{tr.G.ldm_adapter.z_resolution * eq[0]:g} px: D {d_ms[-1]:.1f} ms G "
               f"{g_ms[-1]:.1f} ms; D total {float(d_total):.4g} G total {float(g_total):.4g} "
               f"{terms} vf_w={mean['Loss/G/cur_vf_loss_weight']:.4g}", flush=True)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"[train] launches over {len(buckets)} [D, G] steps: {launches}; predicted {want}",
+    print(f"[{label}] launches over {len(buckets)} [D, G] steps: {launches}; predicted {want}",
           flush=True)
     if launches != want:
-        raise SystemExit("chip_smoke: training launch counts differ from kernel_sites' prediction")
-    print(f"[train] B={B} on {card}: D step {statistics.median(d_ms[1:]):.1f} ms, G step "
-          f"{statistics.median(g_ms[1:]):.1f} ms (median of the 3 timed steps; D "
+        raise SystemExit(f"chip_smoke: {label} launch counts differ from kernel_sites' "
+                         "prediction")
+    n_t = len(buckets) - 1
+    print(f"[{label}] B={B} on {card}: D step {statistics.median(d_ms[1:]):.1f} ms, G step "
+          f"{statistics.median(g_ms[1:]):.1f} ms (median of the {n_t} timed steps; D "
           f"{', '.join(f'{x:.1f}' for x in d_ms[1:])}, G {', '.join(f'{x:.1f}' for x in g_ms[1:])}); "
           f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)", flush=True)
 
@@ -1236,22 +1356,20 @@ def train_phase(card: str, B: int = 4):
     moved = sorted(n for n in frozen if not torch.equal(before[n], after[n]))
     still = sorted(k for k in state.ema if torch.equal(ema0[k], state.ema[k]))
     bn = sorted(n for n in trainable if bn_fed_bias(n))
-    print(f"[train] first step: {sum(first_norms[n] > 0 for n in trainable)}/{len(trainable)} "
+    print(f"[{label}] first step: {sum(first_norms[n] > 0 for n in trainable)}/{len(trainable)} "
           f"trainable tensors with a nonzero gradient (min "
           f"{min(first_norms[n] for n in trainable if not bn_fed_bias(n)):.3e}); "
           f"{len(bn)} BatchNormLocal-fed head biases (zero in exact arithmetic) had norms up to "
           f"{max(first_norms[n] for n in bn):.3e}", flush=True)
-    print(f"[train] after {len(buckets)} steps: {len(trainable) - len(unchanged)}/{len(trainable)} "
-          f"trainable tensors changed, {len(frozen) - len(moved)}/{len(frozen)} frozen (SigLIP, "
-          f"DINO, LPIPS) unchanged bit for bit, {len(state.ema) - len(still)}/{len(state.ema)} "
-          f"EMA tensors moved, cur_nimg {state.cur_nimg}", flush=True)
-    if zero or unchanged or moved or still or state.cur_nimg != B * len(buckets):
-        raise SystemExit(f"chip_smoke: training gates failed: zero grad {zero[:4]}, unchanged "
+    print(f"[{label}] after {len(buckets)} steps: {len(trainable) - len(unchanged)}/"
+          f"{len(trainable)} trainable tensors changed, {len(frozen) - len(moved)}/{len(frozen)} "
+          f"frozen (SigLIP, DINO, LPIPS) unchanged bit for bit, {len(state.ema) - len(still)}/"
+          f"{len(state.ema)} EMA tensors moved, cur_nimg {state.cur_nimg}", flush=True)
+    if (zero or unchanged or moved or still
+            or state.cur_nimg != nimg0 + B * len(buckets)):
+        raise SystemExit(f"chip_smoke: {label} gates failed: zero grad {zero[:4]}, unchanged "
                          f"{unchanged[:4]}, frozen moved {moved[:4]}, EMA still {still[:4]}")
-    del before, ema0
-    profile_device(lambda: tr.g_step(state, reals[1], buckets[1], gen),
-                   f"G step B={B} eq={buckets[1]}")
-    return tr, state, reals[0], launches
+    return state, launches
 
 
 def determinism_phase(tr, state, real, trials: int = 1) -> None:
@@ -1348,6 +1466,510 @@ def determinism_phase(tr, state, real, trials: int = 1) -> None:
                          f"plain bf16 step (trials {failed})")
 
 
+# ------------------------------------------------------------------ slice 4
+
+
+def stats_errors(s1, s2, x):
+    """K5's bounds: (max |s1 - exact| / sum |x|, max |s2 - exact| / exact)
+    per (sample, channel), against fp64 sums of x."""
+    xd = x.double()
+    e1, e2, a1 = xd.sum((1, 2)), xd.square().sum((1, 2)), xd.abs().sum((1, 2))
+    return (float(((s1.double() - e1).abs() / a1.clamp_min(1e-300)).max()),
+            float(((s2.double() - e2).abs() / e2.clamp_min(1e-300)).max()))
+
+
+def plain_bound(ops: float, byts: float, peak: float):
+    """(least ms, "operations" or "bytes") of `ops` at `peak` and `byts` at HBM's rate."""
+    a, b = ops / peak * 1e3, byts / PEAK_BYTES_PER_S * 1e3
+    return max(a, b), ("operations" if a >= b else "bytes")
+
+
+def kernel_stats_phase(G, B: int = 2) -> dict:
+    """K5 against its twin and fp64 sums at every K5 site of a flagship decode
+    (VFM_VAE_PALLAS_STATS=1) and at the EQ decodes' shapes, bf16 O(1) inputs
+    with an offset (s1 then cancels); two launches on one input must agree
+    bit for bit; kernel, twin and bound times over one decode's sites."""
+    import torch
+
+    from vfm_vae_tpu_torch.entry import kernel_sites
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(55)
+    with env_vars({"VFM_VAE_PALLAS_STATS": "1"}):
+        flag = kernel_sites(G, 256)["channel_moments"]
+        seen = {(s["C"], s["H"]) for s in flag}
+        cases = [(s, "flagship") for s in flag]
+        for hw in (64, 128, 192):
+            for s in kernel_sites(G, hw)["channel_moments"]:
+                if (s["C"], s["H"]) not in seen:
+                    seen.add((s["C"], s["H"]))
+                    cases.append((dict(s, count=0), f"eq{hw}"))
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0)
+    worst, by, failed = 0.0, {}, []
+    for site, tag in cases:
+        C, H, n = site["C"], site["H"], site["count"]
+        x = (torch.randn((B, H, H, C), generator=gen, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
+        s1, s2 = kernels.channel_moments(x)
+        r1, r2 = kernels.channel_moments(x)
+        t1, t2 = kernels.channel_moments(x, plain=True)
+        torch.cuda.synchronize()
+        repeat = torch.equal(s1, r1) and torch.equal(s2, r2)
+        k1, k2 = stats_errors(s1, s2, x)
+        p1, p2 = stats_errors(t1, t2, x)
+        finite = bool(torch.isfinite(s1).all() and torch.isfinite(s2).all())
+        ok = finite and repeat and k1 <= STATS_REL and k2 <= STATS_REL
+        worst = max(worst, float((s1 - t1).abs().max()), float((s2 - t2).abs().max()))
+        line = ""
+        if n:
+            ms = cuda_time_ms(lambda: kernels.channel_moments(x))
+            plain_ms = cuda_time_ms(lambda: kernels.channel_moments(x, plain=True))
+            dev_ms = device_ms(lambda: kernels.channel_moments(x))
+            bnd, b_by = plain_bound(3 * x.numel(), 2 * x.numel() + 8 * B * C, PEAK_FP32_FLOPS)
+            by[b_by] = by.get(b_by, 0) + n
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
+                             ("device_ms", dev_ms)):
+                tot[key] = None if val is None or tot[key] is None else tot[key] + val * n
+            line = (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({b_by}) "
+                    f"device_ms={ms_text(dev_ms)} x{n}/decode")
+        print(f"[kernel-stats] {tag} C={C} H=W={H} B={B}: s1 err/sum|x| kernel {k1:.2e} twin "
+              f"{p1:.2e}, s2 rel kernel {k2:.2e} twin {p2:.2e} (tol {STATS_REL:g}); two launches "
+              f"bit-identical {repeat}; finite={finite}{line} {'OK' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failed.append(f"{tag} C={C} H={H}")
+    if failed:
+        raise SystemExit(f"chip_smoke: kernel-stats phase FAILED at {failed}")
+    print(f"[kernel-stats] all {sum(s['count'] for s in flag)} K5 sites of one decode at B={B}: "
+          f"kernel {tot['ms']:.4f} ms (device {ms_text(tot['device_ms'])}), plain "
+          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms", flush=True)
+    return {"channel_moments": dict(max_abs_err=worst, batch=B, bound_by=max(by, key=by.get),
+                                    library_ms=None, **tot)}
+
+
+def kernel_pipeline_phase(sites: dict, eq_sites: dict, B: int = 2) -> dict:
+    """K9 against K1 on the same inputs at every K1 site of a flagship decode
+    and of the EQ decodes: 0 ulps (torch.equal); K9's, K1's and the twin's
+    times over one decode's sites. No PyTorch call computes the function:
+    K1 is the comparison."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(66)
+    name = "fused_convnext_mlp"
+    cases = [(s, "flagship") for s in sites[name]]
+    seen = {(s["C"], s["H"]) for s in sites[name]}
+    for hw, ss in eq_sites.items():
+        for s in ss[name]:
+            if (s["C"], s["H"]) not in seen:
+                seen.add((s["C"], s["H"]))
+                cases.append((dict(s, count=0), f"eq{hw}"))
+    tot = dict(ms=0.0, k1_ms=0.0, plain_ms=0.0)
+    worst, failed = 0.0, []
+    for site, tag in cases:
+        args = kernel_inputs(name, site, B, gen, dev)
+        got = kernels.fused_convnext_mlp_pipelined(**args)
+        ref = kernels.fused_convnext_mlp(**args)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, ref)
+        diff = float((got.float() - ref.float()).abs().max())
+        worst = max(worst, diff)
+        line = ""
+        if site["count"]:
+            ms = cuda_time_ms(lambda: kernels.fused_convnext_mlp_pipelined(**args))
+            k1 = cuda_time_ms(lambda: kernels.fused_convnext_mlp(**args))
+            pm = cuda_time_ms(lambda: kernels.fused_convnext_mlp(**args, plain=True))
+            for key, val in (("ms", ms), ("k1_ms", k1), ("plain_ms", pm)):
+                tot[key] += val * site["count"]
+            line = f" K9_ms={ms:.4f} K1_ms={k1:.4f} plain_ms={pm:.4f} x{site['count']}/decode"
+        print(f"[kernel-pipeline] {tag} C={site['C']} H={site['H']} B={B}: K9 vs K1 max_abs="
+              f"{diff:.3e} bit-exact {exact}{line} {'OK' if exact else 'FAIL'}", flush=True)
+        if not exact:
+            failed.append(f"{tag} C={site['C']} H={site['H']}")
+    if failed:
+        raise SystemExit(f"chip_smoke: kernel-pipeline phase FAILED at {failed}")
+    bnd, by = bound(name, sites[name], B)
+    print(f"[kernel-pipeline] all K1 sites of one decode at B={B}: K9 {tot['ms']:.4f} ms, K1 "
+          f"{tot['k1_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by})",
+          flush=True)
+    return {"fused_convnext_mlp_pipelined": dict(max_abs_err=worst, batch=B, bound_ms=bnd,
+                                                 bound_by=by, library_ms=None, **tot)}
+
+
+def dwconv_inputs(site: dict, B: int, gen, dev):
+    """x (B, H, H, C) bf16, w (k, k, C) and b (C,) fp32, noise (H, H) fp32."""
+    import torch
+
+    C, H, k = site["C"], site["H"], site["k"]
+    x = torch.randn((B, H, H, C), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((k, k, C), generator=gen, device=dev) / k
+    b = torch.randn(C, generator=gen, device=dev) * 0.5
+    noise = torch.randn((H, H), generator=gen, device=dev) * 0.3
+    return x, w, b, noise
+
+
+def kernel_dwconv_phase(sites: dict, B: int = 2) -> dict:
+    """K7 (noise on and off) and K8 against their twins at every ConvNeXt
+    dwconv shape of a flagship decode: t within DWCONV_ULPS bf16 ulps, K7's
+    statistics against fp64 sums of the kernel's own t at K5's bounds."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    worst = {"dwconv_noise_stats": 0.0, "depthwise_conv2d_same": 0.0}
+    failed = []
+    for site in sites["dwconv_noise_stats"]:
+        x, w, b, noise = dwconv_inputs(site, B, gen, dev)
+        line = []
+        for tag, nz in (("noise", noise), ("no noise", None)):
+            t, s1, s2 = kernels.dwconv_noise_stats(x, w, b, nz)
+            rt, _, _ = kernels.dwconv_noise_stats(x, w, b, nz, plain=True)
+            torch.cuda.synchronize()
+            ulps = bf16_ulps(t, rt)
+            e1, e2 = stats_errors(s1, s2, t)
+            ok = bool(torch.isfinite(t.float()).all()) and ulps <= DWCONV_ULPS and max(
+                e1, e2) <= STATS_REL
+            worst["dwconv_noise_stats"] = max(worst["dwconv_noise_stats"],
+                                              float((t.float() - rt.float()).abs().max()))
+            line.append(f"K7 {tag} {ulps:g} ulps, stats {e1:.2e} / {e2:.2e}"
+                        f"{'' if ok else ' FAIL'}")
+            if not ok:
+                failed.append(f"K7 {tag} {site_label(site)}")
+        w8 = w[:, :, None, :].contiguous()
+        got = kernels.depthwise_conv2d_same(x, w8, b)
+        ref = kernels.depthwise_conv2d_same(x, w8, b, plain=True)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(got, ref)
+        worst["depthwise_conv2d_same"] = max(worst["depthwise_conv2d_same"],
+                                             float((got.float() - ref.float()).abs().max()))
+        line.append(f"K8 {ulps:g} ulps{'' if ulps <= DWCONV_ULPS else ' FAIL'}")
+        if ulps > DWCONV_ULPS:
+            failed.append(f"K8 {site_label(site)}")
+        print(f"[kernel-dwconv] {site_label(site)} B={B}: " + "; ".join(line)
+              + f" (tol {DWCONV_ULPS:g} ulp, stats {STATS_REL:g})", flush=True)
+    if failed:
+        raise SystemExit(f"chip_smoke: kernel-dwconv phase FAILED at {failed}")
+    return worst
+
+
+def dwconv_work(site: dict, B: int, stats: bool):
+    """(operations, bytes) of one K7 (stats) or K8 call: x read and t written
+    once (bf16), w, b (and K7's noise, s1, s2) once; 2 k^2 flops per output
+    (K7 adds the bias, the noise and three statistics flops)."""
+    C, H, k = site["C"], site["H"], site["k"]
+    n = B * H * H * C
+    ops = 2 * k * k * n + (5 * n if stats else n)
+    byts = 4 * n + 4 * (k * k * C + C) + ((4 * H * H + 8 * B * C) if stats else 0)
+    return ops, byts
+
+
+def dwconv_probe(G, B: int = 2) -> tuple:
+    """The dwconv probe, the port's counterpart of tools/bench_dwstats.py: K7
+    and K8 on the weights, bias and legacy noise map of every ConvNeXt layer
+    of the flagship decoder, in a launch window of their own (no model path
+    runs them); then each shape's kernel, twin and library times (cuDNN's
+    depthwise F.conv2d, plus the noise add and the two reductions for K7)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vfm_vae_tpu_torch.entry import kernel_sites
+    from vfm_vae_tpu_torch.models.convnext import ConvNeXtSynthesisLayer
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.ops.resize import resize_bilinear
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(88)
+    sites = kernel_sites(G, 256)
+    calls = []
+    for block, res in zip(G.synthesis.blocks, G.synthesis.block_resolutions):
+        for m in block.modules():
+            if isinstance(m, ConvNeXtSynthesisLayer):
+                C = m.dwconv.weight.shape[0]
+                w = m.dwconv.weight[:, 0].permute(1, 2, 0).float().contiguous()
+                noise = (m.noise_const * m.noise_strength).float()
+                if noise.shape != (res, res):
+                    noise = resize_bilinear(noise[None, :, :, None], size=(res, res))[0, :, :, 0]
+                x = torch.randn((B, res, res, C), generator=gen, device=dev).to(torch.bfloat16)
+                calls.append((x, w, m.dwconv.bias.float().contiguous(), noise.contiguous()))
+    want = {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
+    for name in PROBE_KERNELS:
+        want[name] = sum(s["count"] for s in sites[name])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        for x, w, b, noise in calls:
+            kernels.dwconv_noise_stats(x, w, b, noise)
+            kernels.depthwise_conv2d_same(x, w[:, :, None, :], b)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"[dwconv-probe] launches over the {len(calls)} ConvNeXt dwconvs of one decode at "
+          f"B={B}: K7 {launches['dwconv_noise_stats']}, K8 {launches['depthwise_conv2d_same']}; "
+          f"predicted {want['dwconv_noise_stats']}, {want['depthwise_conv2d_same']}", flush=True)
+    if launches != want:
+        raise SystemExit(f"chip_smoke: dwconv probe launches {launches}")
+
+    out = {}
+    for name in PROBE_KERNELS:
+        stats = name == "dwconv_noise_stats"
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0)
+        by = {}
+        for site in sites[name]:
+            x, w, b, noise = dwconv_inputs(site, B, gen, dev)
+            C, k, n = site["C"], site["k"], site["count"]
+            xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
+            wc = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
+            bb = b.to(torch.bfloat16)
+            if stats:
+                fn = lambda: kernels.dwconv_noise_stats(x, w, b, noise)  # noqa: E731
+                pfn = lambda: kernels.dwconv_noise_stats(x, w, b, noise, plain=True)  # noqa: E731
+                nz = noise.to(torch.bfloat16)
+
+                def lib():
+                    y = (F.conv2d(xc, wc, bb, padding=k // 2, groups=C) + nz).float()
+                    return y.sum((2, 3)), y.square().sum((2, 3))
+            else:
+                w8 = w[:, :, None, :].contiguous()
+                fn = lambda: kernels.depthwise_conv2d_same(x, w8, b)  # noqa: E731
+                pfn = lambda: kernels.depthwise_conv2d_same(x, w8, b, plain=True)  # noqa: E731
+                lib = lambda: F.conv2d(xc, wc, bb, padding=k // 2, groups=C)  # noqa: E731
+            ms, plain_ms, lib_ms = cuda_time_ms(fn), cuda_time_ms(pfn), cuda_time_ms(lib)
+            dev_ms = device_ms(fn)
+            ops, byts = dwconv_work(site, B, stats)
+            bnd, b_by = plain_bound(ops, byts, PEAK_FP32_FLOPS)
+            by[b_by] = by.get(b_by, 0) + n
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                             ("bound_ms", bnd), ("device_ms", dev_ms)):
+                tot[key] = None if val is None or tot[key] is None else tot[key] + val * n
+            print(f"[dwconv-probe] {'K7' if stats else 'K8'} C={C} H=W={site['H']} k={k} B={B}: "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={bnd:.4f} ({b_by}) device_ms={ms_text(dev_ms)} {ops / ms / 1e9:.2f} "
+                  f"TFLOP/s x{n}/decode",
+                  flush=True)
+        out[name] = dict(batch=B, bound_by=max(by, key=by.get), **tot)
+        print(f"[dwconv-probe] {'K7' if stats else 'K8'}, all dwconvs of one decode at B={B}: "
+              f"kernel {tot['ms']:.4f} ms (device {ms_text(tot['device_ms'])}), plain "
+              f"{tot['plain_ms']:.4f} ms, library (cuDNN"
+              f"{' + reductions' if stats else ''}) {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms", flush=True)
+    return out, launches
+
+
+def flash_bwd_work(name: str, B, Tq, Tk, N, D, itemsize):
+    """(operations, bytes) of one K4-dkv or K4-dq call, K3's accounting
+    without the null token."""
+    pair = 2 * B * N * Tq * Tk * D
+    q_tok, k_tok, row = B * Tq * N * D * itemsize, B * Tk * N * D * itemsize, B * N * Tq * 4
+    if name == "flash_attention_nonull_bwd_dkv":  # S, dP, dV, dK; reads q, k, v, O, dO, L; D
+        return 4 * pair, 3 * q_tok + 4 * k_tok + 2 * row
+    return 3 * pair, 2 * q_tok + 3 * k_tok + 2 * row  # dq: S, dP, dQ; reads q, k, v, dO, L, D
+
+
+def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
+    """K4's backward kernels against their twin and an fp64 autograd
+    evaluation at every K4 site of the training path (the adapter's fp32
+    sites), at the tower's bf16 shape and at one d=128 shape, with K3-bwd's
+    bounds and the same <= TRUTH_FACTOR rule against fp64; times of the
+    kernels, the twins, and forward+backward of the K4 Function and of SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4444)
+    tol_max, tol_mean = BWD_TOLERANCE
+    cases = [(dict(s), torch.float32) for s in enc_sites if s["at"] == "adapter"]
+    tower = next(s for s in enc_sites if s["at"] == "tower")
+    cases += [(dict(tower, count=0), torch.bfloat16),
+              (dict(T=1024, N=8, D=128, at="d128", count=0), torch.bfloat16)]
+    acc = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, library_ms=None)
+           for n in K4_BWD}
+    by = {n: {} for n in K4_BWD}
+    fb = dict(ms=0.0, library_ms=0.0)
+    failed = []
+    for site, dt in cases:
+        T, N, D, n_call = site["T"], site["N"], site["D"], site["count"]
+        q, k, v, dout = (torch.randn(B, T, N, D, generator=gen, device=dev).to(dt)
+                         for _ in range(4))
+        scale = D ** -0.5
+        out, lse = fa._launch_nonull(q, k, v, scale, True)
+        dk, dv, delta = kernels.flash_attention_nonull_bwd_dkv(q, k, v, out, dout, lse)
+        dq = kernels.flash_attention_nonull_bwd_dq(q, k, v, dout, lse, delta)
+        twin = kernels.flash_attention_nonull_bwd_reference(q, k, v, out, lse, dout)
+        leaves = [t.double().requires_grad_() for t in (q, k, v)]
+        truth = torch.autograd.grad(attention_fp64(*leaves), leaves, dout.double())
+        torch.cuda.synchronize()
+        line = []
+        for nm, a, b, c in zip(("dq", "dk", "dv"), (dq, dk, dv), twin[:3], truth):
+            max_abs, max_rel, mean_rel = rel_errors(a, b)
+            k64, p64 = rel_errors(a, c)[2], rel_errors(b, c)[2]
+            finite = bool(torch.isfinite(a.float()).all())
+            ok = (finite and max_rel <= tol_max and mean_rel <= tol_mean
+                  and k64 <= TRUTH_FACTOR * p64 + 1e-6)
+            line.append(f"{nm} max_rel={max_rel:.3e} mean_rel={mean_rel:.3e} vs_fp64 "
+                        f"kernel={k64:.3e} plain={p64:.3e}{'' if ok else ' FAIL'}")
+            if not ok:
+                failed.append(f"{site['at']} T={T} D={D} {nm}")
+            key = K4_BWD[1] if nm == "dq" else K4_BWD[0]
+            acc[key]["max_abs_err"] = max(acc[key]["max_abs_err"], max_abs)
+        dkv_ms = cuda_time_ms(lambda: kernels.flash_attention_nonull_bwd_dkv(
+            q, k, v, out, dout, lse))
+        dq_ms = cuda_time_ms(lambda: kernels.flash_attention_nonull_bwd_dq(
+            q, k, v, dout, lse, delta))
+        dkv_plain = cuda_time_ms(lambda: kernels.flash_attention_nonull_bwd_dkv_reference(
+            q, k, v, out, lse, dout), reps=5)
+        dq_plain = cuda_time_ms(lambda: kernels.flash_attention_nonull_bwd_dq_reference(
+            q, k, v, dout, lse, delta), reps=5)
+        kl = [t.detach().requires_grad_() for t in (q, k, v)]
+        fb_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            kernels.flash_attention_nonull(*kl), kl, dout))
+        sl = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+        sdpa_fb = cuda_time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*sl), sl, dout.transpose(1, 2)))
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+        bnds = {}
+        for key, ms, pm in ((K4_BWD[0], dkv_ms, dkv_plain), (K4_BWD[1], dq_ms, dq_plain)):
+            bnds[key] = plain_bound(*flash_bwd_work(key, B, T, T, N, D, q.element_size()), peak)
+            acc[key]["ms"] += ms * n_call
+            acc[key]["plain_ms"] += pm * n_call
+            acc[key]["bound_ms"] += bnds[key][0] * n_call
+            by[key][bnds[key][1]] = by[key].get(bnds[key][1], 0) + n_call
+        fb["ms"] += fb_ms * n_call
+        fb["library_ms"] += sdpa_fb * n_call
+        label = f"{site['at']} {str(dt).split('.')[-1]} T={T} N={N} D={D} B={B}"
+        print(f"[k4-bwd] {label}: " + "; ".join(line), flush=True)
+        print(f"[k4-bwd] {label}: dkv_ms={dkv_ms:.4f} (plain {dkv_plain:.4f}, bound "
+              f"{bnds[K4_BWD[0]][0]:.4f} {bnds[K4_BWD[0]][1]}) dq_ms={dq_ms:.4f} (plain "
+              f"{dq_plain:.4f}, bound {bnds[K4_BWD[1]][0]:.4f} {bnds[K4_BWD[1]][1]}) fwd+bwd: "
+              f"K4 {fb_ms:.4f} ms, sdpa {sdpa_fb:.4f} ms x{n_call}/encode", flush=True)
+    if failed:
+        raise SystemExit(f"chip_smoke: K4 backward phase FAILED at {failed}")
+    for key in K4_BWD:
+        acc[key].update(batch=B, bound_by=max(by[key], key=by[key].get))
+    print(f"[k4-bwd] all K4 sites of the training path (one encode) at B={B}: dkv "
+          f"{acc[K4_BWD[0]]['ms']:.4f} ms, dq {acc[K4_BWD[1]]['ms']:.4f} ms; forward+backward "
+          f"K4 {fb['ms']:.4f} ms, sdpa {fb['library_ms']:.4f} ms", flush=True)
+    return acc, fb
+
+
+def round_trip_rate(G, img, reps: int = 5) -> float:
+    """Images/s of encode -> decode of `img` (one warm-up, `reps` timed)."""
+    import torch
+
+    G.decode(G.encode(img))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        G.decode(G.encode(img))
+    torch.cuda.synchronize()
+    return img.shape[0] * reps / (time.perf_counter() - t0)
+
+
+def all_switches_round_trip(G, refs: dict, card: str) -> dict:
+    """Three B=4 flagship encode -> decode requests with every opt-in kernel
+    switch on (ALL_SWITCHES): launch counts as kernel_sites predicts (K9 at
+    every K1 site, K1 never, K5 at every eligible statistic, K4 at the
+    tower and the adapter); the decode of slice_phase's latent against the
+    default kernel path (DECODE_REL_L1) and against fp32 (TRUTH_FACTOR times
+    the plain path's distance); round-trip img/s at B=4 and B=32 beside the
+    default path, in turns."""
+    import torch
+
+    from vfm_vae_tpu_torch.entry import kernel_sites
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    B, n_req = 4, 3
+    requests = [refs["img"]] + [torch.rand((B, 256, 256, 3), generator=gen, device=dev)
+                                for _ in range(n_req - 1)]
+    with env_vars(ALL_SWITCHES):
+        sites = kernel_sites(G, 256)
+        want = {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
+        for name, n in forward_counts(sites).items():
+            want[name] = n * n_req
+        kernels.reset_launch_counts()
+        outs = []
+        for img in requests:
+            z = G.encode(img)
+            outs.append((z, G.decode(z)))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"[all-switches] launches over {n_req} requests: {launches}; predicted {want}",
+              flush=True)
+        if (launches != want or launches["fused_convnext_mlp"] != 0
+                or launches["fused_convnext_mlp_pipelined"] != 38 * n_req):
+            raise SystemExit("chip_smoke: all-switches launch counts differ from kernel_sites' "
+                             "prediction")
+        for i, (z, x) in enumerate(outs):
+            if tuple(z.shape) != (B, 16, 16, 32) or tuple(x.shape) != (B, 256, 256, 3):
+                raise SystemExit(f"chip_smoke: all-switches request {i}: shapes")
+            if not (torch.isfinite(z).all() and torch.isfinite(x).all()):
+                raise SystemExit(f"chip_smoke: all-switches request {i}: non-finite output")
+        x_sw = G.decode(refs["z"])
+    torch.cuda.synchronize()
+    d_def = rel_l1(x_sw, refs["x"])
+    d32, p32 = rel_l1(x_sw, refs["x_32"]), rel_l1(refs["x_plain"], refs["x_32"])
+    print(f"[all-switches] latent rel-L1 vs the default kernel path "
+          f"{rel_l1(outs[0][0], refs['z']):.3e} (K4 at the tower and adapter; reported); decode "
+          f"of the same latent: vs the default kernel path rel-L1 {d_def:.3e} (tol "
+          f"{DECODE_REL_L1:g}) PSNR {psnr(x_sw, refs['x']):.2f} dB; vs fp32 rel-L1 {d32:.3e}, "
+          f"plain {p32:.3e} (limit {TRUTH_FACTOR} x plain)", flush=True)
+    if not (d_def <= DECODE_REL_L1 and d32 <= TRUTH_FACTOR * p32 + 1e-6):
+        raise SystemExit("chip_smoke: the all-switches decode disagrees with the default / fp32 "
+                         "decode")
+    for bs in (4, 32):
+        img = torch.rand((bs, 256, 256, 3), generator=gen, device=dev)
+        rates = {"default": [], "all switches": []}
+        for turn in ("default", "all switches", "all switches", "default"):
+            with env_vars(ALL_SWITCHES if turn == "all switches" else NO_SWITCHES):
+                rates[turn].append(round_trip_rate(G, img))
+        print(f"[all-switches] round trip B={bs} on {card}, in turns: "
+              + "; ".join(f"{k} {', '.join(f'{r:.2f}' for r in v)} img/s"
+                          for k, v in rates.items()), flush=True)
+    return launches
+
+
+def all_switches_train(tr, state, card: str, B: int = 4):
+    """The stage-0 [D, G] step with every opt-in kernel switch on: a warm-up
+    and two timed steps over FORCED_BUCKETS on the training phase's trainer,
+    under every gate of train_steps (K5, K9 and K4 forward and backward in
+    the launch counts)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    res = tr.G.synthesis.block_resolutions[-1]
+    reals = [torch.rand((B, res, res, 3), generator=gen, device=dev) for _ in FORCED_BUCKETS]
+    with env_vars(ALL_SWITCHES):
+        state, launches = train_steps(tr, state, FORCED_BUCKETS, reals, gen, card,
+                                      "all-switches-train")
+    # The timed buckets again on the warm trainer, the default path and every
+    # switch in turns (the training phase's steps ran on a cold one).
+    times = {"default": ([], []), "all switches": ([], [])}
+    for turn in ("default", "all switches", "all switches", "default"):
+        with env_vars(ALL_SWITCHES if turn == "all switches" else NO_SWITCHES):
+            for eq, img in zip(FORCED_BUCKETS[1:], reals[1:]):
+                t0 = time.perf_counter()
+                state, _, _ = tr.d_step(state, img, eq, gen)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, _, _ = tr.g_step(state, img, eq, gen)
+                torch.cuda.synchronize()
+                times[turn][0].append((t1 - t0) * 1e3)
+                times[turn][1].append((time.perf_counter() - t1) * 1e3)
+    print(f"[all-switches-train] in turns on the warm trainer, B={B} on {card}, buckets "
+          f"{FORCED_BUCKETS[1:]}: " + "; ".join(
+              f"{k} D {statistics.median(d):.1f} ms G {statistics.median(g):.1f} ms (G "
+              f"{', '.join(f'{x:.1f}' for x in g)})" for k, (d, g) in times.items()), flush=True)
+    return state, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--determinism-trials", type=int, default=1,
@@ -1401,16 +2023,32 @@ def main() -> int:
     summary.update(bwd)
     summary["flash_attention_nullkv"].update(
         fwd_bwd_ms=k3_fb["ms"], library_fwd_bwd_ms=k3_fb["library_ms"])
+    summary.update(kernel_stats_phase(G))
+    summary.update(kernel_pipeline_phase(sites, eq_sites))
+    dw_err = kernel_dwconv_phase(sites)
     enc = encode_sites(G, int8=True)
     summary.update(kernel_int8_phase(enc["int8_matmul"]))
     summary.update(kernel_flash_phase(enc["flash_attention_nonull"]))
+    k4b, k4_fb = k4_backward_phase(enc["flash_attention_nonull"])
+    summary.update(k4b)
+    summary["flash_attention_nonull"].update(
+        fwd_bwd_ms=k4_fb["ms"], library_fwd_bwd_ms=k4_fb["library_ms"])
 
-    launches = {"round_trip": slice_phase(G, card)}
+    launches = {}
+    launches["round_trip"], refs = slice_phase(G, card)
+    launches["all_switches_round_trip"] = all_switches_round_trip(G, refs, card)
+    del refs
+    probe, launches["dwconv_probe"] = dwconv_probe(G)
+    for name, s in probe.items():
+        summary[name] = dict(max_abs_err=dw_err[name], **s)
     launches.update(int8_serving_phase(G, card))
     del G
     torch.cuda.empty_cache()
     tr, state, real, launches["train_step"] = train_phase(card)
     determinism_phase(tr, state, real, args.determinism_trials)
+    state, launches["all_switches_train_step"] = all_switches_train(tr, state, card)
+    del tr, state, real
+    torch.cuda.empty_cache()
 
     entries = []
     for name, s in summary.items():

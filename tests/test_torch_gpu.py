@@ -186,3 +186,130 @@ def test_flash_attention_nonull_matches_twin_on_gpu(cuda, dtype, D, Tq, Tk):
     # bf16: probabilities rounded at other points (K3's bound); fp32: summation order.
     tol = 4 * 2.0 ** -8 * scale if dt == torch.bfloat16 else 1e-5 * scale
     assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+def _bf16_ulps(got, ref) -> float:
+    """max |got - ref| in bf16 ulps of the twin's value."""
+    r = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r)[1] - 8)
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((2, 33, 31, 128), "bf16"), ((3, 64, 64, 256), "fp32"),
+                                         ((1, 5, 7, 8), "bf16")])
+def test_channel_moments_match_fp64_and_repeat_on_gpu(cuda, shape, dtype):
+    """K5 against fp64 sums (s2 within 1e-5 relative, s1 within 1e-5 of
+    sum |x|) and its twin; two launches on one input agree bit for bit."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dt)
+    before = kernels.channel_moments.launches
+    s1, s2 = kernels.channel_moments(x)
+    r1, r2 = kernels.channel_moments(x)
+    torch.cuda.synchronize()
+    assert kernels.channel_moments.launches == before + 2
+    assert torch.equal(s1, r1) and torch.equal(s2, r2)
+    xd = x.double()
+    e1, e2, a1 = xd.sum((1, 2)), xd.square().sum((1, 2)), xd.abs().sum((1, 2))
+    assert float(((s1.double() - e1).abs() / a1).max()) <= 1e-5
+    assert float(((s2.double() - e2).abs() / e2).max()) <= 1e-5
+    t1, t2 = kernels.channel_moments(x, plain=True)
+    assert float(((t2.double() - e2).abs() / e2).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,C,k", [(17, 16, 128, 7), (8, 8, 512, 5), (2, 2, 512, 5),
+                                     (33, 40, 256, 7)])
+def test_dwconv_kernels_match_twins_on_gpu(cuda, H, W, C, k):
+    """K7 (noise on and off) and K8 against their twins: t within one bf16
+    ulp (the taps summed in another order, the same rounding points); K7's
+    statistics against fp64 sums of its own t, at K5's bounds."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the twins' fp32 conv in full fp32
+    try:
+        g = torch.Generator(device=cuda).manual_seed(H * W + k)
+        x = torch.randn(2, H, W, C, generator=g, device=cuda).to(torch.bfloat16)
+        w = torch.randn(k, k, C, generator=g, device=cuda) / k
+        b = torch.randn(C, generator=g, device=cuda)
+        noise = torch.randn(H, W, generator=g, device=cuda) * 0.3
+        for nz in (noise, None):
+            before = kernels.dwconv_noise_stats.launches
+            t, s1, s2 = kernels.dwconv_noise_stats(x, w, b, nz)
+            rt, _, _ = kernels.dwconv_noise_stats(x, w, b, nz, plain=True)
+            torch.cuda.synchronize()
+            assert kernels.dwconv_noise_stats.launches == before + 1
+            assert _bf16_ulps(t, rt) <= 1.0
+            td = t.double()
+            e1, e2 = td.sum((1, 2)), td.square().sum((1, 2))
+            assert float(((s1.double() - e1).abs() / td.abs().sum((1, 2))).max()) <= 1e-5
+            assert float(((s2.double() - e2).abs() / e2).max()) <= 1e-5
+        w8 = w[:, :, None, :].contiguous()
+        for bias in (b, None):
+            got = kernels.depthwise_conv2d_same(x, w8, bias)
+            ref = kernels.depthwise_conv2d_same(x, w8, bias, plain=True)
+            torch.cuda.synchronize()
+            assert _bf16_ulps(got, ref) <= 1.0
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,W", [(128, 5, 70), (256, 9, 9), (512, 8, 8), (512, 3, 2)])
+def test_pipelined_mlp_is_bit_exact_with_k1_on_gpu(cuda, C, H, W):
+    """K9 against K1 on the same inputs: 0 ulps (the same tiles in the same
+    order); off-grid H x W exercises the ragged token tile."""
+    args = dict(_cases(cuda, H, W)[0][1])
+    if C != 128:
+        g = torch.Generator(device=cuda).manual_seed(C)
+        bf, f32 = torch.bfloat16, torch.float32
+        rn = lambda *s, dt=bf, scale=1.0: (torch.randn(s, generator=g, device=cuda)  # noqa: E731
+                                           * scale).to(dt)
+        args = dict(x=rn(2, H, W, C), x_in=rn(2, H, W, C), A=rn(2, C, dt=f32).abs() + 0.5,
+                    d=rn(2, 4 * C, dt=f32).abs() + 0.5, w1=rn(4 * C, C, scale=C ** -0.5),
+                    b1=rn(2, 4 * C, dt=f32), w2=rn(C, 4 * C, scale=(4 * C) ** -0.5),
+                    b2=rn(C, dt=f32), gamma=rn(C, dt=f32))
+    before = kernels.fused_convnext_mlp_pipelined.launches
+    got = kernels.fused_convnext_mlp_pipelined(**args)
+    ref = kernels.fused_convnext_mlp(**args)
+    torch.cuda.synchronize()
+    assert kernels.fused_convnext_mlp_pipelined.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D,Tq,Tk", [("bf16", 64, 256, 256), ("bf16", 128, 100, 37),
+                                           ("fp32", 64, 1024, 1024), ("fp32", 64, 77, 130),
+                                           ("fp32", 128, 64, 64)])
+def test_k4_backward_matches_twin_on_gpu(cuda, dtype, D, Tq, Tk):
+    """K4's forward log-sum-exp and its dQ, dK, dV kernels against the twin
+    (bf16: P and dS rounded at the same points, a few ulps of scale; fp32:
+    summation order and exp2, 1e-5 of scale), and FlashAttentionNoNull
+    launching all three kernels."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator(device=cuda).manual_seed(D + Tq + Tk)
+    q, dout = (torch.randn(2, Tq, 4, D, generator=g, device=cuda).to(dt) for _ in range(2))
+    k, v = (torch.randn(2, Tk, 4, D, generator=g, device=cuda).to(dt) for _ in range(2))
+    out, lse = fa._launch_nonull(q, k, v, D ** -0.5, True)
+    _, ref_lse = kernels.flash_attention_nonull_reference(q, k, v, return_lse=True)
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max()) + 1e-5
+    before = [fn.launches for fn in kernels.NONULL_BACKWARD_WRAPPERS]
+    dk, dv, delta = kernels.flash_attention_nonull_bwd_dkv(q, k, v, out, dout, lse)
+    dq = kernels.flash_attention_nonull_bwd_dq(q, k, v, dout, lse, delta)
+    twin = kernels.flash_attention_nonull_bwd_reference(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels.NONULL_BACKWARD_WRAPPERS] == [b + 1 for b in before]
+    frac = 4 * 2.0 ** -8 if dt == torch.bfloat16 else 1e-5
+    for got, ref in zip((dq, dk, dv, delta), twin):
+        assert float((got.float() - ref.float()).abs().max()) <= frac * float(
+            ref.float().abs().max())
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n0 = kernels.flash_attention_nonull.launches
+    grads = torch.autograd.grad(kernels.flash_attention_nonull(*leaves), leaves, dout)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention_nonull.launches == n0 + 1
+    assert [fn.launches for fn in kernels.NONULL_BACKWARD_WRAPPERS] == [b + 2 for b in before]
+    for got, ref in zip(grads, (dq, dk, dv)):
+        assert torch.equal(got, ref)

@@ -354,35 +354,73 @@ def test_flash_rule_matches_jax(monkeypatch):
 
 
 def test_flash_attention_refuses_grad():
+    """K4's raw launch refuses inputs that require grad (its output would have
+    no grad_fn); the wrapper no longer refuses them: it runs
+    FlashAttentionNoNull, whose backward is K4's (tests/test_torch_stats.py)."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in attn_inputs(T=8))
-    with pytest.raises(RuntimeError, match="K4 backward"):
-        kernels.flash_attention_nonull(q, k, v)
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        fa._launch_nonull(q, k, v, 0.125, True)
+    out = kernels.flash_attention_nonull(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionNoNullBackward"
+
+
+def _port_plain_attention(params):
+    pm = PlainAttention(128, 64, 2)
+    sd = {"qkv.weight": params["qkv"].T, "q_bias": params["q_bias"],
+          "v_bias": params["v_bias"], "proj.weight": params["proj"]["weight"].T,
+          "proj.bias": params["proj"]["bias"]}
+    convert.load_state_dict_numpy(pm, sd)
+    return pm
 
 
 @pytest.mark.parametrize("flash", [None, "1"])
 def test_training_adapter_attention_under_the_flash_switch(flash, monkeypatch):
     """A trainable adapter attention at an eligible shape (T=256, heads of
-    64) under the default 3mm-xla form: without VFM_VAE_USE_PALLAS_FLASH it
-    trains through SDPA; with the switch set the rule admits it, and K4,
-    which has no backward yet, refuses instead of dropping the gradient."""
+    64) under the default 3mm-xla form trains with and without
+    VFM_VAE_USE_PALLAS_FLASH: without it through SDPA, with it through K4's
+    Function (forward and backward), and its gradients agree with the JAX
+    package's (which runs its plain attention on the CPU)."""
+    import jax
+    from vfm_vae_tpu.models.adapter import PlainAttention as JaxPlainAttention
+    from vfm_vae_tpu_torch.ops import attention
+
     monkeypatch.delenv("VFM_VAE_ADAPTER_ATTN", raising=False)
     monkeypatch.delenv("VFM_VAE_NO_PALLAS_FLASH", raising=False)
     if flash is None:
         monkeypatch.delenv("VFM_VAE_USE_PALLAS_FLASH", raising=False)
     else:
         monkeypatch.setenv("VFM_VAE_USE_PALLAS_FLASH", flash)
-    g = torch.Generator().manual_seed(0)
-    pm = PlainAttention(128, 64, 2)
-    with torch.no_grad():
-        for p in pm.parameters():
-            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
-    x = torch.randn((1, 256, 128), generator=g)
-    if flash is None:
-        pm(x).square().sum().backward()
-        assert pm.qkv.weight.grad is not None and pm.qkv.weight.grad.abs().sum() > 0
-    else:
-        with pytest.raises(RuntimeError, match=r"K4 backward"):
-            pm(x)
+    r = np.random.default_rng(7)
+    x = r.standard_normal((1, 256, 128)).astype(np.float32)
+    jm = JaxPlainAttention(in_dim=128, out_dim=64, num_heads=2)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * r.standard_normal(a.shape).astype(np.float32),
+        jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+    want = jax.grad(lambda p, xx: jnp.sum(jnp.square(jm.apply({"params": p}, xx))),
+                    argnums=(0, 1))(params, jnp.asarray(x))
+    pm = _port_plain_attention(params)
+    calls = []
+    real = attention.flash_attention_nonull
+
+    def spy(*a, **kw):
+        calls.append(torch.is_grad_enabled() and a[0].requires_grad)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(attention, "flash_attention_nonull", spy)
+    tx = torch.from_numpy(x).requires_grad_()
+    pm(tx).square().sum().backward()
+    assert calls == ([] if flash is None else [True])
+    jp, jx = want
+    # fp32 in both packages; the attention's sums run in another order.
+    for got, ref in ((pm.qkv.weight.grad.numpy().T, jp["qkv"]), (pm.q_bias.grad, jp["q_bias"]),
+                     (pm.v_bias.grad, jp["v_bias"]), (pm.proj.weight.grad.numpy().T,
+                                                      jp["proj"]["weight"]),
+                     (tx.grad.numpy(), jx)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(np.asarray(got), ref, rtol=0,
+                                   atol=1e-5 * float(np.abs(ref).max()))
 
 
 @pytest.mark.parametrize("variant", ["3mm-flash", "packed"])

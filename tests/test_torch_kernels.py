@@ -137,7 +137,14 @@ def _cpu_calls(dt=torch.bfloat16):
               wq=torch.from_numpy(r.integers(-127, 128, (16, 64)).astype(np.int8)),
               ws=torch.rand(16), b=torch.randn(16))
     raw = dict(xq=i8["wq"][:6].clone(), wq=i8["wq"])
+    gs = dict(x=torch.from_numpy(r.standard_normal((2, 4, 5, 128)).astype(np.float32)).to(dt))
+    dw = dict(x=gs["x"], w=torch.randn(5, 5, 128), b=torch.randn(128), noise=torch.randn(4, 5))
+    dw8 = dict(x=gs["x"], w=torch.randn(3, 3, 1, 128), b=torch.randn(128))
     return [
+        (kernels.channel_moments, kernels.channel_moments_reference, gs, {}),
+        (kernels.dwconv_noise_stats, kernels.dwconv_noise_stats_reference, dw, {}),
+        (kernels.depthwise_conv2d_same, kernels.depthwise_conv2d_same_reference, dw8, {}),
+        (kernels.fused_convnext_mlp_pipelined, kernels.fused_convnext_mlp_reference, m, {}),
         (kernels.fused_convnext_mlp, kernels.fused_convnext_mlp_reference, m, {}),
         (kernels.fused_upsample_blur, kernels.fused_upsample_blur_reference, u,
          {"taps": TAPS[3]}),
@@ -157,6 +164,14 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
     kernels.reset_launch_counts()
     for wrapper, twin, args, extra in _cpu_calls():
         torch.testing.assert_close(wrapper(**args, **extra), twin(**args, **extra), rtol=0, atol=0)
+    a = {k: torch.from_numpy(v).to(torch.bfloat16)[:, :, :, :8].repeat(1, 1, 1, 8).contiguous()
+         for k, v in attention_inputs().items() if k in ("q", "k", "v")}
+    out, lse = kernels.flash_attention_nonull_reference(**a, return_lse=True)
+    dk, dv, delta = kernels.flash_attention_nonull_bwd_dkv(**a, out=out, dout=out, lse=lse)
+    dq = kernels.flash_attention_nonull_bwd_dq(**a, dout=out, lse=lse, delta=delta)
+    twin = kernels.flash_attention_nonull_bwd_reference(**a, out=out, lse=lse, dout=out)
+    for got, want in zip((dq, dk, dv, delta), twin):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
 
 
@@ -168,6 +183,12 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
         meta = {k: v.to("meta") for k, v in args.items()}
         with pytest.raises(ValueError):
             wrapper(**meta, **extra)
+    q = torch.empty((1, 256, 2, 64), device="meta")
+    lse = torch.empty((1, 2, 256), device="meta")
+    with pytest.raises(ValueError):
+        kernels.flash_attention_nonull_bwd_dkv(q, q, q, q, q, lse)
+    with pytest.raises(ValueError):
+        kernels.flash_attention_nonull_bwd_dq(q, q, q, q, lse, lse)
     assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
 
 

@@ -1,6 +1,6 @@
 // Shared device helpers for the hand-written Hopper kernels (sm_90a).
 //
-// All three kernels use warp-level bf16 tensor-core products through
+// The tensor-core kernels use warp-level bf16 tensor-core products through
 // mma.sync.m16n8k16 (fp32 accumulation) with operands staged in shared
 // memory. Fragment layouts follow the PTX ISA for .row.col bf16:
 //   g = lane / 4, t = lane % 4
@@ -55,6 +55,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
   return __bfloat1622float2(h);
+}
+
+// fp32 value rounded to the nearest bf16 (ties to even), back in fp32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 16-byte asynchronous global -> shared copy (sm_80+), bypassing L1.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace vfm

@@ -28,10 +28,10 @@
 // tx + 16i of each 64-key tile and output columns 4tx.. (+64); P goes through
 // shared memory between the two products.
 //
-// Training mode (K3 only): given an `lse` pointer, the kernel also writes
-// each query row's log-sum-exp over [null; k] (natural-log units, fp32), the
-// residual that the backward kernels (flash_attention_nullkv_bwd.cu)
-// recompute P from.
+// Training mode: given an `lse` pointer, the kernel (bf16 or fp32) also
+// writes each query row's log-sum-exp over the walk (natural-log units,
+// fp32), the residual that the backward kernels
+// (flash_attention_nullkv_bwd.cu) recompute P from.
 //
 // Layouts: q, out (B, Tq, N, D); k, v (B, Tk, N, D); null_k, null_v
 // (B, 1, N, D) or null; bf16 or (K4) fp32; lse (B, N, Tq) fp32 or null.
@@ -211,7 +211,7 @@ constexpr size_t smem_f32() {
 template <int D>
 __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int Tq, int Tk, int N, float scale_log2) {
+    float* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int N, float scale_log2) {
   constexpr int LD = D + 4;       // q and k rows: conflict-free float4 loads across keys
   constexpr int LDP = kBK + 4;
   constexpr int CJ = D / 64;      // float4 column groups per thread
@@ -347,6 +347,8 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(
                                      o[r][4 * cj + 2] * inv, o[r][4 * cj + 3] * inv);
       *reinterpret_cast<float4*>(out + qhead + (size_t)tok * rs + 64 * cj + 4 * tx) = val;
     }
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * N + h) * Tq + tok] = (m[r] + log2f(l[r])) * 0.6931471805599453f;
   }
 }
 
@@ -367,8 +369,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Tq,
-                       int Tk, int N, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                       int Tq, int Tk, int N, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_f32<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -376,7 +378,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
   dim3 grid((Tq + kBQ - 1) / kBQ, N, B);
   flash_fwd_f32_kernel<D><<<grid, kThreadsF32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Tq, Tk, N, scale * 1.4426950408889634f);
+      static_cast<float*>(out), lse, Tq, Tk, N, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -393,20 +395,20 @@ extern "C" int vfm_flash_attention_nullkv(const void* q, const void* k, const vo
 }
 
 // K4: attention without a null token; q (B, Tq, N, D), k, v (B, Tk, N, D),
-// D in {64, 128}, bf16 (fp32 == 0) or fp32 (fp32 == 1).
-extern "C" int vfm_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                                   int Tq, int Tk, int N, int D, float scale, int fp32,
-                                   void* stream) {
+// D in {64, 128}, bf16 (fp32 == 0) or fp32 (fp32 == 1); lse (B, N, Tq) or null.
+extern "C" int vfm_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                   float* lse, int B, int Tq, int Tk, int N, int D, float scale,
+                                   int fp32, void* stream) {
   if (Tk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32) {
-    if (D == 64) return (int)launch_f32<64>(q, k, v, out, B, Tq, Tk, N, scale, s);
-    if (D == 128) return (int)launch_f32<128>(q, k, v, out, B, Tq, Tk, N, scale, s);
+    if (D == 64) return (int)launch_f32<64>(q, k, v, out, lse, B, Tq, Tk, N, scale, s);
+    if (D == 128) return (int)launch_f32<128>(q, k, v, out, lse, B, Tq, Tk, N, scale, s);
   } else {
-    if (D == 64) return (int)launch_bf16<64>(q, k, v, nullptr, nullptr, out, nullptr, B, Tq, Tk, N,
+    if (D == 64) return (int)launch_bf16<64>(q, k, v, nullptr, nullptr, out, lse, B, Tq, Tk, N,
                                              scale, s);
-    if (D == 128) return (int)launch_bf16<128>(q, k, v, nullptr, nullptr, out, nullptr, B, Tq, Tk,
-                                               N, scale, s);
+    if (D == 128) return (int)launch_bf16<128>(q, k, v, nullptr, nullptr, out, lse, B, Tq, Tk, N,
+                                               scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -39,6 +39,9 @@ from .models.generator import Generator, trainable_names, trainable_path_predica
 from .models.gigagan import SelfAttention
 from .models.vit import MultiHeadSelfAttention
 from .ops.attention import flash_eligible_shape
+from .ops.kernels.dwconv_stats import dwconv_stats_eligible, pallas_dw_eligible
+from .ops.kernels.fused_mlp import pipeline_enabled
+from .ops.kernels.group_stats import moments_eligible
 from .ops.quantized import enable_int8_tower, int8_vfm_enabled
 from .train.loss import TotalLoss
 from .train.lpips import build_lpips
@@ -172,29 +175,61 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
     configured size, or an EQ bucket's: z scaled by 0.25 to 0.75 gives a
     proportionally smaller image), and of one encode of an `hw`-pixel image,
     with the shapes they are given (batch excluded) and how many times they
-    run. The decode's K1/K2/K3 sites always run; the encode's sites run as
-    the process is set now: K6 ("int8_matmul", M = tokens per image) at every
-    tower Linear when the tower's int8 path is on (VFM_VAE_INT8_VFM=1, or a
-    caller's int8 scope), K4 ("flash_attention_nonull") at every tower and
-    adapter attention that the flash rule admits (the flash switches)."""
-    sites: Dict[str, Dict[tuple, int]] = {
-        name: {} for name in ("fused_convnext_mlp", "fused_upsample_blur", "flash_attention_nullkv",
-                              "flash_attention_nonull", "int8_matmul")}
+    run, as the process is set now:
+    - the decode's K2 and K3 sites always run; K1's run as K1, or as K9
+      ("fused_convnext_mlp_pipelined") under VFM_VAE_MLP_PIPELINE=1;
+    - K5 ("channel_moments") at every GroupNorm statistic of the decode
+      that the opt-in rule admits (VFM_VAE_PALLAS_STATS=1, C % 128 == 0,
+      H * W >= 1024): the ConvNeXt layers' and the pre-normalized
+      upsamples' folded GroupNorm, and a bf16 GroupNorm after block 0's
+      upsample (the z injectors normalize in the adapter's fp32, which
+      takes the two-pass form);
+    - the encode's K6 ("int8_matmul", M = tokens per image) at every tower
+      Linear when the tower's int8 path is on (VFM_VAE_INT8_VFM=1, or a
+      caller's int8 scope), and K4 ("flash_attention_nonull") at every
+      tower and adapter attention that the flash rule admits (the flash
+      switches), and at the adapter's post_quant on the decode side
+      ("at": "post_quant"); K4's backward kernels at the adapter's K4 sites,
+      which train (the tower is frozen);
+    - K7 ("dwconv_noise_stats", with the layer's legacy noise) and K8
+      ("depthwise_conv2d_same") at every ConvNeXt dwconv their rules
+      admit. No model path runs them: they are the dwconv probe's sites."""
+    names = ("fused_convnext_mlp", "fused_convnext_mlp_pipelined", "fused_upsample_blur",
+             "flash_attention_nullkv", "channel_moments", "flash_attention_nonull",
+             "flash_attention_nonull_bwd_dkv", "flash_attention_nonull_bwd_dq", "int8_matmul",
+             "dwconv_noise_stats", "depthwise_conv2d_same")
+    sites: Dict[str, Dict[tuple, int]] = {name: {} for name in names}
 
     def add(name, key):
         sites[name][key] = sites[name].get(key, 0) + 1
 
+    def stats(C, H, dtype=torch.bfloat16):
+        if dtype != torch.float32 and moments_eligible(torch.empty((1, H, H, C), device="meta")):
+            add("channel_moments", (("C", C), ("H", H)))
+
+    mlp = "fused_convnext_mlp_pipelined" if pipeline_enabled() else "fused_convnext_mlp"
     top = G.synthesis.block_resolutions[-1]
     for block, res in zip(G.synthesis.blocks, G.synthesis.block_resolutions):
         res = res * hw // top
         for m in block.modules():
             if isinstance(m, ConvNeXtSynthesisLayer):
-                add("fused_convnext_mlp", (("C", m.norm.weight.shape[0]), ("H", res)))
+                C, k = m.norm.weight.shape[0], m.dwconv.weight.shape[-1]
+                add(mlp, (("C", C), ("H", res)))
+                stats(C, res)
+                x = torch.empty((1, res, res, C), device="meta")
+                key = (("C", C), ("H", res), ("k", k), ("noise", m.legacy))
+                if dwconv_stats_eligible(x, k):
+                    add("dwconv_noise_stats", key)
+                if pallas_dw_eligible(x, k, 1, k // 2, C, C, C):
+                    add("depthwise_conv2d_same", key[:3])
             elif isinstance(m, SeparableUpsampleWithFixedBlur) and m.pre_normalize:
                 ci = m.depthwise.weight.shape[0]
                 co = m.pointwise.weight.shape[0] // 4
                 add("fused_upsample_blur",
                     (("Ci", ci), ("Co", co), ("H", res // 2), ("taps", tuple(m.taps))))
+                stats(ci, res // 2)
+            elif isinstance(m, SeparableUpsampleWithFixedBlur):
+                stats(m.norm.weight.shape[0], res, block.dtype)
             elif isinstance(m, SelfAttention):
                 add("flash_attention_nullkv", (("T", res * res), ("N", m.heads), ("D", m.dim_head)))
 
@@ -216,13 +251,19 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
     quants.append((ad.final_quant, (grid * ad.z_resolution // ad.patch_resolutions[0]) ** 2))
     variant = os.environ.get("VFM_VAE_ADAPTER_ATTN", "3mm-xla")
     prefer = variant == "3mm-flash" or not variant.startswith("3mm")
+    # post_quant decodes the z of an `hw`-pixel decode (32-wide heads at the
+    # flagship: never admitted there).
+    quants.append((ad.post_quant, (hw * ad.z_resolution // top) ** 2))
     for proj, tokens in quants:
+        at = "post_quant" if proj is ad.post_quant else "adapter"
         for m in proj.modules():
             if isinstance(m, PlainAttention):
                 d = m.wide // m.num_heads
                 if flash_eligible_shape(tokens, tokens, d, False, prefer):
-                    add("flash_attention_nonull",
-                        (("T", tokens), ("N", m.num_heads), ("D", d), ("at", "adapter")))
+                    key = (("T", tokens), ("N", m.num_heads), ("D", d), ("at", at))
+                    for name in ("flash_attention_nonull", "flash_attention_nonull_bwd_dkv",
+                                 "flash_attention_nonull_bwd_dq"):
+                        add(name, key)
     return {name: [dict(dict(k), count=n) for k, n in d.items()] for name, d in sites.items()}
 
 

@@ -175,7 +175,7 @@ class Generator(Module):
         return self.ldm_adapter.final_quant.blocks[-1].mlp.w2.weight
 
     def use_plain_kernels(self, plain: bool = True) -> None:
-        """Route every kernel site (K1-K4, K6) to its plain PyTorch twin (comparison runs)."""
+        """Route every kernel site (K1-K6, K9) to its plain PyTorch twin (comparison runs)."""
         for m in self.modules():
             if hasattr(m, "plain"):
                 m.plain = plain

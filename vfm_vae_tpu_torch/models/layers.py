@@ -145,6 +145,7 @@ class GroupNorm32(Module):
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.num_groups, self.eps = num_groups, eps
+        self.plain = False  # select K5's plain twin on the card (comparisons only)
         self.weight = param(num_channels, device=device)
         self.bias = param(num_channels, device=device)
 
@@ -153,11 +154,11 @@ class GroupNorm32(Module):
         self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps, plain=self.plain)
 
     def folded_affine(self, x: torch.Tensor):
         """GN as a per-(sample, channel) fp32 affine: gn(x) = x * a + c."""
-        mean, rstd = group_stats(x, self.num_groups, self.eps)
+        mean, rstd = group_stats(x, self.num_groups, self.eps, plain=self.plain)
         reps = x.shape[-1] // self.num_groups
         a = rstd.repeat_interleave(reps, dim=1) * self.weight[None, :]
         c = self.bias[None, :] - (mean * rstd).repeat_interleave(reps, dim=1) * self.weight[None, :]

@@ -1,7 +1,10 @@
 """GroupNorm / LayerNorm with fp32 statistics on NHWC maps (port of
 vfm_vae_tpu/ops/groupnorm.py). torch groups consecutive channels. fp32
 inputs take the two-pass form; lower-precision inputs the one-pass
-E[x^2] - E[x]^2 form with the elementwise apply in the input dtype."""
+E[x^2] - E[x]^2 form with the elementwise apply in the input dtype. Where
+the opt-in rule admits a map (VFM_VAE_PALLAS_STATS=1, C % 128 == 0, at
+least 32 x 32 positions), the per-channel sums run in K5
+(kernels.channel_moments), as the JAX group_stats routes them."""
 
 from __future__ import annotations
 
@@ -9,15 +12,22 @@ from typing import Optional
 
 import torch
 
+from .kernels.group_stats import channel_moments, moments_eligible
 
-def group_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5):
-    """One-pass per-(sample, group) (mean, rsqrt(var + eps)), both (B, G) fp32."""
+
+def group_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5, *, plain: bool = False):
+    """One-pass per-(sample, group) (mean, rsqrt(var + eps)), both (B, G) fp32.
+    `plain` selects K5's twin on the card where K5 would run."""
     B, H, W, C = x.shape
     if C % num_groups:
         raise ValueError(f"group_stats: {C} channels not divisible by {num_groups} groups")
-    xf = x.float()
-    s1 = xf.sum(dim=(1, 2)).reshape(B, num_groups, C // num_groups).sum(-1)
-    s2 = xf.square().sum(dim=(1, 2)).reshape(B, num_groups, C // num_groups).sum(-1)
+    if moments_eligible(x):
+        s1, s2 = channel_moments(x, plain=plain)
+    else:
+        xf = x.float()
+        s1, s2 = xf.sum(dim=(1, 2)), xf.square().sum(dim=(1, 2))
+    s1 = s1.reshape(B, num_groups, C // num_groups).sum(-1)
+    s2 = s2.reshape(B, num_groups, C // num_groups).sum(-1)
     n = H * W * (C // num_groups)
     m1 = s1 / n
     var = torch.clamp(s2 / n - m1.square(), min=0.0)
@@ -30,8 +40,10 @@ def group_norm(
     weight: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
+    *,
+    plain: bool = False,
 ) -> torch.Tensor:
-    """torch F.group_norm semantics on an NHWC map."""
+    """torch F.group_norm semantics on an NHWC map (`plain`: see group_stats)."""
     dt = x.dtype
     B, H, W, C = x.shape
     if dt == torch.float32:
@@ -40,7 +52,7 @@ def group_norm(
         var = (xg - mean).square().mean(dim=(1, 2, 4), keepdim=True)
         y = ((xg - mean) / torch.sqrt(var + eps)).reshape(B, H, W, C)
     else:
-        mean, inv = group_stats(x, num_groups, eps)
+        mean, inv = group_stats(x, num_groups, eps, plain=plain)
         reps = C // num_groups
         mean_c = mean.repeat_interleave(reps, dim=1).to(dt)
         inv_c = inv.repeat_interleave(reps, dim=1).to(dt)

@@ -26,8 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu",
-           "flash_attention_nullkv_bwd.cu", "int8_matmul.cu")
-HEADERS = ("common.cuh",)
+           "flash_attention_nullkv_bwd.cu", "int8_matmul.cu", "group_stats.cu", "dwconv_stats.cu")
+HEADERS = ("common.cuh", "partials.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,12 +38,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "vfm_fused_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vfm_fused_convnext_mlp_pipelined": [_P] * 10 + [_I, _I, _I, _P],
     "vfm_fused_upsample_blur": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "vfm_flash_attention_nullkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vfm_flash_attention_nullkv_bwd_dkv": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
     "vfm_flash_attention_nullkv_bwd_dq": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
-    "vfm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "vfm_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "vfm_flash_attention_bwd_dkv": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _I, _P],
+    "vfm_flash_attention_bwd_dq": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I, _P],
     "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vfm_channel_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vfm_dwconv_tiles": [_I, _I],
+    "vfm_dwconv_noise_stats": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    "vfm_depthwise_conv2d_same": [_P] * 4 + [_I, _I, _I, _I, _I, _P],
 }
 
 

@@ -18,6 +18,15 @@ the card and the twin on the CPU; its backward is a line-by-line port of
 `_fused_bwd`, which is plain XLA in the JAX package and plain PyTorch here:
 it recomputes the hidden chain (stored in bf16 unless VFM_VAE_MLP_BWD_BF16
 is "0", the JAX rule) and returns gradients for all nine inputs.
+
+K9 (`fused_convnext_mlp_pipelined`) replaces the TPU kernel
+vfm_vae_tpu/ops/pallas/fused_mlp.py:_fused_pipelined, K1 software-pipelined
+and bit-exact with it. It is a second kernel of the same source: chunk
+j+1's expand is issued before chunk j's GELU and contract, and the W1/W2
+chunk tiles are double-buffered with cp.async. Under
+VFM_VAE_MLP_PIPELINE=1, read per call as the JAX package reads it
+(fused_mlp.py:302-307), every forward launch on the card is K9 instead of
+K1; the twin and the backward are K1's.
 """
 
 from __future__ import annotations
@@ -45,11 +54,17 @@ def fused_convnext_mlp_reference(x, x_in, A, d, w1, b1, w2, b2, gamma):
     return (y + x_in.float().reshape(B, H * W, C)).to(dt).reshape(B, H, W, C)
 
 
-def _launch(x, x_in, A, d, w1, b1, w2, b2, gamma):
-    refuse_grad("fused_convnext_mlp", x, x_in, A, d, w1, b1, w2, b2, gamma)
+def pipeline_enabled() -> bool:
+    """VFM_VAE_MLP_PIPELINE=1 selects K9 (the JAX rule, fused_mlp.py:302-307)."""
+    return os.environ.get("VFM_VAE_MLP_PIPELINE") == "1"
+
+
+def _launch(x, x_in, A, d, w1, b1, w2, b2, gamma, pipelined: bool = False):
+    name = "fused_convnext_mlp_pipelined" if pipelined else "fused_convnext_mlp"
+    refuse_grad(name, x, x_in, A, d, w1, b1, w2, b2, gamma)
     B, H, W, C = x.shape
     if C not in (128, 256, 512):
-        raise ValueError(f"fused_convnext_mlp: C={C} not in (128, 256, 512)")
+        raise ValueError(f"{name}: C={C} not in (128, 256, 512)")
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
     check_tensor(x, "x", bf, (B, H, W, C), dev)
     check_tensor(x_in, "x_in", bf, (B, H, W, C), dev)
@@ -64,20 +79,20 @@ def _launch(x, x_in, A, d, w1, b1, w2, b2, gamma):
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_fused_convnext_mlp(
+        err = getattr(lib.lib, "vfm_" + name)(
             x.data_ptr(), x_in.data_ptr(), A.data_ptr(), d.data_ptr(), b1.data_ptr(),
             w1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), out.data_ptr(),
             B, H * W, C, stream,
         )
-    lib.check(err, "fused_convnext_mlp")
-    fused_convnext_mlp.launches += 1
+    lib.check(err, name)
+    (fused_convnext_mlp_pipelined if pipelined else fused_convnext_mlp).launches += 1
     return out
 
 
 def _forward(x, x_in, A, d, w1, b1, w2, b2, gamma, plain: bool):
     if plain or x.device.type == "cpu":
         return fused_convnext_mlp_reference(x, x_in, A, d, w1, b1, w2, b2, gamma)
-    return _launch(x, x_in, A, d, w1, b1, w2, b2, gamma)
+    return _launch(x, x_in, A, d, w1, b1, w2, b2, gamma, pipeline_enabled())
 
 
 def fused_convnext_mlp_backward(g, x, A, d, w1, b1, w2, b2, gamma):
@@ -144,8 +159,9 @@ class FusedConvNeXtMLP(torch.autograd.Function):
 def fused_convnext_mlp(x, x_in, A, d, w1, b1, w2, b2, gamma, *, plain: bool = False):
     """x, x_in (B, H, W, C); A (B, C); d, b1 (B, 4C); w1 (4C, C); w2 (C, 4C);
     b2, gamma (C,). CPU tensors (or plain=True) run the twin; CUDA tensors
-    launch the kernel: bf16 activations and weights, fp32 vectors,
-    C in {128, 256, 512}. Differentiable through FusedConvNeXtMLP."""
+    launch the kernel (K1, or K9 under VFM_VAE_MLP_PIPELINE=1): bf16
+    activations and weights, fp32 vectors, C in {128, 256, 512}.
+    Differentiable through FusedConvNeXtMLP."""
     args = (x, x_in, A, d, w1, b1, w2, b2, gamma)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FusedConvNeXtMLP.apply(*args, plain)
@@ -153,3 +169,14 @@ def fused_convnext_mlp(x, x_in, A, d, w1, b1, w2, b2, gamma, *, plain: bool = Fa
 
 
 fused_convnext_mlp.launches = 0
+
+
+def fused_convnext_mlp_pipelined(x, x_in, A, d, w1, b1, w2, b2, gamma, *, plain: bool = False):
+    """K9 explicitly, whatever VFM_VAE_MLP_PIPELINE says (comparisons with
+    K1); same arguments and twin as fused_convnext_mlp, forward only."""
+    if plain or x.device.type == "cpu":
+        return fused_convnext_mlp_reference(x, x_in, A, d, w1, b1, w2, b2, gamma)
+    return _launch(x, x_in, A, d, w1, b1, w2, b2, gamma, pipelined=True)
+
+
+fused_convnext_mlp_pipelined.launches = 0
