@@ -26,7 +26,11 @@
    twin's, torch._int_mm's and cuBLAS bf16's times and the bound; K4
    (flash attention without a null token) against its twin and a float64
    evaluation at the tower's bf16 site, the adapter's fp32 sites and one
-   d=128 shape, with SDPA's time and the bound.
+   d=128 shape, with SDPA's time and the bound. The K3 and K4 flash rows
+   print CUDA-event and device times of the kernel and of SDPA on the same
+   inputs, TFLOP/s and the fraction of the bound; the bf16 forward is also
+   held and timed at the offline batch B=32 at its device-bound shapes (the
+   tower's, d=128, K3's T=1024 site).
 4. Slice phase: answers three encode -> decode requests of B=4 random
    256x256 images through the kernels, checks shapes, finiteness and the
    launch counts per decode, reruns one request with the plain twins
@@ -76,6 +80,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -195,6 +200,23 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def kernel_name(ptxas_line: str) -> str:
+    """The kernel and its integer template arguments from ptxas' "Compiling
+    entry function '<mangled name>'" line, e.g. flash_fwd_kernel<64, 2>:
+    walks the mangled name's length-prefixed parts to the one ending in
+    "kernel"."""
+    mangled = ptxas_line.split("'")[1] if ptxas_line.count("'") >= 2 else ptxas_line
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        name, pos = mangled[start:start + int(m.group())], start + int(m.group())
+        if name.endswith("kernel"):
+            args = re.match(r"I((?:Li-?\d+E)+)", mangled[pos:])
+            return name + (f"<{', '.join(re.findall(r'Li(-?[0-9]+)E', args.group(1)))}>"
+                           if args else "")
+    return mangled
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -329,6 +351,24 @@ def sdpa_inputs(q, k, v, null_k, null_v):
             torch.cat([null_v, v], dim=1).transpose(1, 2))
 
 
+def add_or_none(total, ms, count: int):
+    """total + ms * count, or None once either is None (not measured)."""
+    return None if total is None or ms is None else total + ms * count
+
+
+def flash_rate_text(ms, dev_ms, flops, bound_ms, sdpa_ms, sdpa_dev_ms) -> str:
+    """A flash row's times: CUDA-event and device time of the kernel and of
+    SDPA on the same inputs, achieved TFLOP/s (by CUDA events and by device
+    time) and the fraction of the bound (bound / time)."""
+    def rate(t):
+        return "not measured" if t is None else f"{flops / t / 1e9:.1f}"
+
+    return (f"device_ms={ms_text(dev_ms)} tflops={rate(ms)} (device {rate(dev_ms)}) "
+            f"of_bound={bound_ms / ms:.3f} (device "
+            f"{'not measured' if dev_ms is None else f'{bound_ms / dev_ms:.3f}'}) "
+            f"sdpa_ms={sdpa_ms:.4f} sdpa_device_ms={ms_text(sdpa_dev_ms)}")
+
+
 def kernel_phase(sites: dict, B: int = 2, label: str = "kernel", timed: bool = True) -> dict:
     """Kernel vs twin (and vs fp32) at every site; with `timed`, the
     kernel's, twin's and (K3) SDPA's times and the bound."""
@@ -344,7 +384,7 @@ def kernel_phase(sites: dict, B: int = 2, label: str = "kernel", timed: bool = T
         name = fn.__name__
         tol_max, tol_mean = TOLERANCES[name]
         worst_abs = worst_max = worst_mean = 0.0
-        ms_total = plain_total = lib_total = 0.0
+        ms_total = plain_total = lib_total = dev_total = 0.0
         for site in sites[name]:
             args = kernel_inputs(name, site, B, gen, dev)
             got = fn(**args)
@@ -367,7 +407,11 @@ def kernel_phase(sites: dict, B: int = 2, label: str = "kernel", timed: bool = T
                     qkv = sdpa_inputs(**args)
                     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*qkv))
                     lib_total += lib_ms * site["count"]
-                    times += f" sdpa_ms={lib_ms:.4f}"
+                    dev_ms = device_ms(lambda: fn(**args))
+                    times += " " + flash_rate_text(
+                        ms, dev_ms, work(name, site, B)[0], bound_ms, lib_ms,
+                        device_ms(lambda: F.scaled_dot_product_attention(*qkv)))
+                    dev_total = add_or_none(dev_total, dev_ms, site["count"])
                 ms_total += ms * site["count"]
                 plain_total += plain_ms * site["count"]
             print(f"[{label}] {name} {site_label(site)} B={B}: max_abs={max_abs:.3e} "
@@ -383,11 +427,13 @@ def kernel_phase(sites: dict, B: int = 2, label: str = "kernel", timed: bool = T
         summary[name] = dict(max_abs_err=worst_abs, ms=ms_total, plain_ms=plain_total,
                              bound_ms=bound_ms, bound_by=by,
                              library_ms=lib_total if name == "flash_attention_nullkv" else None)
+        if name == "flash_attention_nullkv" and timed:
+            summary[name]["device_ms"] = dev_total
         if timed:
             print(f"[{label}] {name}: all sites of one decode at B={B}: kernel {ms_total:.4f} ms, "
                   f"plain {plain_total:.4f} ms, bound {bound_ms:.4f} ms ({by})"
-                  + (f", sdpa {lib_total:.4f} ms" if name == "flash_attention_nullkv" else ""),
-                  flush=True)
+                  + (f", sdpa {lib_total:.4f} ms, kernel device {ms_text(dev_total)} ms"
+                     if name == "flash_attention_nullkv" else ""), flush=True)
     if failed:
         raise SystemExit(f"chip_smoke: {label} phase FAILED at {failed}")
     return summary
@@ -706,7 +752,7 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
     gen = torch.Generator(device=dev).manual_seed(909)
     cases = [(dict(s), torch.bfloat16 if s["at"] == "tower" else torch.float32) for s in sites]
     cases.append((dict(T=1024, N=8, D=128, at="d128", count=0), torch.bfloat16))
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0)
     by, worst_abs, failed = {}, 0.0, []
     for site, dt in cases:
         T, N, D, n = site["T"], site["N"], site["D"], site["count"]
@@ -732,12 +778,16 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
         peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
         a, bb = ops / peak * 1e3, byts / PEAK_BYTES_PER_S * 1e3
         bnd, b_by = max(a, bb), ("operations" if a >= bb else "bytes")
+        dev_ms = device_ms(lambda: kernels.flash_attention_nonull(q, k, v))
+        rates = flash_rate_text(ms, dev_ms, ops, bnd, lib_ms, device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt)))
         print(f"[kernel-flash] {site['at']} {str(dt).split('.')[-1]} T={T} N={N} D={D} B={B}: "
               f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol_max:g}) mean_rel="
               f"{mean_rel:.3e} (tol {tol_mean:g}) vs_fp64 kernel={k_truth:.3e} plain="
               f"{p_truth:.3e} finite={finite} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"sdpa_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({b_by}) "
-              f"{ops / ms / 1e9:.1f} TFLOP/s x{n}/encode {'OK' if ok else 'FAIL'}", flush=True)
+              f"bound_ms={bnd:.4f} ({b_by}) {rates} x{n}/encode {'OK' if ok else 'FAIL'}",
+              flush=True)
+        tot["device_ms"] = add_or_none(tot["device_ms"], dev_ms, n)
         if not ok:
             failed.append(f"{site['at']} T={T} D={D}")
         worst_abs = max(worst_abs, max_abs)
@@ -747,11 +797,79 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
         by[b_by] = by.get(b_by, 0) + n
     if failed:
         raise SystemExit(f"chip_smoke: kernel-flash phase FAILED at {failed}")
-    print(f"[kernel-flash] all K4 sites of one encode at B={B}: kernel {tot['ms']:.4f} ms, plain "
-          f"{tot['plain_ms']:.4f} ms, sdpa {tot['library_ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms", flush=True)
+    print(f"[kernel-flash] all K4 sites of one encode at B={B}: kernel {tot['ms']:.4f} ms "
+          f"(device {ms_text(tot['device_ms'])}), plain {tot['plain_ms']:.4f} ms, sdpa "
+          f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms", flush=True)
     return {"flash_attention_nonull": dict(max_abs_err=worst_abs, batch=B,
                                            bound_by=max(by, key=by.get), **tot)}
+
+
+def flash_batch_phase(k3_sites, k4_sites, B: int = 32) -> dict:
+    """The bf16 flash forward (K3 with the null token, K4 without) at the
+    offline batch B=32 on its device-bound shapes: the tower's attention,
+    the d=128 shape and K3's T=1024 decode site. Held to K3's bounds against
+    the twin and against fp32 (TRUTH_FACTOR); the kernel's and SDPA's
+    CUDA-event and device times on the same inputs, TFLOP/s and the fraction
+    of the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3232)
+    tol_max, tol_mean = TOLERANCES["flash_attention_nullkv"]
+    k3 = max(k3_sites, key=lambda x: x["T"])
+    tower = next(x for x in k4_sites if x["at"] == "tower")
+    cases = [("flash_attention_nullkv", "k3", k3["T"], k3["N"], k3["D"]),
+             ("flash_attention_nonull", "tower", tower["T"], tower["N"], tower["D"]),
+             ("flash_attention_nonull", "d128", 1024, 8, 128)]
+    out, failed = {}, []
+    for name, at, T, N, D in cases:
+        q, k, v = (torch.randn(B, T, N, D, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        fn = getattr(kernels, name)
+        if name == "flash_attention_nullkv":
+            nk, nv = (torch.randn(B, 1, N, D, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            args = (q, k, v, nk, nv)
+            sdpa_args = sdpa_inputs(*args)
+            flops = work(name, dict(T=T, N=N, D=D), B)[0]
+            bnd = bound(name, [dict(T=T, N=N, D=D, count=1)], B)[0]
+        else:
+            args = (q, k, v)
+            sdpa_args = tuple(t.transpose(1, 2) for t in args)
+            flops, byts = flash_work(B, T, T, N, D, 2)
+            bnd = max(flops / PEAK_BF16_FLOPS, byts / PEAK_BYTES_PER_S) * 1e3
+        got, ref = fn(*args), fn(*args, plain=True)
+        truth = fn(*(t.float() for t in args), plain=True)
+        torch.cuda.synchronize()
+        max_abs, max_rel, mean_rel = rel_errors(got, ref)
+        k_truth, p_truth = rel_errors(got, truth)[2], rel_errors(ref, truth)[2]
+        del ref, truth
+        finite = bool(torch.isfinite(got.float()).all())
+        ok = (finite and max_rel <= tol_max and mean_rel <= tol_mean
+              and k_truth <= TRUTH_FACTOR * p_truth + 1e-6)
+        ms = cuda_time_ms(lambda: fn(*args))
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*sdpa_args))
+        dev_ms = device_ms(lambda: fn(*args))
+        lib_dev = device_ms(lambda: F.scaled_dot_product_attention(*sdpa_args))
+        print(f"[flash-b{B}] {name} {at} T={T} N={N} D={D} B={B}: max_abs={max_abs:.3e} "
+              f"max_rel={max_rel:.3e} (tol {tol_max:g}) mean_rel={mean_rel:.3e} (tol "
+              f"{tol_mean:g}) vs_fp32 kernel={k_truth:.3e} plain={p_truth:.3e} finite={finite} "
+              f"kernel_ms={ms:.4f} bound_ms={bnd:.4f} "
+              f"{flash_rate_text(ms, dev_ms, flops, bnd, lib_ms, lib_dev)} "
+              f"kernel/sdpa={ms / lib_ms:.3f} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"{name} {at}")
+        out.setdefault(name, {})[at] = dict(
+            batch=B, T=T, N=N, D=D, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bnd, tflops=flops / ms / 1e9, max_abs_err=max_abs)
+        del got, args, sdpa_args, q, k, v
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: flash-b{B} phase FAILED at {failed}")
+    return out
 
 
 def randomize_zero_init_branches(G, seed: int) -> None:
@@ -1993,9 +2111,12 @@ def main() -> int:
 
     lib = library()
     print(f"[build] {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
+    entry = ""
     for line in lib.log.splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel_name(line)
         if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+            print(f"[build] {entry}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -2029,6 +2150,9 @@ def main() -> int:
     enc = encode_sites(G, int8=True)
     summary.update(kernel_int8_phase(enc["int8_matmul"]))
     summary.update(kernel_flash_phase(enc["flash_attention_nonull"]))
+    for name, per_site in flash_batch_phase(sites["flash_attention_nullkv"],
+                                            enc["flash_attention_nonull"]).items():
+        summary[name]["b32"] = per_site
     k4b, k4_fb = k4_backward_phase(enc["flash_attention_nonull"])
     summary.update(k4b)
     summary["flash_attention_nonull"].update(

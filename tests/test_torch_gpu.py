@@ -313,3 +313,82 @@ def test_k4_backward_matches_twin_on_gpu(cuda, dtype, D, Tq, Tk):
     assert [fn.launches for fn in kernels.NONULL_BACKWARD_WRAPPERS] == [b + 2 for b in before]
     for got, ref in zip(grads, (dq, dk, dv)):
         assert torch.equal(got, ref)
+
+
+def _errors(got, ref):
+    """(max |got - ref| / max |ref|, mean |got - ref| / mean |ref|)."""
+    d = (got.float() - ref.float()).abs()
+    return (float(d.max()) / float(ref.float().abs().max()),
+            float(d.mean()) / float(ref.float().abs().mean()))
+
+
+# (B, Tq, Tk, N, D, null): K3 at every flagship and EQ-bucket T; K4 with
+# Tq != Tk, d = 64 and 128; grids below the SM count (B * N * tiles < 132);
+# B = 1 and 3; and the B = 32 grids of the offline batch.
+FORWARD_CASES = (
+    [(2, T, T, 8, 64, True) for T in (4, 16, 36, 64, 144, 256, 576, 1024)]
+    + [(2, 1024, 1024, 16, 64, False), (2, 300, 1000, 4, 64, False),
+       (2, 1024, 77, 8, 128, False), (2, 129, 640, 8, 128, False),
+       (1, 1024, 1024, 2, 64, True), (3, 200, 200, 8, 64, True),
+       (1, 64, 64, 1, 128, False), (3, 1024, 1024, 16, 128, False),
+       (32, 1024, 1024, 16, 64, False)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,Tk,N,D,null", FORWARD_CASES)
+def test_flash_forward_matches_twin_on_gpu(cuda, B, Tq, Tk, N, D, null):
+    """The bf16 forward (K3 with the null token, K4 without) against its
+    twin within K3's bounds (max 2e-2, mean 4e-3 of scale: P rounded to
+    bf16 unnormalised in the kernel, normalised in the twin), against fp32
+    within 1.5x the twin's error, and its log-sum-exp against the twin's
+    logsumexp; one launch per call, with and without the log-sum-exp."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(B * Tq + Tk + D)
+    bf = torch.bfloat16
+    q = torch.randn(B, Tq, N, D, generator=g, device=cuda).to(bf)
+    k, v = (torch.randn(B, Tk, N, D, generator=g, device=cuda).to(bf) for _ in range(2))
+    nk, nv = (torch.randn(B, 1, N, D, generator=g, device=cuda).to(bf) for _ in range(2))
+    scale = D ** -0.5
+    if null:
+        wrapper = kernels.flash_attention_nullkv
+        call = lambda lse: fa._launch_forward(q, k, v, nk, nv, scale, lse)  # noqa: E731
+        ref, ref_lse = kernels.flash_attention_nullkv_reference(q, k, v, nk, nv, scale, True)
+        truth = kernels.flash_attention_nullkv_reference(
+            q.float(), k.float(), v.float(), nk.float(), nv.float(), scale)
+    else:
+        wrapper = kernels.flash_attention_nonull
+        call = lambda lse: fa._launch_nonull(q, k, v, scale, lse)  # noqa: E731
+        ref, ref_lse = kernels.flash_attention_nonull_reference(q, k, v, scale, True)
+        truth = kernels.flash_attention_nonull_reference(q.float(), k.float(), v.float(), scale)
+    before = wrapper.launches
+    out, lse = call(True)
+    out2, none = call(False)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2 and none is None
+    assert torch.equal(out, out2)
+    assert bool(torch.isfinite(out.float()).all())
+    max_rel, mean_rel = _errors(out, ref)
+    assert max_rel <= 2e-2 and mean_rel <= 4e-3, (max_rel, mean_rel)
+    assert _errors(out, truth)[1] <= 1.5 * _errors(ref, truth)[1] + 1e-6
+    # fp32 log-sum-exp of the same logits, summed in another order.
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max()) + 1e-5
+
+
+@pytest.mark.gpu
+def test_flash_forward_plan_matches_the_kernel_on_gpu(cuda):
+    """forward_plan (Python) and vfm_flash_fwd_plan (the C launch) agree."""
+    import ctypes
+
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    lib = library().lib
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, Tq, N, D in ((2, 64, 8, 64), (2, 1024, 16, 64), (2, 1024, 8, 128), (32, 1024, 8, 128),
+                        (1, 5, 1, 64), (32, 1024, 16, 64)):
+        got = (ctypes.c_int * 6)()
+        assert lib.vfm_flash_fwd_plan(B, Tq, N, D, sms, got) == 0
+        p = fa.forward_plan(B, Tq, N, D, sms)
+        assert list(got) == [p["wgs"], p["query_tile"], p["key_tile"], p["stages"], p["threads"],
+                             p["smem_bytes"]], (B, Tq, N, D)

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu",
            "flash_attention_nullkv_bwd.cu", "int8_matmul.cu", "group_stats.cu", "dwconv_stats.cu")
-HEADERS = ("common.cuh", "partials.cuh")
+HEADERS = ("common.cuh", "partials.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "vfm_flash_attention_nullkv_bwd_dkv": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
     "vfm_flash_attention_nullkv_bwd_dq": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "vfm_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "vfm_flash_fwd_plan": [_I, _I, _I, _I, _I, _P],
     "vfm_flash_attention_bwd_dkv": [_P] * 9 + [_I, _I, _I, _I, _I, _F, _I, _P],
     "vfm_flash_attention_bwd_dq": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I, _P],
     "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -137,6 +138,8 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
 def library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library."""
     global _loaded
+    if _loaded is not None:  # the launch path's common case: no lock
+        return _loaded
     with _lock:
         if _loaded is None:
             path = BUILD_DIR / f"libvfm_kernels_{_digest()}.so"

@@ -13,11 +13,13 @@ _flash_attention_bwd_dkv and _flash_attention_bwd_dq).
 On the H100 the kernels (csrc/flash_attention_nullkv.cu and
 csrc/flash_attention_nullkv_bwd.cu) are bound by their tensor-core products
 (~T/2 flops per byte at d=64); the (T, T+1) logits never reach device
-memory. The null key and value are read as key 0 of the walk from their own
-pointer, and their gradients are written per sample to their own outputs,
-so no concat, padding or mask tensor exists and every T runs. In training
-the forward also writes the per-row log-sum-exp, from which the backward
-recomputes the probabilities.
+memory. The null key and value come from their own pointer: the bf16
+forward (wgmma and TMA, persistent; forward_plan below mirrors its launch
+plan) starts each row's online softmax from the null token, and the
+backward reads it as key 0 of its walk and writes its gradients per sample
+to their own outputs, so no concat, padding or mask tensor exists and
+every T runs. In training the forward also writes the per-row log-sum-exp,
+from which the backward recomputes the probabilities.
 
 `flash_attention_nullkv` is the entry point: when autograd records, it runs
 through `FlashAttentionNullKV`, whose forward and backward launch the
@@ -119,18 +121,66 @@ def _check_qkv(q, k, v, null_k, null_v, name: str):
     return B, T, N, D, dev
 
 
+# The bf16 forward kernel's key tile and ring of K/V stages
+# (csrc/flash_attention_nullkv.cu).
+KEY_TILE = 128
+STAGES = 3
+
+
+def forward_plan(B: int, Tq: int, N: int, D: int, sms: int = 132) -> dict:
+    """The bf16 forward kernel's launch plan for q (B, Tq, N, D) on a card
+    with `sms` SMs, as the C side computes it (vfm_flash_fwd_plan): two
+    consumer warpgroups of 64 query rows per CTA unless B * N * ceil(Tq /
+    128) CTAs would leave an SM without one, then one; K/V tiles of 128 keys
+    in a ring of three stages; TMA boxes of 64 columns (two per row at
+    d=128); a producer warpgroup. The kernel is persistent: min(work_tiles,
+    SMs x the CTAs one SM holds) CTAs walk the (query block, head, sample)
+    work tiles."""
+    if D not in (64, 128):
+        raise ValueError(f"head dim {D}: the bf16 forward takes 64 or 128")
+    wgs = 2 if B * N * -(-Tq // 128) >= sms else 1
+    rows, boxes = 64 * wgs, D // 64
+    tile = boxes * KEY_TILE * 128  # bytes of one K or V tile
+    smem = boxes * rows * 128 + 2 * STAGES * tile + 8 * (2 + 3 * STAGES) + 1024
+    return dict(wgs=wgs, query_tile=rows, key_tile=KEY_TILE, stages=STAGES,
+                threads=wgs * 128 + 128, smem_bytes=smem, work_tiles=-(-Tq // rows) * N * B,
+                q_box=(64, 1, rows, 1), kv_box=(64, 1, KEY_TILE, 1), boxes_per_row=boxes)
+
+
+def _check_forward(name: str, dtype, dev, specs) -> None:
+    """One pass over (tensor, label, shape): raise ValueError unless each is
+    a contiguous tensor of `dtype` and `shape` on the CUDA device `dev`."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
+    for t, label, shape in specs:
+        if t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+            check_tensor(t, label, dtype, shape, dev)  # raises with the reason
+
+
+def _call_on(dev, fn, *args) -> int:
+    """fn(*args, stream) with `dev`'s current stream; switches the current
+    device only when `dev` is not it already."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
 def _launch_forward(q, k, v, null_k, null_v, scale: float, with_lse: bool):
     refuse_grad("flash_attention_nullkv", q, k, v, null_k, null_v)
-    B, T, N, D, dev = _check_qkv(q, k, v, null_k, null_v, "flash_attention_nullkv")
+    B, T, N, D = q.shape
+    if D != 64:
+        raise ValueError(f"flash_attention_nullkv: head dim {D} != 64")
+    dev, shape, nshape = q.device, q.shape, (B, 1, N, D)
+    _check_forward("flash_attention_nullkv", torch.bfloat16, dev,
+                   ((q, "q", shape), (k, "k", shape), (v, "v", shape),
+                    (null_k, "null_k", nshape), (null_v, "null_v", nshape)))
     lib = library()
     out = torch.empty_like(q)
     lse = torch.empty((B, N, T), dtype=torch.float32, device=dev) if with_lse else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_flash_attention_nullkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), null_k.data_ptr(), null_v.data_ptr(),
-            out.data_ptr(), lse.data_ptr() if with_lse else None, B, T, N, D, scale, stream,
-        )
+    err = _call_on(dev, lib.lib.vfm_flash_attention_nullkv, q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), null_k.data_ptr(), null_v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr() if with_lse else None, B, T, N, D, scale)
     lib.check(err, "flash_attention_nullkv")
     flash_attention_nullkv.launches += 1
     return out, lse
@@ -297,16 +347,19 @@ def _check_nonull(q, k, v, name: str):
 
 def _launch_nonull(q, k, v, scale: float, with_lse: bool):
     refuse_grad("flash_attention_nonull", q, k, v)
-    B, Tq, Tk, N, D, dev = _check_nonull(q, k, v, "flash_attention_nonull")
+    B, Tq, N, D = q.shape
+    Tk, dt, dev = k.shape[1], q.dtype, q.device
+    if D not in (64, 128) or dt not in (torch.bfloat16, torch.float32) or Tk == 0 or Tq == 0:
+        _check_nonull(q, k, v, "flash_attention_nonull")  # raises with the reason
+    kshape = (B, Tk, N, D)
+    _check_forward("flash_attention_nonull", dt, dev,
+                   ((q, "q", q.shape), (k, "k", kshape), (v, "v", kshape)))
     lib = library()
     out = torch.empty_like(q)
     lse = torch.empty((B, N, Tq), dtype=torch.float32, device=dev) if with_lse else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                          out.data_ptr(), lse.data_ptr() if with_lse else None,
-                                          B, Tq, Tk, N, D, scale, int(q.dtype == torch.float32),
-                                          stream)
+    err = _call_on(dev, lib.lib.vfm_flash_attention, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), lse.data_ptr() if with_lse else None, B, Tq, Tk, N, D, scale,
+                   int(dt == torch.float32))
     lib.check(err, "flash_attention_nonull")
     flash_attention_nonull.launches += 1
     return out, lse
