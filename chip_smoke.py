@@ -30,7 +30,11 @@
    print CUDA-event and device times of the kernel and of SDPA on the same
    inputs, TFLOP/s and the fraction of the bound; the bf16 forward is also
    held and timed at the offline batch B=32 at its device-bound shapes (the
-   tower's, d=128, K3's T=1024 site).
+   tower's, d=128, K3's T=1024 site), and so is the bf16 backward (one
+   library call: pre-pass, dK/dV and dQ kernels; bit-identical on repeat),
+   with each kernel's device time and fraction of its bound beside SDPA's
+   backward alone. The K3 and K4 backward rows carry the kernels' device
+   times and SDPA's backward time.
 4. Slice phase: answers three encode -> decode requests of B=4 random
    256x256 images through the kernels, checks shapes, finiteness and the
    launch counts per decode, reruns one request with the plain twins
@@ -236,11 +240,19 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10):
-    """Device time per call of `fn`: the self device time of every kernel it
-    launches over `reps` calls in a profiler window (torch.profiler /
-    CUPTI), without the host's time between them; None if the profiler saw
-    no device time. The CUDA-event times above include the host's when a
+def in_turns(fn_a, fn_b):
+    """CUDA-event times of two alternatives measured in turns (a, b, b, a),
+    each the mean of its two medians: this host's speed drifts within a call."""
+    a1, b1, b2, a2 = (cuda_time_ms(f) for f in (fn_a, fn_b, fn_b, fn_a))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def device_kernels(fn, reps: int = 10):
+    """Device time per call of `fn` and of each kernel it launches: the self
+    device time of every kernel over `reps` calls in a profiler window
+    (torch.profiler / CUPTI), without the host's time between them. Returns
+    (ms or None if the profiler saw no device time, {kernel name: ms},
+    largest first). The CUDA-event times above include the host's when a
     call's kernels are shorter than its Python and launch overhead."""
     import torch
     from torch.autograd import DeviceType
@@ -252,9 +264,35 @@ def device_ms(fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / reps if busy else None
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    busy = sum(per.values())
+    return (busy if busy else None), dict(sorted(per.items(), key=lambda kv: -kv[1]))
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time per call of `fn` (device_kernels), or None."""
+    return device_kernels(fn, reps)[0]
+
+
+def kernel_ms(per: dict, part: str):
+    """Device ms of the kernels in `per` whose name contains `part`, or None."""
+    hits = [ms for name, ms in per.items() if part in name]
+    return sum(hits) if hits else None
+
+
+def sdpa_backward(args, dout):
+    """A function that runs SDPA's backward alone (dQ, dK and dV in one op)
+    on `args` (B, N, T, D) and the output gradient `dout` (B, T, N, D)."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in args]
+    out = F.scaled_dot_product_attention(*leaves)
+    g = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
 
 def ms_text(ms) -> str:
@@ -486,8 +524,10 @@ def function_grad_phase(flagship_sites: dict, eq_sites: dict, B: int = 2) -> Non
 
 def k3_backward_phase(flagship_sites, eq_T, B: int = 2) -> dict:
     """K3's backward kernels against their plain twin and fp32 autograd at
-    every flagship and EQ sequence length; times of the kernels, the twins,
-    and forward+backward of the K3 Function and of SDPA over [null; k]."""
+    every flagship and EQ sequence length; CUDA-event and device times of
+    the kernels (the dK/dV wrapper with its pre-pass, the dQ wrapper, and
+    the one-call backward of the Function), the twins, SDPA's backward alone
+    over [null; k], and forward+backward of the K3 Function and of SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -501,9 +541,9 @@ def k3_backward_phase(flagship_sites, eq_T, B: int = 2) -> dict:
     flag_T = {s["T"] for s in flagship_sites}
     sites = list(flagship_sites) + [dict(flagship_sites[0], T=T, count=0)
                                     for T in sorted(set(eq_T) - flag_T)]
-    acc = {n: dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0) for n in
-           ("flash_attention_nullkv_bwd_dkv", "flash_attention_nullkv_bwd_dq")}
-    fb = dict(ms=0.0, library_ms=0.0)
+    acc = {n: dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, device_ms=0.0, library_ms=0.0)
+           for n in ("flash_attention_nullkv_bwd_dkv", "flash_attention_nullkv_bwd_dq")}
+    fb = dict(ms=0.0, library_ms=0.0, bwd_ms=0.0, bwd_device_ms=0.0)
     failed = []
     for site in sites:
         args = kernel_inputs("flash_attention_nullkv", site, B, gen, dev)
@@ -539,34 +579,52 @@ def k3_backward_phase(flagship_sites, eq_T, B: int = 2) -> dict:
             q, k, v, nk, nv, out, lse, dout))
         dq_plain = cuda_time_ms(lambda: kernels.flash_attention_nullkv_bwd_dq_reference(
             q, k, v, nk, nv, dout, lse, delta))
+        dkv_dev = device_ms(lambda: kernels.flash_attention_nullkv_bwd_dkv(
+            q, k, v, nk, nv, out, dout, lse))
+        dq_dev = device_ms(lambda: kernels.flash_attention_nullkv_bwd_dq(
+            q, k, v, nk, nv, dout, lse, delta))
+        one_call = lambda: fa._launch_backward(q, k, v, nk, nv, out, dout, lse, 0.125)  # noqa: E731
+        bwd_dev = device_ms(one_call)
+        sdpa_bwd_fn = sdpa_backward(sdpa_inputs(q, k, v, nk, nv), dout)
+        bwd_ms, sdpa_bwd = in_turns(one_call, sdpa_bwd_fn)
+        sdpa_bwd_dev = device_ms(sdpa_bwd_fn)
         kl = [t.detach().requires_grad_() for t in (q, k, v, nk, nv)]
-        fb_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            kernels.flash_attention_nullkv(*kl), kl, dout))
         sl = [t.detach().requires_grad_() for t in sdpa_inputs(q, k, v, nk, nv)]
-        sdpa_fb = cuda_time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*sl), sl, dout.transpose(1, 2)))
+        fb_ms, sdpa_fb = in_turns(
+            lambda: torch.autograd.grad(kernels.flash_attention_nullkv(*kl), kl, dout),
+            lambda: torch.autograd.grad(F.scaled_dot_product_attention(*sl), sl,
+                                        dout.transpose(1, 2)))
         n_call = site["count"]
-        for key, ms, pm in (("flash_attention_nullkv_bwd_dkv", dkv_ms, dkv_plain),
-                            ("flash_attention_nullkv_bwd_dq", dq_ms, dq_plain)):
+        for key, ms, pm, dm in (("flash_attention_nullkv_bwd_dkv", dkv_ms, dkv_plain, dkv_dev),
+                                ("flash_attention_nullkv_bwd_dq", dq_ms, dq_plain, dq_dev)):
             acc[key]["ms"] += ms * n_call
             acc[key]["plain_ms"] += pm * n_call
+            acc[key]["device_ms"] = add_or_none(acc[key]["device_ms"], dm, n_call)
+            acc[key]["library_ms"] += sdpa_bwd * n_call
         fb["ms"] += fb_ms * n_call
         fb["library_ms"] += sdpa_fb * n_call
+        fb["bwd_ms"] += bwd_ms * n_call
+        fb["bwd_device_ms"] = add_or_none(fb["bwd_device_ms"], bwd_dev, n_call)
         b_dkv = bound("flash_attention_nullkv_bwd_dkv", [dict(site, count=1)], B)
         b_dq = bound("flash_attention_nullkv_bwd_dq", [dict(site, count=1)], B)
         print(f"[k3-bwd] T={site['T']} B={B} N={site['N']}: " + "; ".join(line), flush=True)
-        print(f"[k3-bwd] T={site['T']} B={B}: dkv_ms={dkv_ms:.4f} (plain {dkv_plain:.4f}, bound "
-              f"{b_dkv[0]:.4f} {b_dkv[1]}) dq_ms={dq_ms:.4f} (plain {dq_plain:.4f}, bound "
-              f"{b_dq[0]:.4f} {b_dq[1]}) fwd+bwd: K3 {fb_ms:.4f} ms, sdpa {sdpa_fb:.4f} ms "
+        print(f"[k3-bwd] T={site['T']} B={B}: dkv_ms={dkv_ms:.4f} (device {ms_text(dkv_dev)}, "
+              f"plain {dkv_plain:.4f}, bound {b_dkv[0]:.4f} {b_dkv[1]}) dq_ms={dq_ms:.4f} (device "
+              f"{ms_text(dq_dev)}, plain {dq_plain:.4f}, bound {b_dq[0]:.4f} {b_dq[1]}) one-call "
+              f"bwd {bwd_ms:.4f} ms (device {ms_text(bwd_dev)}), sdpa bwd {sdpa_bwd:.4f} ms "
+              f"(device {ms_text(sdpa_bwd_dev)}) fwd+bwd: K3 {fb_ms:.4f} ms, sdpa {sdpa_fb:.4f} ms "
               f"x{n_call}/decode", flush=True)
     if failed:
         raise SystemExit(f"chip_smoke: K3 backward phase FAILED at {failed}")
     for key in acc:
         acc[key]["bound_ms"], acc[key]["bound_by"] = bound(key, flagship_sites, B)
-        acc[key]["library_ms"] = None
     print(f"[k3-bwd] all flagship sites of one decode at B={B}: dkv "
-          f"{acc['flash_attention_nullkv_bwd_dkv']['ms']:.4f} ms, dq "
-          f"{acc['flash_attention_nullkv_bwd_dq']['ms']:.4f} ms; forward+backward K3 "
+          f"{acc['flash_attention_nullkv_bwd_dkv']['ms']:.4f} ms (device "
+          f"{ms_text(acc['flash_attention_nullkv_bwd_dkv']['device_ms'])}), dq "
+          f"{acc['flash_attention_nullkv_bwd_dq']['ms']:.4f} ms (device "
+          f"{ms_text(acc['flash_attention_nullkv_bwd_dq']['device_ms'])}); one-call backward "
+          f"{fb['bwd_ms']:.4f} ms (device {ms_text(fb['bwd_device_ms'])}), sdpa backward "
+          f"{acc['flash_attention_nullkv_bwd_dq']['library_ms']:.4f} ms; forward+backward K3 "
           f"{fb['ms']:.4f} ms, sdpa {fb['library_ms']:.4f} ms", flush=True)
     return acc, fb
 
@@ -870,6 +928,134 @@ def flash_batch_phase(k3_sites, k4_sites, B: int = 32) -> dict:
     if failed:
         raise SystemExit(f"chip_smoke: flash-b{B} phase FAILED at {failed}")
     return out
+
+
+def flash_bwd_batch_phase(k3_sites, k4_sites, B: int = 32) -> dict:
+    """The bf16 backward, one library call (pre-pass, dK/dV and dQ kernels),
+    at the offline batch B=32 on three shapes: K3's T=1024 decode site (null
+    token), the tower's attention and the d=128 shape (K4). Held as k3-bwd
+    holds it (the twin within BWD_TOLERANCE, fp32 autograd within
+    TRUTH_FACTOR of the twin's error) and bit-identical on a second call;
+    the call's CUDA-event and device time and each kernel's device time,
+    TFLOP/s and fraction of the bound, beside SDPA's backward alone on the
+    same inputs (CUDA-event and device time, the names of its kernels)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3233)
+    tol_max, tol_mean = BWD_TOLERANCE
+    k3 = max(k3_sites, key=lambda x: x["T"])
+    tower = next(x for x in k4_sites if x["at"] == "tower")
+    cases = [("k3", k3["T"], k3["N"], k3["D"], True),
+             ("tower", tower["T"], tower["N"], tower["D"], False), ("d128", 1024, 8, 128, False)]
+    rows, failed = {}, []
+    for at, T, N, D, null in cases:
+        scale = D ** -0.5
+        q, k, v, dout = (torch.randn(B, T, N, D, generator=gen, device=dev).to(bf)
+                         for _ in range(4))
+        if null:
+            nk, nv = (torch.randn(B, 1, N, D, generator=gen, device=dev).to(bf) for _ in range(2))
+            out, lse = fa._launch_forward(q, k, v, nk, nv, scale, True)
+            twin = kernels.flash_attention_nullkv_bwd_reference(q, k, v, nk, nv, out, lse, dout,
+                                                                scale)[:5]
+            leaves = [t.float().requires_grad_() for t in (q, k, v, nk, nv)]
+            truth = torch.autograd.grad(kernels.flash_attention_nullkv_reference(*leaves, scale),
+                                        leaves, dout.float())
+            sdpa_args = sdpa_inputs(q, k, v, nk, nv)
+            names = ("flash_attention_nullkv_bwd_dkv", "flash_attention_nullkv_bwd_dq")
+            works = [work(n, dict(T=T, N=N, D=D), B) for n in names]
+        else:
+            nk = nv = None
+            out, lse = fa._launch_nonull(q, k, v, scale, True)
+            twin = kernels.flash_attention_nonull_bwd_reference(q, k, v, out, lse, dout, scale)[:3]
+            leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            truth = torch.autograd.grad(kernels.flash_attention_nonull_reference(*leaves, scale),
+                                        leaves, dout.float())
+            sdpa_args = tuple(t.transpose(1, 2) for t in (q, k, v))
+            names = K4_BWD
+            works = [flash_bwd_work(n, B, T, T, N, D, 2) for n in names]
+        del leaves
+
+        def call():
+            return fa._launch_backward(q, k, v, nk, nv, out, dout, lse, scale)
+
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        line, worst = [], 0.0
+        for nm, a, a2, ref, tr in zip(("dq", "dk", "dv", "dnull_k", "dnull_v"), got, again, twin,
+                                      truth):
+            max_abs, max_rel, mean_rel = rel_errors(a, ref)
+            k32, p32 = rel_errors(a, tr)[2], rel_errors(ref, tr)[2]
+            finite, same = bool(torch.isfinite(a.float()).all()), torch.equal(a, a2)
+            ok = (finite and same and max_rel <= tol_max and mean_rel <= tol_mean
+                  and k32 <= TRUTH_FACTOR * p32 + 1e-6)
+            line.append(f"{nm} max_rel={max_rel:.3e} mean_rel={mean_rel:.3e} vs_fp32 "
+                        f"kernel={k32:.3e} plain={p32:.3e} repeat="
+                        f"{'identical' if same else 'DIFFERS'}{'' if ok else ' FAIL'}")
+            if not ok:
+                failed.append(f"{at} {nm}")
+            worst = max(worst, max_abs)
+        del got, again, twin, truth
+        torch.cuda.empty_cache()
+        sfn = sdpa_backward(sdpa_args, dout)
+        ms, lib_ms = in_turns(call, sfn)
+        dev_ms, per = device_kernels(call)
+        parts = {"dkv": kernel_ms(per, "flash_bwd_dkv_kernel"),
+                 "dq": kernel_ms(per, "flash_bwd_dq_kernel"),
+                 "pre-pass": kernel_ms(per, "prepass_kernel") or kernel_ms(per, "delta_")}
+        lib_dev, lib_per = device_kernels(sfn)
+        # Forward + backward through the Function, and through SDPA.
+        kl = [t.detach().requires_grad_() for t in ((q, k, v, nk, nv) if null else (q, k, v))]
+        fn = kernels.flash_attention_nullkv if null else kernels.flash_attention_nonull
+        sl = [t.detach().requires_grad_() for t in sdpa_args]
+
+        def fwd_bwd():
+            return torch.autograd.grad(fn(*kl), kl, dout)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(F.scaled_dot_product_attention(*sl), sl,
+                                       dout.transpose(1, 2))
+
+        fb_ms, sfb_ms = in_turns(fwd_bwd, sdpa_fwd_bwd)
+        fb, sfb = (fb_ms, device_ms(fwd_bwd)), (sfb_ms, device_ms(sdpa_fwd_bwd))
+        del kl, sl
+        bounds = [max(ops / PEAK_BF16_FLOPS, byts / PEAK_BYTES_PER_S) * 1e3 for ops, byts in works]
+        flops = works[0][0] + works[1][0]
+        texts = []
+        for key, (ops, _), bnd in zip(("dkv", "dq"), works, bounds):
+            dm = parts[key]
+            texts.append(f"{key} device {ms_text(dm)} ms, bound {bnd:.4f} ms, "
+                         + ("not measured" if dm is None else
+                            f"{ops / dm / 1e9:.1f} TFLOP/s, of_bound={bnd / dm:.3f}"))
+        print(f"[flash-bwd-b{B}] {at} T={T} N={N} D={D} B={B}: " + "; ".join(line), flush=True)
+        print(f"[flash-bwd-b{B}] {at} T={T} N={N} D={D} B={B}: backward_ms={ms:.4f} "
+              f"device_ms={ms_text(dev_ms)} ({'; '.join(texts)}; pre-pass device "
+              f"{ms_text(parts['pre-pass'])} ms) tflops={flops / ms / 1e9:.1f} (device "
+              + ("not measured" if dev_ms is None else f"{flops / dev_ms / 1e9:.1f}")
+              + f") of_bound={sum(bounds) / ms:.3f} sdpa_bwd_ms={lib_ms:.4f} "
+              f"sdpa_bwd_device_ms={ms_text(lib_dev)} sdpa_kernels={list(lib_per)[:3]} "
+              f"kernel/sdpa={ms / lib_ms:.3f} (device "
+              + ("not measured" if dev_ms is None or lib_dev is None else f"{dev_ms / lib_dev:.3f}")
+              + f") fwd+bwd: kernel {fb[0]:.4f} ms (device {ms_text(fb[1])}), sdpa {sfb[0]:.4f} "
+              f"ms (device {ms_text(sfb[1])}) "
+              f"{'OK' if not any(f.startswith(at + ' ') for f in failed) else 'FAIL'}",
+              flush=True)
+        for key, name, bnd in zip(("dkv", "dq"), names, bounds):
+            rows.setdefault(name, {})[at] = dict(
+                batch=B, T=T, N=N, D=D, ms=ms, call_device_ms=dev_ms, device_ms=parts[key],
+                bound_ms=bnd, library_ms=lib_ms, library_device_ms=lib_dev,
+                library_kernels=list(lib_per)[:3], tflops=flops / ms / 1e9, max_abs_err=worst,
+                fwd_bwd_ms=fb[0], fwd_bwd_device_ms=fb[1], library_fwd_bwd_ms=sfb[0],
+                library_fwd_bwd_device_ms=sfb[1])
+        del q, k, v, dout, out, lse, nk, nv, sdpa_args, sfn
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: flash-bwd-b{B} phase FAILED at {failed}")
+    return rows
 
 
 def randomize_zero_init_branches(G, seed: int) -> None:
@@ -1905,8 +2091,8 @@ def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
     tower = next(s for s in enc_sites if s["at"] == "tower")
     cases += [(dict(tower, count=0), torch.bfloat16),
               (dict(T=1024, N=8, D=128, at="d128", count=0), torch.bfloat16)]
-    acc = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, library_ms=None)
-           for n in K4_BWD}
+    acc = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, library_ms=0.0,
+                   device_ms=0.0) for n in K4_BWD}
     by = {n: {} for n in K4_BWD}
     fb = dict(ms=0.0, library_ms=0.0)
     failed = []
@@ -1943,35 +2129,48 @@ def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
             q, k, v, out, lse, dout), reps=5)
         dq_plain = cuda_time_ms(lambda: kernels.flash_attention_nonull_bwd_dq_reference(
             q, k, v, dout, lse, delta), reps=5)
+        dkv_dev = device_ms(lambda: kernels.flash_attention_nonull_bwd_dkv(
+            q, k, v, out, dout, lse))
+        dq_dev = device_ms(lambda: kernels.flash_attention_nonull_bwd_dq(
+            q, k, v, dout, lse, delta))
+        sdpa_bwd_fn = sdpa_backward([t.transpose(1, 2) for t in (q, k, v)], dout)
+        sdpa_bwd, sdpa_bwd_dev = cuda_time_ms(sdpa_bwd_fn), device_ms(sdpa_bwd_fn)
         kl = [t.detach().requires_grad_() for t in (q, k, v)]
-        fb_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            kernels.flash_attention_nonull(*kl), kl, dout))
         sl = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
-        sdpa_fb = cuda_time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*sl), sl, dout.transpose(1, 2)))
+        fb_ms, sdpa_fb = in_turns(
+            lambda: torch.autograd.grad(kernels.flash_attention_nonull(*kl), kl, dout),
+            lambda: torch.autograd.grad(F.scaled_dot_product_attention(*sl), sl,
+                                        dout.transpose(1, 2)))
         peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
         bnds = {}
-        for key, ms, pm in ((K4_BWD[0], dkv_ms, dkv_plain), (K4_BWD[1], dq_ms, dq_plain)):
+        for key, ms, pm, dm in ((K4_BWD[0], dkv_ms, dkv_plain, dkv_dev),
+                                (K4_BWD[1], dq_ms, dq_plain, dq_dev)):
             bnds[key] = plain_bound(*flash_bwd_work(key, B, T, T, N, D, q.element_size()), peak)
             acc[key]["ms"] += ms * n_call
             acc[key]["plain_ms"] += pm * n_call
+            acc[key]["device_ms"] = add_or_none(acc[key]["device_ms"], dm, n_call)
+            acc[key]["library_ms"] += sdpa_bwd * n_call
             acc[key]["bound_ms"] += bnds[key][0] * n_call
             by[key][bnds[key][1]] = by[key].get(bnds[key][1], 0) + n_call
         fb["ms"] += fb_ms * n_call
         fb["library_ms"] += sdpa_fb * n_call
         label = f"{site['at']} {str(dt).split('.')[-1]} T={T} N={N} D={D} B={B}"
         print(f"[k4-bwd] {label}: " + "; ".join(line), flush=True)
-        print(f"[k4-bwd] {label}: dkv_ms={dkv_ms:.4f} (plain {dkv_plain:.4f}, bound "
-              f"{bnds[K4_BWD[0]][0]:.4f} {bnds[K4_BWD[0]][1]}) dq_ms={dq_ms:.4f} (plain "
-              f"{dq_plain:.4f}, bound {bnds[K4_BWD[1]][0]:.4f} {bnds[K4_BWD[1]][1]}) fwd+bwd: "
-              f"K4 {fb_ms:.4f} ms, sdpa {sdpa_fb:.4f} ms x{n_call}/encode", flush=True)
+        print(f"[k4-bwd] {label}: dkv_ms={dkv_ms:.4f} (device {ms_text(dkv_dev)}, plain "
+              f"{dkv_plain:.4f}, bound {bnds[K4_BWD[0]][0]:.4f} {bnds[K4_BWD[0]][1]}) dq_ms="
+              f"{dq_ms:.4f} (device {ms_text(dq_dev)}, plain {dq_plain:.4f}, bound "
+              f"{bnds[K4_BWD[1]][0]:.4f} {bnds[K4_BWD[1]][1]}) sdpa bwd {sdpa_bwd:.4f} ms "
+              f"(device {ms_text(sdpa_bwd_dev)}) fwd+bwd: K4 {fb_ms:.4f} ms, sdpa {sdpa_fb:.4f} "
+              f"ms x{n_call}/encode", flush=True)
     if failed:
         raise SystemExit(f"chip_smoke: K4 backward phase FAILED at {failed}")
     for key in K4_BWD:
         acc[key].update(batch=B, bound_by=max(by[key], key=by[key].get))
     print(f"[k4-bwd] all K4 sites of the training path (one encode) at B={B}: dkv "
-          f"{acc[K4_BWD[0]]['ms']:.4f} ms, dq {acc[K4_BWD[1]]['ms']:.4f} ms; forward+backward "
-          f"K4 {fb['ms']:.4f} ms, sdpa {fb['library_ms']:.4f} ms", flush=True)
+          f"{acc[K4_BWD[0]]['ms']:.4f} ms (device {ms_text(acc[K4_BWD[0]]['device_ms'])}), dq "
+          f"{acc[K4_BWD[1]]['ms']:.4f} ms (device {ms_text(acc[K4_BWD[1]]['device_ms'])}), sdpa "
+          f"backward {acc[K4_BWD[1]]['library_ms']:.4f} ms; forward+backward K4 {fb['ms']:.4f} "
+          f"ms, sdpa {fb['library_ms']:.4f} ms", flush=True)
     return acc, fb
 
 
@@ -2143,7 +2342,8 @@ def main() -> int:
     bwd, k3_fb = k3_backward_phase(sites["flash_attention_nullkv"], eq_T)
     summary.update(bwd)
     summary["flash_attention_nullkv"].update(
-        fwd_bwd_ms=k3_fb["ms"], library_fwd_bwd_ms=k3_fb["library_ms"])
+        fwd_bwd_ms=k3_fb["ms"], library_fwd_bwd_ms=k3_fb["library_ms"],
+        bwd_one_call_ms=k3_fb["bwd_ms"], bwd_one_call_device_ms=k3_fb["bwd_device_ms"])
     summary.update(kernel_stats_phase(G))
     summary.update(kernel_pipeline_phase(sites, eq_sites))
     dw_err = kernel_dwconv_phase(sites)
@@ -2153,8 +2353,11 @@ def main() -> int:
     for name, per_site in flash_batch_phase(sites["flash_attention_nullkv"],
                                             enc["flash_attention_nonull"]).items():
         summary[name]["b32"] = per_site
+    bwd_b32 = flash_bwd_batch_phase(sites["flash_attention_nullkv"], enc["flash_attention_nonull"])
     k4b, k4_fb = k4_backward_phase(enc["flash_attention_nonull"])
     summary.update(k4b)
+    for name, per_site in bwd_b32.items():
+        summary[name]["b32"] = per_site
     summary["flash_attention_nonull"].update(
         fwd_bwd_ms=k4_fb["ms"], library_fwd_bwd_ms=k4_fb["library_ms"])
 

@@ -1,6 +1,7 @@
-"""The bf16 flash forward's launch plan (forward_plan, the Python mirror of
-vfm_flash_fwd_plan in csrc/flash_attention_nullkv.cu) and the forward
-wrappers' single validation pass, on the CPU: no kernel, no JAX."""
+"""The bf16 flash kernels' launch plans (forward_plan and backward_plan, the
+Python mirrors of vfm_flash_fwd_plan and vfm_flash_bwd_plan in
+csrc/flash_attention_nullkv{,_bwd}.cu) and the wrappers' single validation
+pass, on the CPU: no kernel, no JAX."""
 
 import pytest
 import torch
@@ -65,3 +66,93 @@ def test_forward_validation_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         fa._launch_forward(qm, qm, qm, qm[:, :1], qm[:, :1].transpose(1, 2), 0.125, False)
     assert (fa.flash_attention_nullkv.launches, fa.flash_attention_nonull.launches) == before
+
+
+# K3's EQ-bucket and flagship sequence lengths.
+EQ_T = (4, 16, 36, 64, 144, 256, 576, 1024)
+# (B, Tq, Tk, N, D): K3 at B=2 and B=32, the tower, d=128, K4 with Tq != Tk,
+# B = 1 and 3.
+BACKWARD_SHAPES = ([(2, T, T, 8, 64) for T in EQ_T]
+                   + [(32, 1024, 1024, 8, 64), (2, 1024, 1024, 16, 64), (32, 1024, 1024, 16, 64),
+                      (2, 1024, 1024, 8, 128), (32, 1024, 1024, 8, 128), (2, 300, 1000, 4, 64),
+                      (2, 1024, 77, 8, 128), (2, 129, 640, 8, 128), (1, 1024, 1024, 2, 64),
+                      (3, 200, 200, 8, 64), (1, 1, 1, 1, 64)])
+
+
+@pytest.mark.parametrize("B,Tq,Tk,N,D", BACKWARD_SHAPES)
+def test_backward_plan_covers_every_row_and_fits_a_block(B, Tq, Tk, N, D):
+    """Each backward kernel's work tiles cover its rows (keys for dK/dV,
+    queries for dQ) in blocks of 64 per consumer warpgroup, its streamed
+    tiles cover the other side's rows, one persistent CTA per SM at most,
+    and its shared memory fits one block."""
+    p = fa.backward_plan(B, Tq, Tk, N, D, H100_SMS)
+    assert p["box"] == (64, 1, 64, 1) and p["boxes_per_row"] == D // 64
+    for name, T, T_walk in (("dkv", Tk, Tq), ("dq", Tq, Tk)):
+        k = p[name]
+        assert k["wgs"] in (1, 2) and k["rows"] == 64 * k["wgs"], name
+        assert k["threads"] == 128 * k["wgs"] + 128, name  # + the producer warpgroup
+        blocks = k["work_tiles"] // (N * B)
+        assert k["work_tiles"] == blocks * N * B and blocks * k["rows"] >= T > (
+            blocks - 1) * k["rows"], name
+        assert k["walk_tiles"] * k["tile"] >= T_walk > (k["walk_tiles"] - 1) * k["tile"], name
+        assert k["grid"] == min(k["work_tiles"], H100_SMS), name
+        assert k["smem_bytes"] <= SMEM_LIMIT, (name, k["smem_bytes"])
+        resident = 2 * (D // 64) * k["rows"] * 128  # K and V, or q and dO
+        assert k["smem_bytes"] >= resident + 2 * k["stages"] * (D // 64) * k["tile"] * 128, name
+
+
+@pytest.mark.parametrize("B,T,N,wgs", [(2, 1024, 8, 2), (2, 576, 8, 2), (2, 256, 8, 1),
+                                       (2, 64, 8, 1), (32, 1024, 8, 2), (1, 1024, 2, 1),
+                                       (3, 200, 8, 1), (2, 1024, 16, 2)])
+def test_backward_plan_takes_one_warpgroup_only_when_64_row_blocks_fit_one_wave(B, T, N, wgs):
+    """128-row work tiles unless B * N * ceil(T / 64) <= the SM count: then
+    every 64-row block has an SM to itself."""
+    for D in (64, 128):
+        p = fa.backward_plan(B, T, T, N, D, H100_SMS)
+        assert p["dkv"]["wgs"] == p["dq"]["wgs"] == wgs
+    assert (B * N * -(-T // 64) > H100_SMS) == (wgs == 2)
+
+
+@pytest.mark.parametrize("T", EQ_T)
+def test_backward_plan_keeps_the_null_token_out_of_the_walk(T):
+    """K3's key tiles start at row 0 of k: the walk covers T keys, not the
+    T + 1 of [null; k] (so T = 64 is one key tile, not two), and the null
+    token's gradients sum ceil(T / 64) pre-pass partials, one per 64 queries."""
+    p = fa.backward_plan(2, T, T, 8, 64, H100_SMS)
+    assert p["dq"]["walk_tiles"] == -(-T // 64)
+    assert p["dkv"]["work_tiles"] == -(-T // p["dkv"]["rows"]) * 8 * 2
+    assert p["null_chunks"] == -(-T // p["prepass_rows"]) and p["prepass_rows"] == 64
+    assert p["dkv"]["walk_tiles"] == p["null_chunks"]  # one pre-pass chunk per query tile
+
+
+def test_backward_plan_refuses_other_head_dims():
+    for D in (32, 96, 256):
+        with pytest.raises(ValueError):
+            fa.backward_plan(2, 1024, 1024, 8, D)
+
+
+def test_backward_validation_refuses_what_the_kernels_do_not_take():
+    """One validation pass before the one library call: a CPU or meta
+    device, K3 with Tq != Tk, or another head dim raise ValueError and count
+    nothing."""
+    meta = torch.device("meta")
+    bf = torch.bfloat16
+    q = torch.zeros(2, 16, 4, 64, dtype=bf, device=meta)
+    nk = q[:, :1].contiguous()
+    lse = torch.zeros(2, 4, 16, device=meta)
+    counters = (fa.flash_attention_nullkv_bwd_dkv, fa.flash_attention_nullkv_bwd_dq,
+                fa.flash_attention_nonull_bwd_dkv, fa.flash_attention_nonull_bwd_dq)
+    before = [c.launches for c in counters]
+    cpu = torch.zeros(2, 16, 4, 64, dtype=bf)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._launch_backward(cpu, cpu, cpu, cpu[:, :1], cpu[:, :1], cpu, cpu,
+                            torch.zeros(2, 4, 16), 0.125)
+    with pytest.raises(ValueError):
+        fa._launch_backward(q, q, q, nk, nk, q, q, lse, 0.125)  # meta: not CUDA
+    k8 = torch.zeros(2, 8, 4, 64, dtype=bf, device=meta)
+    with pytest.raises(ValueError, match="Tq"):
+        fa._launch_backward(q, k8, k8, nk, nk, q, q, lse, 0.125)
+    q32 = torch.zeros(2, 16, 4, 32, dtype=bf, device=meta)
+    with pytest.raises(ValueError):
+        fa._launch_backward(q32, q32, q32, None, None, q32, q32, lse, 0.125)
+    assert [c.launches for c in counters] == before

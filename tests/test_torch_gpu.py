@@ -392,3 +392,82 @@ def test_flash_forward_plan_matches_the_kernel_on_gpu(cuda):
         p = fa.forward_plan(B, Tq, N, D, sms)
         assert list(got) == [p["wgs"], p["query_tile"], p["key_tile"], p["stages"], p["threads"],
                              p["smem_bytes"]], (B, Tq, N, D)
+
+
+# (B, Tq, Tk, N, D, null): K3 at every flagship and EQ-bucket T (B=2); K4 in
+# bf16 with Tq != Tk at d = 64 and 128; B = 1, 3 and 32.
+BACKWARD_CASES = (
+    [(2, T, T, 8, 64, True) for T in (4, 16, 36, 64, 144, 256, 576, 1024)]
+    + [(2, 300, 1000, 4, 64, False), (2, 1024, 77, 8, 128, False),
+       (2, 129, 640, 8, 128, False), (1, 64, 64, 1, 128, False),
+       (1, 1024, 1024, 2, 64, True), (3, 200, 200, 8, 64, True),
+       (3, 1024, 1024, 16, 128, False), (32, 1024, 1024, 8, 64, True),
+       (32, 1024, 1024, 16, 64, False)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,Tk,N,D,null", BACKWARD_CASES)
+def test_flash_backward_matches_twin_on_gpu(cuda, B, Tq, Tk, N, D, null):
+    """The bf16 backward, one library call (pre-pass, dK/dV and dQ kernels),
+    from the kernel forward's output and log-sum-exp: dq, dk, dv (and the
+    null token's gradients) against the twin within K3's bounds (max 2e-2,
+    mean 4e-3 of scale: P and dS rounded to bf16 at the same points, summed
+    in another order), against fp32 autograd within 1.5x the twin's error,
+    and bit-identical on a second call (no float atomics)."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(B * Tq + Tk + D + 7)
+    bf = torch.bfloat16
+    q, dout = (torch.randn(B, Tq, N, D, generator=g, device=cuda).to(bf) for _ in range(2))
+    k, v = (torch.randn(B, Tk, N, D, generator=g, device=cuda).to(bf) for _ in range(2))
+    scale = D ** -0.5
+    if null:
+        nk, nv = (torch.randn(B, 1, N, D, generator=g, device=cuda).to(bf) for _ in range(2))
+        out, lse = fa._launch_forward(q, k, v, nk, nv, scale, True)
+        twin = kernels.flash_attention_nullkv_bwd_reference(q, k, v, nk, nv, out, lse, dout,
+                                                            scale)[:5]
+        leaves = [t.float().requires_grad_() for t in (q, k, v, nk, nv)]
+        truth = torch.autograd.grad(kernels.flash_attention_nullkv_reference(*leaves, scale),
+                                    leaves, dout.float())
+        counters = kernels.BACKWARD_WRAPPERS
+    else:
+        nk = nv = None
+        out, lse = fa._launch_nonull(q, k, v, scale, True)
+        twin = kernels.flash_attention_nonull_bwd_reference(q, k, v, out, lse, dout, scale)[:3]
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        truth = torch.autograd.grad(kernels.flash_attention_nonull_reference(*leaves, scale),
+                                    leaves, dout.float())
+        counters = kernels.NONULL_BACKWARD_WRAPPERS
+    before = [fn.launches for fn in counters]
+    got = fa._launch_backward(q, k, v, nk, nv, out, dout, lse, scale)
+    again = fa._launch_backward(q, k, v, nk, nv, out, dout, lse, scale)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [b + 2 for b in before]
+    for name, a, a2, ref, tr in zip(("dq", "dk", "dv", "dnull_k", "dnull_v"), got, again, twin,
+                                    truth):
+        assert torch.equal(a, a2), name
+        assert bool(torch.isfinite(a.float()).all()), name
+        max_rel, mean_rel = _errors(a, ref)
+        assert max_rel <= 2e-2 and mean_rel <= 4e-3, (name, max_rel, mean_rel)
+        assert _errors(a, tr)[1] <= 1.5 * _errors(ref, tr)[1] + 1e-6, name
+
+
+@pytest.mark.gpu
+def test_flash_backward_plan_matches_the_kernel_on_gpu(cuda):
+    """backward_plan (Python) and vfm_flash_bwd_plan (the C launch) agree."""
+    import ctypes
+
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    lib = library().lib
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, Tq, Tk, N, D in ((2, 64, 64, 8, 64), (2, 1024, 1024, 8, 64), (2, 576, 576, 8, 64),
+                            (2, 1024, 77, 8, 128), (32, 1024, 1024, 8, 128), (1, 5, 5, 1, 64),
+                            (32, 1024, 1024, 16, 64), (2, 300, 1000, 4, 64)):
+        got = (ctypes.c_int * 15)()
+        assert lib.vfm_flash_bwd_plan(B, Tq, Tk, N, D, sms, got) == 0
+        p = fa.backward_plan(B, Tq, Tk, N, D, sms)
+        want = [p[n][key] for n in ("dkv", "dq") for key in
+                ("wgs", "rows", "tile", "stages", "threads", "smem_bytes", "grid")]
+        assert list(got) == want + [p["prepass_rows"]], (B, Tq, Tk, N, D)

@@ -201,6 +201,13 @@ def test_c_interface_matches_ctypes_signatures():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
     assert 'extern "C" const char* vfm_error_string(int' in src
+    # The backward is one call per mode (pre-pass, dK/dV and dQ) plus its plan.
+    assert {"vfm_flash_attention_nullkv_bwd", "vfm_flash_attention_bwd",
+            "vfm_flash_bwd_plan"} <= set(_build._SIGNATURES)
+    for gone in ("vfm_flash_attention_nullkv_bwd_dkv", "vfm_flash_attention_nullkv_bwd_dq",
+                 "vfm_flash_attention_bwd_dkv", "vfm_flash_attention_bwd_dq"):
+        assert gone not in src and gone not in _build._SIGNATURES, gone
+    assert "flash.cuh" in _build.HEADERS
 
 
 # ------------------------------------------------------------------ backward

@@ -58,6 +58,8 @@
 //   flash kernel does; the null token's weight stays in fp32.
 // - The launch encodes three tensor maps and sets the dynamic shared-memory
 //   attribute once per template instance and device.
+// The layout, the ring and its producer, the products and the launch
+// helpers are in flash.cuh, shared with the backward kernels.
 //
 // fp32 design (K4 at the adapter, which computes in fp32 in both packages):
 // fp32 FMA on the CUDA cores, no TF32. One CTA of 256 threads per (64-query
@@ -72,10 +74,7 @@
 //
 // Layouts: q, out (B, Tq, N, D); k, v (B, Tk, N, D); null_k, null_v
 // (B, 1, N, D) or null; bf16 or (K4) fp32; lse (B, N, Tq) fp32 or null.
-#include <atomic>
-
-#include "common.cuh"
-#include "hopper.cuh"
+#include "flash.cuh"
 
 namespace {
 
@@ -86,23 +85,11 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreadsF32 = 256;
 
-// Shared-memory layout (bytes from a 1024-aligned base) of flash_fwd_kernel
-// with NWG consumer warpgroups.
+// Shared-memory layout of flash_fwd_kernel with NWG consumer warpgroups
+// (flash.cuh): Q resident (one box of 64 NWG rows per 64 columns), K/V tiles
+// of 128 keys streamed through three stages.
 template <int D, int NWG>
-struct FwdLayout {
-  static constexpr int kKT = 128;                   // keys per K/V tile
-  static constexpr int kBoxes = D / 64;             // 64-column boxes per row
-  static constexpr int kRowsQ = 64 * NWG;           // queries per CTA
-  static constexpr int kQBox = kRowsQ * 128;        // one box of Q
-  static constexpr int kKBox = kKT * 128;           // one box of a K or V tile
-  static constexpr int kTile = kBoxes * kKBox;      // one K or V tile
-  static constexpr int kK = kBoxes * kQBox;         // K ring
-  static constexpr int kStages = 3;                 // of the K/V ring
-  static constexpr int kV = kK + kStages * kTile;   // V ring
-  static constexpr int kBar = kV + kStages * kTile; // Ring's mbarriers
-  static constexpr int kSmem = kBar + 8 * (2 + 3 * kStages) + 1024;  // + alignment slack
-  static constexpr int kThreadsConsumer = NWG * 128;
-  static constexpr int kThreads = kThreadsConsumer + 128;  // + the producer warpgroup
+struct FwdLayout : vfm::RingLayout<D, NWG, 1, 64 * NWG, 128, 3, 0> {
   // At d = 128 the consumers need about 220 registers (O, S and P of 64
   // rows), so the producer gives up all but 24 and each consumer thread
   // gets 240. At d = 64 the 168 of entry suffice, and moving registers
@@ -111,41 +98,7 @@ struct FwdLayout {
   static constexpr int kConsumerRegs = 240;
 };
 
-template <int N>
-__device__ __forceinline__ void fence_all(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) vfm::fence_operand(r[i]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) vfm::fence_operand(r[i][e]);
-}
-
-// S = Q K^T for this warpgroup's 64 rows and a key tile at `kt`: d in steps
-// of 16 (32 bytes within a swizzled 128-byte row, the next box after 64).
-template <int D, typename L>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows, uint32_t kt) {
-  static_assert(L::kKT == 128, "S = Q K^T is one m64n128 product per 16 of d");
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk & 3) * 32;
-    vfm::wgmma_ss_m64n128(sc, vfm::sw128_desc(q_rows + (kk >> 2) * L::kQBox + off, 16, 1024),
-                          vfm::sw128_desc(kt + (kk >> 2) * L::kKBox + off, 16, 1024), kk > 0);
-  }
-}
-
-// O += P V: V read as stored, [key][d], 16 keys (2048 bytes) per step.
-template <int D, typename L>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[L::kKT / 16][4], uint32_t vt) {
-#pragma unroll
-  for (int kk = 0; kk < L::kKT / 16; ++kk)
-    vfm::wgmma_rs<D>(o, pa[kk], vfm::sw128_desc(vt + kk * 2048, L::kKBox, 1024));
-}
+using vfm::fence_all;
 
 // Online softmax of one tile in log2 units: keys past Tk (zero-filled) are
 // masked, the running max m and sum l updated, sc replaced by
@@ -212,91 +165,17 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2], uint32_t (&p
     o[4 * c + 2] *= alpha[1];
     o[4 * c + 3] *= alpha[1];
   }
-#pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk) {
-    pa[kk][0] = vfm::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pa[kk][1] = vfm::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = vfm::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = vfm::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
+  vfm::pack_a<KT>(pa, sc);
 }
-
-// Work tile of a CTA's walk: (query block, head, sample), query blocks
-// fastest, so that the CTAs in flight share heads and their K/V in L2.
-struct WorkTile {
-  int q0, h, b;
-};
-
-// The ring and its loads. CTA c walks work tiles c, c + gridDim.x, ...;
-// every work tile has n_tiles K/V tiles, and K/V tile j of the CTA's it-th
-// work tile is tile gi = it * n_tiles + j of its walk through the ring
-// (stage gi % L::kStages). Barriers: q_full and q_empty for the one Q buffer,
-// k_full, v_full and empty for each stage.
-template <typename L>
-struct Ring {
-  const CUtensorMap *tq, *tk, *tv;
-  uint32_t qs, ks, vs, bar;  // shared addresses
-  int n_tiles, n_qblocks, n_work, N;
-
-  __device__ __forceinline__ uint32_t q_full() const { return bar; }
-  __device__ __forceinline__ uint32_t q_empty() const { return bar + 8u; }
-  __device__ __forceinline__ uint32_t k_full(int s) const { return bar + 8u * (2 + s); }
-  __device__ __forceinline__ uint32_t v_full(int s) const {
-    return bar + 8u * (2 + L::kStages + s);
-  }
-  __device__ __forceinline__ uint32_t empty(int s) const {
-    return bar + 8u * (2 + 2 * L::kStages + s);
-  }
-  __device__ __forceinline__ int work(int it) const { return blockIdx.x + it * gridDim.x; }
-  __device__ __forceinline__ WorkTile tile(int it) const {
-    const int w = work(it);
-    return {(w % n_qblocks) * L::kRowsQ, (w / n_qblocks) % N, w / (n_qblocks * N)};
-  }
-
-  __device__ __forceinline__ void init() const {
-    vfm::mbar_init(q_full(), 1);
-    vfm::mbar_init(q_empty(), L::kThreadsConsumer);
-    for (int s = 0; s < L::kStages; ++s) {
-      vfm::mbar_init(k_full(s), 1);
-      vfm::mbar_init(v_full(s), 1);
-      vfm::mbar_init(empty(s), L::kThreadsConsumer);
-    }
-    vfm::mbar_fence_init();
-  }
-
-  // The producer: one lane issues every TMA load of the CTA's walk, each as
-  // soon as its buffer is free.
-  __device__ __forceinline__ void produce() const {
-    for (int it = 0; work(it) < n_work; ++it) {
-      const WorkTile wt = tile(it);
-      if (it > 0) vfm::mbar_wait(q_empty(), (it - 1) & 1);
-      vfm::mbar_expect_tx(q_full(), L::kBoxes * L::kQBox);
-      for (int x = 0; x < L::kBoxes; ++x)
-        vfm::tma_load_4d(qs + x * L::kQBox, tq, q_full(), 64 * x, wt.h, wt.q0, wt.b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int gi = it * n_tiles + j, s = gi % L::kStages;
-        if (gi >= L::kStages) vfm::mbar_wait(empty(s), ((gi / L::kStages) & 1) ^ 1);
-        vfm::mbar_expect_tx(k_full(s), L::kTile);
-        for (int x = 0; x < L::kBoxes; ++x)
-          vfm::tma_load_4d(ks + s * L::kTile + x * L::kKBox, tk, k_full(s), 64 * x, wt.h,
-                           j * L::kKT, wt.b);
-        vfm::mbar_expect_tx(v_full(s), L::kTile);
-        for (int x = 0; x < L::kBoxes; ++x)
-          vfm::tma_load_4d(vs + s * L::kTile + x * L::kKBox, tv, v_full(s), 64 * x, wt.h,
-                           j * L::kKT, wt.b);
-      }
-    }
-  }
-};
 
 // One consumer warpgroup `wg` of flash_fwd_kernel on the CTA's it-th work
 // tile: its 64 query rows against every key tile, then the output rows and
 // their log-sum-exp. K/V tile j of the work tile is tile it * n_tiles + j of
-// the ring walk; Q arrives on phase it of q_full, and q_empty is released
+// the ring walk; Q arrives on phase it of res_full, and res_empty is released
 // once the last S = Q K^T has completed, so the next work tile's Q loads
 // while this one finishes.
 template <int D, int NWG, typename L>
-__device__ __forceinline__ void consume(const Ring<L>& ld, const unsigned char* smem,
+__device__ __forceinline__ void consume(const vfm::Ring<L>& ld, const unsigned char* smem,
                                         const bf16* __restrict__ nk, const bf16* __restrict__ nv,
                                         bf16* __restrict__ out, float* __restrict__ lse, int it,
                                         int wg, int Tq, int Tk, int N, float scale_log2) {
@@ -305,36 +184,18 @@ __device__ __forceinline__ void consume(const Ring<L>& ld, const unsigned char* 
   // 8 c + 2 t and 8 c + 2 t + 1 of every 8-column chunk c.
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int r0 = wg * 64 + (threadIdx.x / 32 % 4) * 16 + g;
-  const WorkTile wt = ld.tile(it);
-  const int q0 = wt.q0, h = wt.h, b = wt.b, n_tiles = ld.n_tiles, g0 = it * n_tiles;
+  const vfm::WorkTile wt = ld.tile(it);
+  const int q0 = wt.r0, h = wt.h, b = wt.b, n_tiles = ld.n_tiles, g0 = it * n_tiles;
   const size_t rs = (size_t)N * D;  // stride between tokens
   float m[2], l[2], o[D / 2];
-  vfm::mbar_wait(ld.q_full(), it & 1);
+  vfm::mbar_wait(ld.res_full(), it & 1);
   if (nk != nullptr) {
     // Key 0 of the walk, the null token, seeds the online softmax.
     const size_t nhead = ((size_t)b * N + h) * D;
-    float dot[2] = {0.f, 0.f};
-#pragma unroll
-    for (int c = t; c < D / 8; c += 4) {  // this lane's 16-byte chunks of the row
-      const uint4 kv = *reinterpret_cast<const uint4*>(nk + nhead + 8 * c);
-      const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = r0 + 8 * hf;
-        const uint4 qv = *reinterpret_cast<const uint4*>(
-            smem + (c / 8) * L::kQBox + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-        const uint32_t qw[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 a = vfm::unpack_bf16(qw[e]), bb = vfm::unpack_bf16(kw[e]);
-          dot[hf] = fmaf(a.x, bb.x, fmaf(a.y, bb.y, dot[hf]));
-        }
-      }
-    }
+    float dot[2];
+    vfm::rows_dot<D>(dot, smem, L::kResBox, nk + nhead, r0, t);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      dot[hf] += __shfl_xor_sync(0xffffffffu, dot[hf], 1);
-      dot[hf] += __shfl_xor_sync(0xffffffffu, dot[hf], 2);
       m[hf] = dot[hf] * scale_log2;
       l[hf] = 1.f;
     }
@@ -363,37 +224,37 @@ __device__ __forceinline__ void consume(const Ring<L>& ld, const unsigned char* 
   };
   auto stage = [](int gi) { return gi % L::kStages; };
   auto parity = [](int gi) { return (uint32_t)(gi / L::kStages) & 1; };
-  const uint32_t q_rows = ld.qs + wg * 64 * 128, ks = ld.ks, vs = ld.vs;
+  const uint32_t q_rows = ld.res_s + wg * 64 * 128, ks = ld.a_s, vs = ld.b_s;
   float sc[L::kKT / 2], alpha[2];
   uint32_t pa[L::kKT / 16][4];
   // Software pipeline: tile j's S = Q K^T is issued together with tile
   // j-1's O += P V, and tile j's softmax runs while the PV product is in
   // flight; O is rescaled and P repacked once that product has completed.
-  vfm::mbar_wait(ld.k_full(stage(g0)), parity(g0));
+  vfm::mbar_wait(ld.a_full(stage(g0)), parity(g0));
   take_turn();
   vfm::wgmma_fence();
-  issue_qk<D, L>(sc, q_rows, ks + stage(g0) * L::kTile);
+  vfm::issue_ss<D, L>(sc, q_rows, ks + stage(g0) * L::kTile);
   vfm::wgmma_commit();
   pass_turn();
   vfm::wgmma_wait<0>();
   fence_all(sc);
-  if (n_tiles == 1) vfm::mbar_arrive(ld.q_empty());
+  if (n_tiles == 1) vfm::mbar_arrive(ld.res_empty());
   online_softmax<L::kKT>(sc, m, l, alpha, 0, Tk, t, scale_log2);
   rescale_and_pack<D, L::kKT>(o, pa, sc, alpha);
   for (int j = 1; j < n_tiles; ++j) {
     const int s = stage(g0 + j), sp = stage(g0 + j - 1);
-    vfm::mbar_wait(ld.k_full(s), parity(g0 + j));
-    vfm::mbar_wait(ld.v_full(sp), parity(g0 + j - 1));
+    vfm::mbar_wait(ld.a_full(s), parity(g0 + j));
+    vfm::mbar_wait(ld.b_full(sp), parity(g0 + j - 1));
     take_turn();
     vfm::wgmma_fence();
-    issue_qk<D, L>(sc, q_rows, ks + s * L::kTile);
+    vfm::issue_ss<D, L>(sc, q_rows, ks + s * L::kTile);
     vfm::wgmma_commit();
-    issue_pv<D, L>(o, pa, vs + sp * L::kTile);
+    vfm::issue_rs<D, L>(o, pa, vs + sp * L::kTile);
     vfm::wgmma_commit();
     pass_turn();
     vfm::wgmma_wait<1>();  // S of tile j
     fence_all(sc);
-    if (j == n_tiles - 1) vfm::mbar_arrive(ld.q_empty());
+    if (j == n_tiles - 1) vfm::mbar_arrive(ld.res_empty());
     online_softmax<L::kKT>(sc, m, l, alpha, j * L::kKT, Tk, t, scale_log2);
     vfm::wgmma_wait<0>();  // PV of tile j-1
     fence_all(o);
@@ -402,10 +263,10 @@ __device__ __forceinline__ void consume(const Ring<L>& ld, const unsigned char* 
     rescale_and_pack<D, L::kKT>(o, pa, sc, alpha);
   }
   const int sl = stage(g0 + n_tiles - 1);
-  vfm::mbar_wait(ld.v_full(sl), parity(g0 + n_tiles - 1));
+  vfm::mbar_wait(ld.b_full(sl), parity(g0 + n_tiles - 1));
   take_turn();
   vfm::wgmma_fence();
-  issue_pv<D, L>(o, pa, vs + sl * L::kTile);
+  vfm::issue_rs<D, L>(o, pa, vs + sl * L::kTile);
   vfm::wgmma_commit();
   pass_turn();
   vfm::wgmma_wait<0>();
@@ -442,9 +303,9 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1) flash_fwd_kernel(
   const uint32_t raw = vfm::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const unsigned char* smem = smem_raw + (base - raw);  // generic pointer to `base`
-  const int n_qblocks = (Tq + L::kRowsQ - 1) / L::kRowsQ;
-  const Ring<L> ld{&tq, &tk, &tv, base, base + L::kK, base + L::kV, base + L::kBar,
-                   (Tk + L::kKT - 1) / L::kKT, n_qblocks, n_qblocks * N * B, N};
+  const int n_qblocks = (Tq + L::kRowsRes - 1) / L::kRowsRes;
+  const vfm::Ring<L> ld{{&tq}, &tk, &tv, base, base + L::kA, base + L::kB, base + L::kBar,
+                        (Tk + L::kKT - 1) / L::kKT, n_qblocks, n_qblocks * N * B, N, Tq};
   if (threadIdx.x == 0) ld.init();
   __syncthreads();
 
@@ -617,66 +478,9 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(
 }
 
 
-// Sets a kernel's dynamic shared-memory limit once per device; later calls
-// only read a bit mask.
-template <typename Kernel>
-cudaError_t smem_limit_once(Kernel kernel, int bytes, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime, so that the
-// library links against nothing beyond the CUDA runtime.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A bf16 (B, T, N, D) tensor as a 4-D map (innermost first: D, N, T, B) with
-// boxes of (64, 1, rows, 1) in the 128-byte swizzle; rows past T read as 0.
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int N, int D, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
-                                 (cuuint64_t)T * N * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return n;
-}
+using vfm::sm_count;
+using vfm::smem_limit_once;
+using vfm::tensor_map;
 
 // Consumer warpgroups per CTA of the bf16 forward for (B, Tq, N) on `sms`
 // SMs: two (128 queries) unless B * N * ceil(Tq / 128) CTAs would leave an
@@ -701,10 +505,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
     return n > 0 ? n : 1;
   }();
   CUtensorMap tq, tk, tv;
-  if ((err = tensor_map(&tq, q, B, Tq, N, D, L::kRowsQ)) != cudaSuccess) return err;
+  if ((err = tensor_map(&tq, q, B, Tq, N, D, L::kRowsRes)) != cudaSuccess) return err;
   if ((err = tensor_map(&tk, k, B, Tk, N, D, L::kKT)) != cudaSuccess) return err;
   if ((err = tensor_map(&tv, v, B, Tk, N, D, L::kKT)) != cudaSuccess) return err;
-  const long long n_work = (long long)((Tq + L::kRowsQ - 1) / L::kRowsQ) * N * B;
+  const long long n_work = (long long)((Tq + L::kRowsRes - 1) / L::kRowsRes) * N * B;
   const int grid = (int)(n_work < (long long)per_sm * sm_count() ? n_work : per_sm * sm_count());
   flash_fwd_kernel<D, NWG><<<grid, L::kThreads, L::kSmem, stream>>>(
       tq, tk, tv, static_cast<const bf16*>(nk), static_cast<const bf16*>(nv),
@@ -775,7 +579,7 @@ extern "C" int vfm_flash_fwd_plan(int B, int Tq, int N, int D, int sms, int* pla
   const int wgs = fwd_wgs(B, Tq, N, sms);
   auto fill = [&](auto layout) {
     using L = decltype(layout);
-    const int vals[6] = {wgs, L::kRowsQ, L::kKT, L::kStages, L::kThreads, L::kSmem};
+    const int vals[6] = {wgs, L::kRowsRes, L::kKT, L::kStages, L::kThreads, L::kSmem};
     for (int i = 0; i < 6; ++i) plan[i] = vals[i];
   };
   if (D == 64)

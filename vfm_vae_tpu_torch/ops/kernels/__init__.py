@@ -4,11 +4,13 @@ Each wrapper runs its plain twin for CPU tensors (the tests' path) and
 launches its kernel for CUDA tensors, or raises; ``plain=True`` selects the
 twin on the card explicitly, for comparisons. Every launch adds one to the
 wrapper's ``launches`` counter. The decoder's forward wrappers (K1-K3) are
-differentiable through their autograd Functions; K3's Function launches the
-two backward wrappers. K4 (flash attention without a null token) is
-differentiable through its Function, which launches K4's two backward
-wrappers. K5 (GroupNorm moments) runs where its opt-in rule admits a map,
-and K9 (K1 pipelined) in K1's place under VFM_VAE_MLP_PIPELINE=1. K6 (fused
+differentiable through their autograd Functions; K3's Function runs its
+backward (pre-pass, dK/dV and dQ kernels) in one library call, which counts
+one launch of each of the two backward wrappers. K4 (flash attention
+without a null token) is differentiable through its Function, whose
+backward does the same with K4's two backward wrappers. K5 (GroupNorm
+moments) runs where its opt-in rule admits a map, and K9 (K1 pipelined) in
+K1's place under VFM_VAE_MLP_PIPELINE=1. K6 (fused
 int8 quantize + GEMM) and K10 (its bare int8 GEMM) are forward only. K7 and
 K8 (depthwise conv + statistics, and without) are not on a model path: they
 run only as the dwconv probe.

@@ -13,13 +13,16 @@ _flash_attention_bwd_dkv and _flash_attention_bwd_dq).
 On the H100 the kernels (csrc/flash_attention_nullkv.cu and
 csrc/flash_attention_nullkv_bwd.cu) are bound by their tensor-core products
 (~T/2 flops per byte at d=64); the (T, T+1) logits never reach device
-memory. The null key and value come from their own pointer: the bf16
-forward (wgmma and TMA, persistent; forward_plan below mirrors its launch
-plan) starts each row's online softmax from the null token, and the
-backward reads it as key 0 of its walk and writes its gradients per sample
-to their own outputs, so no concat, padding or mask tensor exists and
-every T runs. In training the forward also writes the per-row log-sum-exp,
-from which the backward recomputes the probabilities.
+memory. The null key and value come from their own pointer and stay out of
+the tile walk: the bf16 forward (wgmma and TMA, persistent; forward_plan
+below mirrors its launch plan) starts each row's online softmax from the
+null token, and the bf16 backward (the same machinery; backward_plan)
+computes the null token's per-query terms beside the walk and writes its
+gradients per sample to their own outputs, so no concat, padding or mask
+tensor exists and every T runs. In training the forward also writes the
+per-row log-sum-exp, from which the backward recomputes the probabilities.
+A backward is one call into the library (`_launch_backward`): one
+validation pass, one allocation, the pre-pass, dK/dV and dQ kernels.
 
 `flash_attention_nullkv` is the entry point: when autograd records, it runs
 through `FlashAttentionNullKV`, whose forward and backward launch the
@@ -109,18 +112,6 @@ def flash_attention_nullkv_bwd_reference(q, k, v, null_k, null_v, out, lse, dout
     return dq, dk, dv, dnk, dnv, delta
 
 
-def _check_qkv(q, k, v, null_k, null_v, name: str):
-    B, T, N, D = q.shape
-    if D != 64:
-        raise ValueError(f"{name}: head dim {D} != 64")
-    dev, bf = q.device, torch.bfloat16
-    for t, n in ((q, "q"), (k, "k"), (v, "v")):
-        check_tensor(t, n, bf, (B, T, N, D), dev)
-    check_tensor(null_k, "null_k", bf, (B, 1, N, D), dev)
-    check_tensor(null_v, "null_v", bf, (B, 1, N, D), dev)
-    return B, T, N, D, dev
-
-
 # The bf16 forward kernel's key tile and ring of K/V stages
 # (csrc/flash_attention_nullkv.cu).
 KEY_TILE = 128
@@ -145,6 +136,46 @@ def forward_plan(B: int, Tq: int, N: int, D: int, sms: int = 132) -> dict:
     return dict(wgs=wgs, query_tile=rows, key_tile=KEY_TILE, stages=STAGES,
                 threads=wgs * 128 + 128, smem_bytes=smem, work_tiles=-(-Tq // rows) * N * B,
                 q_box=(64, 1, rows, 1), kv_box=(64, 1, KEY_TILE, 1), boxes_per_row=boxes)
+
+
+# The bf16 backward kernels' streamed tile (64 queries for dK/dV, 64 keys
+# for dQ; also the rows of one resident TMA box), their ring stages, and the
+# query rows of one pre-pass CTA (csrc/flash_attention_nullkv_bwd.cu).
+BWD_TILE = 64
+BWD_STAGES = 4
+PREPASS_ROWS = 64
+
+
+def backward_plan(B: int, Tq: int, Tk: int, N: int, D: int, sms: int = 132) -> dict:
+    """The bf16 backward's launch plan for q (B, Tq, N, D), k (B, Tk, N, D)
+    on a card with `sms` SMs, as the C side computes it (vfm_flash_bwd_plan).
+    `dkv`: work tiles of 64 x wgs keys (K and V resident), 64-query tiles of
+    q and dO streamed, with each stage's L and D rows; `dq`: work tiles of
+    64 x wgs queries (q and dO resident), 64-key tiles of K and V streamed.
+    Each takes two consumer warpgroups unless 64-row blocks fit on the SMs in
+    one wave, has a producer warpgroup, four ring stages and TMA boxes of
+    (64, 1, 64, 1), and is persistent: min(work tiles, SMs) CTAs. Key tiles
+    start at row 0 of k, the null token being outside the walk: its
+    gradients are the sums of `null_chunks` pre-pass partials of
+    PREPASS_ROWS queries each."""
+    if D not in (64, 128):
+        raise ValueError(f"head dim {D}: the bf16 backward takes 64 or 128")
+    boxes = D // 64
+    tile = boxes * BWD_TILE * 128  # bytes of one streamed tile
+
+    def kernel(T: int, T_walk: int, row_floats: int) -> dict:
+        wgs = 2 if B * N * -(-T // 64) > sms else 1
+        rows = 64 * wgs
+        smem = (2 * boxes * rows * 128 + 2 * BWD_STAGES * tile + 8 * (2 + 3 * BWD_STAGES)
+                + BWD_STAGES * row_floats * 4 + 1024)
+        work = -(-T // rows) * N * B
+        return dict(wgs=wgs, rows=rows, tile=BWD_TILE, stages=BWD_STAGES, threads=wgs * 128 + 128,
+                    smem_bytes=smem, work_tiles=work, grid=min(work, sms),
+                    walk_tiles=-(-T_walk // BWD_TILE))
+
+    return dict(dkv=kernel(Tk, Tq, 2 * BWD_TILE), dq=kernel(Tq, Tk, 0), box=(64, 1, BWD_TILE, 1),
+                boxes_per_row=boxes, prepass_rows=PREPASS_ROWS,
+                null_chunks=-(-Tq // PREPASS_ROWS))
 
 
 def _check_forward(name: str, dtype, dev, specs) -> None:
@@ -186,34 +217,101 @@ def _launch_forward(q, k, v, null_k, null_v, scale: float, with_lse: bool):
     return out, lse
 
 
+def _launch_backward(q, k, v, null_k, null_v, out, dout, lse, scale: float, *,
+                     dq: bool = True, dkv: bool = True, delta=None):
+    """The backward kernels in one library call: the pre-pass (D = rowsum(dO
+    O), and the null token's partial sums) when `out` is given, else `delta`
+    is read; the dK/dV kernel with `dkv`, the dQ kernel with `dq`. K3 with
+    null_k, null_v (bf16, d=64, Tq = Tk), else K4 (bf16 or fp32, d 64 or
+    128). One validation pass and one allocation for every output and D.
+    Returns (dq, dk, dv, d null_k, d null_v, D), None where not computed; D
+    only when computed here without dq, for a later dQ call to read."""
+    null = null_k is not None
+    name = "flash_attention_nullkv_bwd" if null else "flash_attention_nonull_bwd"
+    B, Tq, N, D = q.shape
+    Tk, dt, dev = k.shape[1], q.dtype, q.device
+    if null and (D != 64 or Tk != Tq):
+        raise ValueError(f"{name}: head dim {D} != 64 or Tq={Tq} != Tk={Tk}")
+    if D not in (64, 128) or dt not in (torch.bfloat16, torch.float32) or Tk == 0 or Tq == 0:
+        _check_nonull(q, k, v, name)  # raises with the reason
+    qs, ks, ns, rows = (B, Tq, N, D), (B, Tk, N, D), (B, 1, N, D), (B, N, Tq)
+    specs = [(q, "q", qs), (k, "k", ks), (v, "v", ks), (dout, "dout", qs)]
+    if null:
+        specs += [(null_k, "null_k", ns), (null_v, "null_v", ns)]
+    if out is not None:
+        specs.append((out, "out", qs))
+    _check_forward(name, torch.bfloat16 if null else dt, dev, specs)
+    _check_forward(name, torch.float32, dev,
+                   [(lse, "lse", rows)] + ([] if delta is None else [(delta, "delta", rows)]))
+    if out is None and delta is None:
+        raise ValueError(f"{name}: needs `out` (to compute D) or `delta`")
+    if null and dkv and out is None:
+        raise ValueError(f"{name}: the null token's gradients need `out` (the pre-pass)")
+    # One allocation, in q's dtype units: dq, dk, dv, d null_k, d null_v, then
+    # the fp32 D and the null token's partial sums (B, N, ceil(Tq / 64), 2, D);
+    # the outputs are strided views of it, the fp32 part only a pointer.
+    size = q.element_size()
+    per_f32 = 4 // size
+    n_q, n_k, n_n = B * Tq * N * D if dq else 0, B * Tk * N * D if dkv else 0, B * N * D
+    n_n = n_n if null and dkv else 0
+    n_rows = B * N * Tq if out is not None else 0
+    n_part = B * N * -(-Tq // PREPASS_ROWS) * 2 * D if null and dkv else 0
+    at = n_q + 2 * n_k + 2 * n_n  # start of the fp32 part (even: every size is a multiple of D)
+    buf = torch.empty(at + (n_rows + n_part) * per_f32, dtype=dt, device=dev)
+    tok = (N * D, D, 1)
+    g_q = buf.as_strided(qs, (Tq * N * D,) + tok) if dq else None
+    g_k = g_v = g_nk = g_nv = None
+    if dkv:
+        g_k = buf.as_strided(ks, (Tk * N * D,) + tok, n_q)
+        g_v = buf.as_strided(ks, (Tk * N * D,) + tok, n_q + n_k)
+    if n_n:
+        g_nk = buf.as_strided(ns, (N * D,) + tok, n_q + 2 * n_k)
+        g_nv = buf.as_strided(ns, (N * D,) + tok, n_q + 2 * n_k + n_n)
+    work = buf.data_ptr() + at * size
+    if out is None:
+        delta_ptr = delta.data_ptr()
+    else:
+        delta_ptr = work
+        delta = None if dq else buf.view(torch.float32).as_strided(rows, (N * Tq, Tq, 1),
+                                                                     at // per_f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = library()
+    if null:
+        err = _call_on(dev, lib.lib.vfm_flash_attention_nullkv_bwd, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), null_k.data_ptr(), null_v.data_ptr(), ptr(out),
+                       dout.data_ptr(), lse.data_ptr(), delta_ptr,
+                       work + 4 * n_rows if n_part else None, ptr(g_q), ptr(g_k),
+                       ptr(g_v), ptr(g_nk), ptr(g_nv), B, Tq, N, D, scale)
+        lib.check(err, name)
+        counters = (flash_attention_nullkv_bwd_dkv, flash_attention_nullkv_bwd_dq)
+    else:
+        err = _call_on(dev, lib.lib.vfm_flash_attention_bwd, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), ptr(out), dout.data_ptr(), lse.data_ptr(),
+                       delta_ptr, ptr(g_q), ptr(g_k), ptr(g_v), B, Tq, Tk, N, D, scale,
+                       int(dt == torch.float32))
+        lib.check(err, name)
+        counters = (flash_attention_nonull_bwd_dkv, flash_attention_nonull_bwd_dq)
+    if dkv:
+        counters[0].launches += 1
+    if dq:
+        counters[1].launches += 1
+    return g_q, g_k, g_v, g_nk, g_nv, delta
+
+
 def flash_attention_nullkv_bwd_dkv(q, k, v, null_k, null_v, out, dout, lse,
                                    scale: Optional[float] = None):
     """dk, dv (B, T, N, 64), d null_k, d null_v (B, 1, N, 64) and D = rowsum(dO * O)
-    (B, N, T). CPU tensors run the twin; CUDA tensors launch the D pre-pass and
+    (B, N, T). CPU tensors run the twin; CUDA tensors launch the pre-pass and
     the dK/dV kernel: bf16 q, k, v, null_k, null_v, out, dout and fp32 lse."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_attention_nullkv_bwd_dkv_reference(q, k, v, null_k, null_v, out, lse, dout,
                                                         scale)
     refuse_grad("flash_attention_nullkv_bwd_dkv", q, k, v, null_k, null_v, out, dout)
-    B, T, N, D, dev = _check_qkv(q, k, v, null_k, null_v, "flash_attention_nullkv_bwd_dkv")
-    check_tensor(out, "out", torch.bfloat16, (B, T, N, D), dev)
-    check_tensor(dout, "dout", torch.bfloat16, (B, T, N, D), dev)
-    check_tensor(lse, "lse", torch.float32, (B, N, T), dev)
-    lib = library()
-    delta = torch.empty((B, N, T), dtype=torch.float32, device=dev)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dnk, dnv = torch.empty_like(null_k), torch.empty_like(null_v)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_flash_attention_nullkv_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), null_k.data_ptr(), null_v.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dnk.data_ptr(), dnv.data_ptr(), B, T, N, D, scale, stream,
-        )
-    lib.check(err, "flash_attention_nullkv_bwd_dkv")
-    flash_attention_nullkv_bwd_dkv.launches += 1
-    return dk, dv, dnk, dnv, delta
+    return _launch_backward(q, k, v, null_k, null_v, out, dout, lse, scale, dq=False)[1:]
 
 
 def flash_attention_nullkv_bwd_dq(q, k, v, null_k, null_v, dout, lse, delta,
@@ -225,22 +323,8 @@ def flash_attention_nullkv_bwd_dq(q, k, v, null_k, null_v, dout, lse, delta,
         return flash_attention_nullkv_bwd_dq_reference(q, k, v, null_k, null_v, dout, lse, delta,
                                                        scale)
     refuse_grad("flash_attention_nullkv_bwd_dq", q, k, v, null_k, null_v, dout)
-    B, T, N, D, dev = _check_qkv(q, k, v, null_k, null_v, "flash_attention_nullkv_bwd_dq")
-    check_tensor(dout, "dout", torch.bfloat16, (B, T, N, D), dev)
-    check_tensor(lse, "lse", torch.float32, (B, N, T), dev)
-    check_tensor(delta, "delta", torch.float32, (B, N, T), dev)
-    lib = library()
-    dq = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_flash_attention_nullkv_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), null_k.data_ptr(), null_v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T, N, D, scale,
-            stream,
-        )
-    lib.check(err, "flash_attention_nullkv_bwd_dq")
-    flash_attention_nullkv_bwd_dq.launches += 1
-    return dq
+    return _launch_backward(q, k, v, null_k, null_v, None, dout, lse, scale, dkv=False,
+                            delta=delta)[0]
 
 
 class FlashAttentionNullKV(torch.autograd.Function):
@@ -267,10 +351,8 @@ class FlashAttentionNullKV(torch.autograd.Function):
             dq, dk, dv, dnk, dnv, _ = flash_attention_nullkv_bwd_reference(
                 q, k, v, null_k, null_v, out, lse, dout, ctx.scale)
         else:
-            dk, dv, dnk, dnv, delta = flash_attention_nullkv_bwd_dkv(
-                q, k, v, null_k, null_v, out, dout, lse, ctx.scale)
-            dq = flash_attention_nullkv_bwd_dq(q, k, v, null_k, null_v, dout, lse, delta,
-                                               ctx.scale)
+            dq, dk, dv, dnk, dnv, _ = _launch_backward(q, k, v, null_k, null_v, out, dout, lse,
+                                                       ctx.scale)
         return dq, dk, dv, dnk, dnv, None, None
 
 
@@ -373,21 +455,8 @@ def flash_attention_nonull_bwd_dkv(q, k, v, out, dout, lse, scale: Optional[floa
     if q.device.type == "cpu":
         return flash_attention_nonull_bwd_dkv_reference(q, k, v, out, lse, dout, scale)
     refuse_grad("flash_attention_nonull_bwd_dkv", q, k, v, out, dout)
-    B, Tq, Tk, N, D, dev = _check_nonull(q, k, v, "flash_attention_nonull_bwd_dkv")
-    check_tensor(out, "out", q.dtype, (B, Tq, N, D), dev)
-    check_tensor(dout, "dout", q.dtype, (B, Tq, N, D), dev)
-    check_tensor(lse, "lse", torch.float32, (B, N, Tq), dev)
-    lib = library()
-    delta = torch.empty((B, N, Tq), dtype=torch.float32, device=dev)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, N, D,
-            scale, int(q.dtype == torch.float32), stream)
-    lib.check(err, "flash_attention_nonull_bwd_dkv")
-    flash_attention_nonull_bwd_dkv.launches += 1
+    _, dk, dv, _, _, delta = _launch_backward(q, k, v, None, None, out, dout, lse, scale,
+                                              dq=False)
     return dk, dv, delta
 
 
@@ -398,21 +467,8 @@ def flash_attention_nonull_bwd_dq(q, k, v, dout, lse, delta, scale: Optional[flo
     if q.device.type == "cpu":
         return flash_attention_nonull_bwd_dq_reference(q, k, v, dout, lse, delta, scale)
     refuse_grad("flash_attention_nonull_bwd_dq", q, k, v, dout)
-    B, Tq, Tk, N, D, dev = _check_nonull(q, k, v, "flash_attention_nonull_bwd_dq")
-    check_tensor(dout, "dout", q.dtype, (B, Tq, N, D), dev)
-    check_tensor(lse, "lse", torch.float32, (B, N, Tq), dev)
-    check_tensor(delta, "delta", torch.float32, (B, N, Tq), dev)
-    lib = library()
-    dq = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), B, Tq, Tk, N, D, scale,
-            int(q.dtype == torch.float32), stream)
-    lib.check(err, "flash_attention_nonull_bwd_dq")
-    flash_attention_nonull_bwd_dq.launches += 1
-    return dq
+    return _launch_backward(q, k, v, None, None, None, dout, lse, scale, dkv=False,
+                            delta=delta)[0]
 
 
 class FlashAttentionNoNull(torch.autograd.Function):
@@ -438,8 +494,7 @@ class FlashAttentionNoNull(torch.autograd.Function):
             dq, dk, dv, _ = flash_attention_nonull_bwd_reference(q, k, v, out, lse, dout,
                                                                  ctx.scale)
         else:
-            dk, dv, delta = flash_attention_nonull_bwd_dkv(q, k, v, out, dout, lse, ctx.scale)
-            dq = flash_attention_nonull_bwd_dq(q, k, v, dout, lse, delta, ctx.scale)
+            dq, dk, dv = _launch_backward(q, k, v, None, None, out, dout, lse, ctx.scale)[:3]
         return dq, dk, dv, None, None
 
 

@@ -32,15 +32,15 @@ ABLATIONS = {
     "as built": [],
     "no exponentials": [("hopper.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                          "y = x * 0.001f;")],
-    "no PV product": [(SOURCE, "    vfm::wgmma_rs<D>(o, pa[kk], ",
-                       "    if (vt == 0xFFFFFFFFu) vfm::wgmma_rs<D>(o, pa[kk], ")],
-    "no K/V reloads": [(SOURCE, "        vfm::mbar_expect_tx(k_full(s), L::kTile);",
+    "no PV product": [("flash.cuh", "    wgmma_rs<D>(c, a[kk], ",
+                       "    if (b_tile == 0xFFFFFFFFu) wgmma_rs<D>(c, a[kk], ")],
+    "no K/V reloads": [("flash.cuh", "        mbar_expect_tx(a_full(s), L::kTile);",
                         "        if (gi >= L::kStages) {\n"
-                        "          vfm::mbar_arrive(k_full(s));\n"
-                        "          vfm::mbar_arrive(v_full(s));\n"
+                        "          mbar_arrive(a_full(s));\n"
+                        "          mbar_arrive(b_full(s));\n"
                         "          continue;\n"
                         "        }\n"
-                        "        vfm::mbar_expect_tx(k_full(s), L::kTile);")],
+                        "        mbar_expect_tx(a_full(s), L::kTile);")],
     "no turns": [(SOURCE, "if constexpr (NWG > 1) wg == 0 ? vfm::named_sync<1, 256>() : "
                   "vfm::named_sync<2, 256>();", ""),
                  (SOURCE, "if constexpr (NWG > 1) wg == 0 ? vfm::named_arrive<2, 256>() : "
