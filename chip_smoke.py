@@ -68,11 +68,16 @@
    repeatable bit for bit; K9 (K1 pipelined) against K1 at every K1 site,
    0 ulps; K7 and K8 (depthwise conv + statistics, and without) against
    their twins at every ConvNeXt dwconv shape; K4's backward against its
-   twin and fp64 at the training path's sites. With every opt-in switch
-   of the JAX package on (ALL_SWITCHES), three round-trip requests and
-   the stage-0 steps run under the gates above, with img/s and step times
-   beside the default path in turns; the dwconv probe launches K7 and K8
-   at the 38 dwconvs of a decode in a window of their own.
+   twin and fp64 at the training path's sites (the adapter's fp32 sites,
+   3xTF32 kernels, held to FLASH_FP32_MAX_REL against the twin) at B=2 and
+   at the stage-0 step's B=4, at ragged fp32 shapes and d=128, bit for bit
+   on repeat, the one-call backward timed against SDPA's backward in turns
+   (CUDA events and device time, SDPA's kernels by name). With every
+   opt-in switch of the JAX package on (ALL_SWITCHES), three round-trip
+   requests and the stage-0 steps run under the gates above, with img/s
+   and step times beside the default path in turns; the dwconv probe
+   launches K7 and K8 at the 38 dwconvs of a decode in a window of their
+   own.
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -175,17 +180,23 @@ BWD_TOLERANCE = TOLERANCES["flash_attention_nullkv"]
 # Stage-0 EQ buckets (scale, rot90 angle, is_prior) that the training phase
 # forces beside the drawn one: identity, a latent bucket, a prior bucket.
 FORCED_BUCKETS = [(1.0, 0, False), (0.5, 1, False), (0.75, 0, True)]
-# H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, fp32 outside
-# the tensor cores, HBM3), for the bounds.
+# H100 SXM data-sheet peaks (dense bf16, TF32 and int8 tensor cores, fp32
+# outside the tensor cores, HBM3), for the bounds. fp32 flash work (K4 at the
+# adapter) is bound at the 3xTF32 rate, three TF32 products per fp32
+# product, with the FMA bound beside it: K4's fp32 backward runs as 3xTF32.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_PER_S = 3.35e12
 # K6 against its twin: the same quantize, exact int32 sums and the same fp32
 # epilogue order, so the two should agree bit for bit; the gate allows one
 # bf16 ulp of the twin's value anywhere. K4 in bf16 takes K3's bounds; in
-# fp32 the kernel and the twin differ only in summation order and exp2 vs
-# exp: max |kernel - twin| <= 1e-5 of max |twin|.
+# fp32 the kernel and the twin differ in summation order and exp2 vs exp
+# (the forward, fp32 FMA) and in the 3xTF32 products' splits (the backward,
+# within 2^-21 of each product): max |kernel - twin| <= 1e-5 of max |twin|,
+# and the mean likewise, forward and backward.
 INT8_ULPS = 1.0
 FLASH_FP32_MAX_REL = 1e-5
 # int8 serving holds each K6 and K4 site to the bounds above on that site's
@@ -810,7 +821,8 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
     gen = torch.Generator(device=dev).manual_seed(909)
     cases = [(dict(s), torch.bfloat16 if s["at"] == "tower" else torch.float32) for s in sites]
     cases.append((dict(T=1024, N=8, D=128, at="d128", count=0), torch.bfloat16))
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, fma_bound_ms=0.0,
+               device_ms=0.0)
     by, worst_abs, failed = {}, 0.0, []
     for site, dt in cases:
         T, N, D, n = site["T"], site["N"], site["D"], site["count"]
@@ -833,9 +845,11 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         ops, byts = flash_work(B, T, T, N, D, q.element_size())
-        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_3XTF32_FLOPS
         a, bb = ops / peak * 1e3, byts / PEAK_BYTES_PER_S * 1e3
         bnd, b_by = max(a, bb), ("operations" if a >= bb else "bytes")
+        fma_bnd = bnd if dt == torch.bfloat16 else max(ops / PEAK_FP32_FLOPS * 1e3, bb)
+        fma = "" if dt == torch.bfloat16 else f" (3xTF32; FMA bound {fma_bnd:.4f})"
         dev_ms = device_ms(lambda: kernels.flash_attention_nonull(q, k, v))
         rates = flash_rate_text(ms, dev_ms, ops, bnd, lib_ms, device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt)))
@@ -843,14 +857,14 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
               f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol_max:g}) mean_rel="
               f"{mean_rel:.3e} (tol {tol_mean:g}) vs_fp64 kernel={k_truth:.3e} plain="
               f"{p_truth:.3e} finite={finite} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bnd:.4f} ({b_by}) {rates} x{n}/encode {'OK' if ok else 'FAIL'}",
+              f"bound_ms={bnd:.4f} ({b_by}){fma} {rates} x{n}/encode {'OK' if ok else 'FAIL'}",
               flush=True)
         tot["device_ms"] = add_or_none(tot["device_ms"], dev_ms, n)
         if not ok:
             failed.append(f"{site['at']} T={T} D={D}")
         worst_abs = max(worst_abs, max_abs)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bound_ms", bnd)):
+                         ("bound_ms", bnd), ("fma_bound_ms", fma_bnd)):
             tot[key] += val * n
         by[b_by] = by.get(b_by, 0) + n
     if failed:
@@ -2072,55 +2086,98 @@ def flash_bwd_work(name: str, B, Tq, Tk, N, D, itemsize):
     return 3 * pair, 2 * q_tok + 3 * k_tok + 2 * row  # dq: S, dP, dQ; reads q, k, v, dO, L, D
 
 
+def device_in_turns(fn_a, fn_b):
+    """Device times of two alternatives measured in turns (a, b, b, a), each
+    the mean of its two readings (None if the profiler saw no device time),
+    and each one's kernels by name from its first reading (device_kernels)."""
+    (a1, per_a), (b1, per_b) = device_kernels(fn_a), device_kernels(fn_b)
+    b2, a2 = device_kernels(fn_b)[0], device_kernels(fn_a)[0]
+
+    def mean(x, y):
+        return None if x is None or y is None else (x + y) / 2
+
+    return mean(a1, a2), mean(b1, b2), per_a, per_b
+
+
 def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
     """K4's backward kernels against their twin and an fp64 autograd
-    evaluation at every K4 site of the training path (the adapter's fp32
-    sites), at the tower's bf16 shape and at one d=128 shape, with K3-bwd's
-    bounds and the same <= TRUTH_FACTOR rule against fp64; times of the
-    kernels, the twins, and forward+backward of the K4 Function and of SDPA."""
+    evaluation: at every K4 site of the training path (the adapter's fp32
+    sites) at B=2, counted per encode, and at the stage-0 step's B=4; at the
+    card test's ragged fp32 shapes (Tq != Tk) and at d=128 in fp32; at the
+    tower's bf16 shape and one bf16 d=128 shape. fp32 is held to
+    FLASH_FP32_MAX_REL against the twin (max and mean), bf16 to K3-bwd's
+    bounds; both to <= TRUTH_FACTOR x the twin's mean error against fp64
+    (+1e-6) and to bit-identical gradients on a second call. The timed
+    cases (the sites and the bf16 shapes) print the kernels' CUDA-event and
+    device times, the twins', the one-call backward against SDPA's backward
+    alone in turns (CUDA events and device time; SDPA's kernels by name),
+    and forward+backward of the K4 Function and of SDPA in turns; fp32
+    bounds at the 3xTF32 rate with the FMA bound beside them."""
     import torch
     import torch.nn.functional as F
 
     from vfm_vae_tpu_torch.ops import kernels
     from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
 
-    dev = torch.device("cuda")
+    dev, f32, bf = torch.device("cuda"), torch.float32, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(4444)
-    tol_max, tol_mean = BWD_TOLERANCE
-    cases = [(dict(s), torch.float32) for s in enc_sites if s["at"] == "adapter"]
+    adapter = [dict(s, Tk=s["T"], B=B, dt=f32, timed=True) for s in enc_sites
+               if s["at"] == "adapter"]
     tower = next(s for s in enc_sites if s["at"] == "tower")
-    cases += [(dict(tower, count=0), torch.bfloat16),
-              (dict(T=1024, N=8, D=128, at="d128", count=0), torch.bfloat16)]
-    acc = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, library_ms=0.0,
-                   device_ms=0.0) for n in K4_BWD}
+    cases = (adapter
+             + [dict(s, B=4, at="adapter", count=0) for s in adapter]
+             + [dict(T=Tq, Tk=Tk, N=N, D=D, at=at, count=0, B=2, dt=f32, timed=False)
+                for Tq, Tk, N, D, at in ((77, 130, 4, 64, "ragged"), (300, 1000, 4, 64, "ragged"),
+                                         (129, 640, 8, 128, "ragged"),
+                                         (1024, 77, 8, 128, "ragged"),
+                                         (1024, 1024, 8, 128, "d128"))]
+             + [dict(tower, Tk=tower["T"], count=0, B=B, dt=bf, timed=True),
+                dict(T=1024, Tk=1024, N=8, D=128, at="d128", count=0, B=B, dt=bf, timed=True)])
+    acc = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, fma_bound_ms=0.0, max_abs_err=0.0,
+                   library_ms=0.0, device_ms=0.0, b4={}) for n in K4_BWD}
     by = {n: {} for n in K4_BWD}
     fb = dict(ms=0.0, library_ms=0.0)
     failed = []
-    for site, dt in cases:
-        T, N, D, n_call = site["T"], site["N"], site["D"], site["count"]
-        q, k, v, dout = (torch.randn(B, T, N, D, generator=gen, device=dev).to(dt)
-                         for _ in range(4))
+    for c in cases:
+        Tq, Tk, N, D, Bc, dt, n_call = c["T"], c["Tk"], c["N"], c["D"], c["B"], c["dt"], c["count"]
+        label = f"{c['at']} {str(dt).split('.')[-1]} Tq={Tq} Tk={Tk} N={N} D={D} B={Bc}"
+        q, dout = (torch.randn(Bc, Tq, N, D, generator=gen, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn(Bc, Tk, N, D, generator=gen, device=dev).to(dt) for _ in range(2))
         scale = D ** -0.5
         out, lse = fa._launch_nonull(q, k, v, scale, True)
-        dk, dv, delta = kernels.flash_attention_nonull_bwd_dkv(q, k, v, out, dout, lse)
-        dq = kernels.flash_attention_nonull_bwd_dq(q, k, v, dout, lse, delta)
+
+        def wrappers():
+            dk, dv, delta = kernels.flash_attention_nonull_bwd_dkv(q, k, v, out, dout, lse)
+            return kernels.flash_attention_nonull_bwd_dq(q, k, v, dout, lse, delta), dk, dv
+
+        got, again = wrappers(), wrappers()
         twin = kernels.flash_attention_nonull_bwd_reference(q, k, v, out, lse, dout)
         leaves = [t.double().requires_grad_() for t in (q, k, v)]
         truth = torch.autograd.grad(attention_fp64(*leaves), leaves, dout.double())
+        del leaves
         torch.cuda.synchronize()
+        tol_max, tol_mean = ((FLASH_FP32_MAX_REL, FLASH_FP32_MAX_REL) if dt == f32
+                             else BWD_TOLERANCE)
         line = []
-        for nm, a, b, c in zip(("dq", "dk", "dv"), (dq, dk, dv), twin[:3], truth):
+        for nm, a, a2, b, t64 in zip(("dq", "dk", "dv"), got, again, twin[:3], truth):
             max_abs, max_rel, mean_rel = rel_errors(a, b)
-            k64, p64 = rel_errors(a, c)[2], rel_errors(b, c)[2]
-            finite = bool(torch.isfinite(a.float()).all())
-            ok = (finite and max_rel <= tol_max and mean_rel <= tol_mean
+            k64, p64 = rel_errors(a, t64)[2], rel_errors(b, t64)[2]
+            finite, same = bool(torch.isfinite(a.float()).all()), torch.equal(a, a2)
+            ok = (finite and same and max_rel <= tol_max and mean_rel <= tol_mean
                   and k64 <= TRUTH_FACTOR * p64 + 1e-6)
-            line.append(f"{nm} max_rel={max_rel:.3e} mean_rel={mean_rel:.3e} vs_fp64 "
-                        f"kernel={k64:.3e} plain={p64:.3e}{'' if ok else ' FAIL'}")
+            line.append(f"{nm} max_rel={max_rel:.3e} mean_rel={mean_rel:.3e} (tol {tol_max:g}, "
+                        f"{tol_mean:g}) vs_fp64 kernel={k64:.3e} plain={p64:.3e} repeat="
+                        f"{'identical' if same else 'DIFFERS'}{'' if ok else ' FAIL'}")
             if not ok:
-                failed.append(f"{site['at']} T={T} D={D} {nm}")
+                failed.append(f"{label} {nm}")
             key = K4_BWD[1] if nm == "dq" else K4_BWD[0]
             acc[key]["max_abs_err"] = max(acc[key]["max_abs_err"], max_abs)
+        del got, again, twin, truth
+        print(f"[k4-bwd] {label}: " + "; ".join(line), flush=True)
+        if not c["timed"]:
+            del q, k, v, dout, out, lse
+            continue
+        dk, dv, delta = kernels.flash_attention_nonull_bwd_dkv(q, k, v, out, dout, lse)
         dkv_ms = cuda_time_ms(lambda: kernels.flash_attention_nonull_bwd_dkv(
             q, k, v, out, dout, lse))
         dq_ms = cuda_time_ms(lambda: kernels.flash_attention_nonull_bwd_dq(
@@ -2134,34 +2191,58 @@ def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
         dq_dev = device_ms(lambda: kernels.flash_attention_nonull_bwd_dq(
             q, k, v, dout, lse, delta))
         sdpa_bwd_fn = sdpa_backward([t.transpose(1, 2) for t in (q, k, v)], dout)
-        sdpa_bwd, sdpa_bwd_dev = cuda_time_ms(sdpa_bwd_fn), device_ms(sdpa_bwd_fn)
+
+        def one_call():
+            return fa._launch_backward(q, k, v, None, None, out, dout, lse, scale)
+
+        bwd_ms, sdpa_bwd = in_turns(one_call, sdpa_bwd_fn)
+        bwd_dev, sdpa_bwd_dev, per, sdpa_per = device_in_turns(one_call, sdpa_bwd_fn)
         kl = [t.detach().requires_grad_() for t in (q, k, v)]
         sl = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
         fb_ms, sdpa_fb = in_turns(
             lambda: torch.autograd.grad(kernels.flash_attention_nonull(*kl), kl, dout),
             lambda: torch.autograd.grad(F.scaled_dot_product_attention(*sl), sl,
                                         dout.transpose(1, 2)))
-        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
-        bnds = {}
-        for key, ms, pm, dm in ((K4_BWD[0], dkv_ms, dkv_plain, dkv_dev),
-                                (K4_BWD[1], dq_ms, dq_plain, dq_dev)):
-            bnds[key] = plain_bound(*flash_bwd_work(key, B, T, T, N, D, q.element_size()), peak)
-            acc[key]["ms"] += ms * n_call
-            acc[key]["plain_ms"] += pm * n_call
-            acc[key]["device_ms"] = add_or_none(acc[key]["device_ms"], dm, n_call)
-            acc[key]["library_ms"] += sdpa_bwd * n_call
-            acc[key]["bound_ms"] += bnds[key][0] * n_call
-            by[key][bnds[key][1]] = by[key].get(bnds[key][1], 0) + n_call
-        fb["ms"] += fb_ms * n_call
-        fb["library_ms"] += sdpa_fb * n_call
-        label = f"{site['at']} {str(dt).split('.')[-1]} T={T} N={N} D={D} B={B}"
-        print(f"[k4-bwd] {label}: " + "; ".join(line), flush=True)
-        print(f"[k4-bwd] {label}: dkv_ms={dkv_ms:.4f} (device {ms_text(dkv_dev)}, plain "
-              f"{dkv_plain:.4f}, bound {bnds[K4_BWD[0]][0]:.4f} {bnds[K4_BWD[0]][1]}) dq_ms="
-              f"{dq_ms:.4f} (device {ms_text(dq_dev)}, plain {dq_plain:.4f}, bound "
-              f"{bnds[K4_BWD[1]][0]:.4f} {bnds[K4_BWD[1]][1]}) sdpa bwd {sdpa_bwd:.4f} ms "
-              f"(device {ms_text(sdpa_bwd_dev)}) fwd+bwd: K4 {fb_ms:.4f} ms, sdpa {sdpa_fb:.4f} "
-              f"ms x{n_call}/encode", flush=True)
+        del kl, sl
+        peak = PEAK_BF16_FLOPS if dt == bf else PEAK_3XTF32_FLOPS
+        parts = []
+        for key, ms, pm, dm, kname in ((K4_BWD[0], dkv_ms, dkv_plain, dkv_dev, "dkv"),
+                                       (K4_BWD[1], dq_ms, dq_plain, dq_dev, "dq")):
+            ops, byts = flash_bwd_work(key, Bc, Tq, Tk, N, D, q.element_size())
+            bnd, b_by = plain_bound(ops, byts, peak)
+            fma_bnd = plain_bound(ops, byts, PEAK_FP32_FLOPS)[0] if dt == f32 else bnd
+            kdev = kernel_ms(per, "dkv_f32_kernel" if dt == f32 and kname == "dkv" else
+                             "dq_f32_kernel" if dt == f32 else f"flash_bwd_{kname}_kernel")
+            parts.append(f"{kname} {ms:.4f} ms (device {ms_text(dm)}; in the one call "
+                         f"{ms_text(kdev)}, of_bound "
+                         + ("not measured" if kdev is None else f"{bnd / kdev:.3f}")
+                         + f"; plain {pm:.4f}; bound {bnd:.4f} {b_by}"
+                         + (f", FMA bound {fma_bnd:.4f}" if dt == f32 else "") + ")")
+            row = dict(ms=ms, device_ms=dm, call_device_ms=kdev, plain_ms=pm, bound_ms=bnd,
+                       fma_bound_ms=fma_bnd, library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
+                       backward_ms=bwd_ms, backward_device_ms=bwd_dev)
+            if Bc != B:
+                acc[key]["b4"][f"T={Tq} N={N}"] = row
+            elif n_call:  # a site of the encode (the bf16 shapes count 0)
+                acc[key]["ms"] += ms * n_call
+                acc[key]["plain_ms"] += pm * n_call
+                acc[key]["device_ms"] = add_or_none(acc[key]["device_ms"], dm, n_call)
+                acc[key]["library_ms"] += sdpa_bwd * n_call
+                acc[key]["bound_ms"] += bnd * n_call
+                acc[key]["fma_bound_ms"] += fma_bnd * n_call
+                by[key][b_by] = by[key].get(b_by, 0) + n_call
+        if Bc == B:
+            fb["ms"] += fb_ms * n_call
+            fb["library_ms"] += sdpa_fb * n_call
+        ratio = ("not measured" if bwd_dev is None or sdpa_bwd_dev is None
+                 else f"{bwd_dev / sdpa_bwd_dev:.3f}")
+        print(f"[k4-bwd] {label}: " + "; ".join(parts) + f"; one-call backward {bwd_ms:.4f} ms "
+              f"(device {ms_text(bwd_dev)}) vs sdpa backward {sdpa_bwd:.4f} ms (device "
+              f"{ms_text(sdpa_bwd_dev)}) in turns: {bwd_ms / sdpa_bwd:.3f}x (device {ratio}); "
+              f"sdpa kernels {list(sdpa_per)[:4]}; fwd+bwd: K4 {fb_ms:.4f} ms, sdpa "
+              f"{sdpa_fb:.4f} ms x{n_call}/encode", flush=True)
+        del q, k, v, dout, out, lse, dk, dv, delta, sdpa_bwd_fn
+        torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"chip_smoke: K4 backward phase FAILED at {failed}")
     for key in K4_BWD:

@@ -156,3 +156,55 @@ def test_backward_validation_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         fa._launch_backward(q32, q32, q32, None, None, q32, q32, lse, 0.125)
     assert [c.launches for c in counters] == before
+
+
+# (B, Tq, Tk, N, D) of the fp32 backward: the adapter's sites (T=1024 N=16,
+# T=256 N=12) at B=2 and B=4, ragged Tq != Tk at d = 64 and 128, d=128.
+F32_BACKWARD_SHAPES = [(2, 1024, 1024, 16, 64), (4, 1024, 1024, 16, 64), (2, 256, 256, 12, 64),
+                       (4, 256, 256, 12, 64), (2, 77, 130, 4, 64), (2, 300, 1000, 4, 64),
+                       (2, 129, 640, 8, 128), (2, 1024, 77, 8, 128), (2, 1024, 1024, 8, 128),
+                       (1, 5, 3, 1, 64), (1, 1, 1, 1, 128)]
+
+
+@pytest.mark.parametrize("B,Tq,Tk,N,D", F32_BACKWARD_SHAPES)
+def test_f32_backward_plan_covers_every_row_and_fits_a_block(B, Tq, Tk, N, D):
+    """Each fp32 kernel's CTAs cover its rows (keys for dK/dV, queries for
+    dQ) in blocks of 16 per warp, its streamed tiles cover the other side's
+    rows, and its shared memory (resident pair + two stages of the streamed
+    pair, rows of D + 4 floats; dK/dV's stages hold q and dO as hi and lo
+    planes and the tile's L and D) fits one block, two at d=64 with four
+    warps."""
+    p = fa.backward_plan_f32(B, Tq, Tk, N, D, H100_SMS)
+    for name, T, T_walk in (("dkv", Tk, Tq), ("dq", Tq, Tk)):
+        k = p[name]
+        assert k["warps"] in (2, 4) and k["rows"] == 16 * k["warps"], name
+        assert k["threads"] == 32 * k["warps"] and k["stages"] == 2, name
+        blocks = k["ctas"] // (N * B)
+        assert k["ctas"] == blocks * N * B and blocks * k["rows"] >= T > (
+            blocks - 1) * k["rows"], name
+        assert k["walk_tiles"] * k["tile"] >= T_walk > (k["walk_tiles"] - 1) * k["tile"], name
+        planes = 4 if name == "dkv" else 2  # streamed tensors x (hi, lo) or as loaded
+        rows_f = ((2 * k["rows"] + 2 * planes * k["tile"]) * (D + 4)
+                  + (2 * 2 * k["tile"] if name == "dkv" else 0))
+        assert k["smem_bytes"] == 4 * rows_f, name
+        assert k["smem_bytes"] <= SMEM_LIMIT, (name, k["smem_bytes"])
+        if D == 64 and k["warps"] == 4:
+            assert 2 * (k["smem_bytes"] + 1024) <= 233472, name  # two CTAs per SM
+    assert p["dkv"]["tile"] == 32 and p["dq"]["tile"] == 64
+
+
+@pytest.mark.parametrize("B,T,N,warps", [(2, 1024, 16, 4), (4, 1024, 16, 4), (2, 256, 12, 2),
+                                         (4, 256, 12, 4), (2, 77, 4, 2), (1, 64, 1, 2)])
+def test_f32_backward_plan_takes_two_warps_only_when_four_leave_sms_idle(B, T, N, warps):
+    """64-row CTAs where B * N * ceil(T / 64) >= the SM count, else 32-row
+    CTAs: the adapter's T=256 site at B=2 (96 blocks of 64) gets 192 CTAs."""
+    for D in (64, 128):
+        p = fa.backward_plan_f32(B, T, T, N, D, H100_SMS)
+        assert p["dkv"]["warps"] == p["dq"]["warps"] == warps
+    assert (B * N * -(-T // 64) >= H100_SMS) == (warps == 4)
+
+
+def test_f32_backward_plan_refuses_other_head_dims():
+    for D in (32, 96, 256):
+        with pytest.raises(ValueError):
+            fa.backward_plan_f32(2, 1024, 1024, 8, D)

@@ -471,3 +471,65 @@ def test_flash_backward_plan_matches_the_kernel_on_gpu(cuda):
         want = [p[n][key] for n in ("dkv", "dq") for key in
                 ("wgs", "rows", "tile", "stages", "threads", "smem_bytes", "grid")]
         assert list(got) == want + [p["prepass_rows"]], (B, Tq, Tk, N, D)
+
+
+# (B, Tq, Tk, N, D): the adapter's fp32 sites (T=1024 N=16 and T=256 N=12,
+# d=64) at the stage-0 step's B=4 and at B=2 (two warps per CTA at T=256),
+# ragged Tq != Tk at d = 64 and 128 (B=1 with 5 queries and 3 keys: one
+# partial tile each), and d=128 at T=1024.
+FP32_BACKWARD_CASES = [(4, 1024, 1024, 16, 64), (4, 256, 256, 12, 64), (2, 256, 256, 12, 64),
+                       (2, 77, 130, 4, 64), (2, 300, 1000, 4, 64), (2, 129, 640, 8, 128),
+                       (2, 1024, 77, 8, 128), (2, 1024, 1024, 8, 128), (1, 5, 3, 1, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,Tk,N,D", FP32_BACKWARD_CASES)
+def test_k4_fp32_backward_matches_twin_and_fp64_on_gpu(cuda, B, Tq, Tk, N, D):
+    """K4's fp32 backward (3xTF32 dK/dV and dQ kernels) in one library call:
+    dq, dk, dv against the fp32 twin within 1e-5 of scale (max and mean),
+    against fp64 autograd within 1.5x the twin's mean error (+1e-6), and
+    bit-identical on a second call (no float atomics)."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    f32 = torch.float32
+    g = torch.Generator(device=cuda).manual_seed(B * Tq + Tk + N + D)
+    q, dout = (torch.randn(B, Tq, N, D, generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(B, Tk, N, D, generator=g, device=cuda) for _ in range(2))
+    scale = D ** -0.5
+    out, lse = fa._launch_nonull(q, k, v, scale, True)
+    twin = kernels.flash_attention_nonull_bwd_reference(q, k, v, out, lse, dout, scale)[:3]
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    s = torch.einsum("btnh,bsnh->bnts", leaves[0], leaves[1]) * scale
+    o64 = torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), leaves[2])
+    truth = torch.autograd.grad(o64, leaves, dout.double())
+    before = [fn.launches for fn in kernels.NONULL_BACKWARD_WRAPPERS]
+    got = fa._launch_backward(q, k, v, None, None, out, dout, lse, scale)
+    again = fa._launch_backward(q, k, v, None, None, out, dout, lse, scale)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels.NONULL_BACKWARD_WRAPPERS] == [b + 2 for b in before]
+    for name, a, a2, ref, tr in zip(("dq", "dk", "dv"), got, again, twin, truth):
+        assert a.dtype == f32 and torch.equal(a, a2), name
+        assert bool(torch.isfinite(a).all()), name
+        max_rel, mean_rel = _errors(a, ref)
+        assert max_rel <= 1e-5 and mean_rel <= 1e-5, (name, max_rel, mean_rel)
+        assert _errors(a, tr)[1] <= 1.5 * _errors(ref, tr)[1] + 1e-6, (
+            name, _errors(a, tr)[1], _errors(ref, tr)[1])
+
+
+@pytest.mark.gpu
+def test_flash_backward_f32_plan_matches_the_kernel_on_gpu(cuda):
+    """backward_plan_f32 (Python) and vfm_flash_bwd_f32_plan (the C launch) agree."""
+    import ctypes
+
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    lib = library().lib
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, Tq, Tk, N, D in FP32_BACKWARD_CASES + [(2, 1024, 1024, 16, 64)]:
+        got = (ctypes.c_int * 12)()
+        assert lib.vfm_flash_bwd_f32_plan(B, Tq, Tk, N, D, sms, got) == 0
+        p = fa.backward_plan_f32(B, Tq, Tk, N, D, sms)
+        want = [p[n][key] for n in ("dkv", "dq") for key in
+                ("warps", "rows", "tile", "stages", "smem_bytes", "ctas")]
+        assert list(got) == want, (B, Tq, Tk, N, D)

@@ -18,8 +18,10 @@
 // and one write of dq, dk, dv: ~0.6 T flops per byte at d = 64, so bytes
 // bound below T ~ 500 in bf16 (the card's ridge is ~295 flops per byte) and
 // the tensor cores at T = 576 and 1024; there a call's few microseconds of
-// work make the host's launch path the limit. In fp32 on the CUDA cores (67
-// TFLOP/s, ridge ~20) compute bound at every T here.
+// work make the host's launch path the limit. In fp32 (K4 at the adapter)
+// compute bound at every T here: 3xTF32 on the tensor cores runs three
+// products per fp32 product at 495 TFLOP/s, 165 TFLOP/s of fp32 work, 2.5x
+// the CUDA cores' 67 of fp32 FMA.
 //
 // bf16 design (d = 64 and 128), on the forward's machinery (flash.cuh):
 // - One entry point per mode enqueues the pre-pass, the dK/dV kernel and the
@@ -65,12 +67,34 @@
 // consume them, as every flash backward does (P0 and dS0 of the null token
 // too); the accumulators are fp32.
 //
-// fp32 design (K4 at the adapter, which computes in fp32): D = rowsum(dO O)
-// in delta_kernel, then dK/dV and dQ on fp32 FMA (no TF32). One CTA of 256
-// threads per 64-row tile; thread (ty, tx) owns rows 4ty..4ty+3 of its tile
-// and columns tx + 16i of the walked tile for the logits, P (or dS) goes
-// through shared memory, and the thread owns output columns 4tx.. (+64) of
-// its four rows for the accumulators, as in the fp32 forward.
+// fp32 design (K4 at the adapter, which computes in fp32; d = 64 and 128):
+// D = rowsum(dO O) in delta_kernel, then the dK/dV and dQ kernels with every
+// product on the tensor cores as 3xTF32 (mma.sync m16n8k8): each operand is
+// split where its fragment is loaded into hi = tf32(x) (rounded to nearest)
+// and lo = x - hi, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi is accumulated
+// in fp32; the dropped a_lo b_lo and the splits' rounding stay near 2^-21 of
+// each product. Measured against fp64 the gradients are 0.6x as far off as
+// the fp32 twin's; one TF32 product alone (1xTF32) is 800x. Warp-level tiles: each warp
+// owns 16 rows of its CTA's block (keys for dK/dV, queries for dQ). The
+// resident pair (K and V, or q and dO) and two stages of the streamed pair
+// (q, dO and their L and D rows, or K and V) live in shared memory as rows of
+// D + 4 floats, loaded by cp.async (zero-filled past Tq, Tk) one tile ahead;
+// the dK/dV kernel splits each streamed q and dO tile once into hi and lo
+// planes (all its warps read all of it), the rest is split where loaded.
+// K-major operands (rows as stored: the first products S = q K^T and dP =
+// dO V^T, in either orientation) come in by ldmatrix, which moves 32-bit
+// words as pairs of b16 in exactly the TF32 fragment layout; P^T, dS^T (dK/
+// dV) and dS (dQ) stay in the C registers and serve as A operands with the k
+// axis permuted within each block of 8, so the B operand (dO, q or K read
+// along the token axis) is two scalar loads of rows 2t and 2t + 1, free of
+// bank conflicts with rows of D + 4. Each k block of 8 sums its three
+// products into a fresh accumulator that one fp32 add (round to nearest)
+// folds into the running sum: the tensor cores' accumulation rounds towards
+// zero, which over a whole chain is 3-4x fp32's error. Two CTAs of four
+// warps fit an SM at d = 64; two warps per CTA when four would leave SMs
+// without a CTA.
+// Every output element is summed by one thread in a fixed order: no atomics,
+// bit-identical on repeat.
 //
 // Layouts: q, out, dout, dq (B, Tq, N, D); k, v, dk, dv (B, Tk, N, D);
 // null_k, null_v, dnull_k, dnull_v (B, 1, N, D) or null; lse and delta
@@ -83,8 +107,6 @@ namespace {
 using vfm::bf16;
 using vfm::fence_all;
 
-constexpr int kBT = 64;         // rows per tile of the fp32 kernels
-constexpr int kThreadsF32 = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPrepassRows = 64;  // query rows per pre-pass CTA (one partial sum each)
 constexpr int kBwdProducerRegs = 40, kBwdConsumerRegs = 232;
@@ -650,237 +672,433 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1) flash_bwd_dq_kernel(
 
 // ------------------------------------------------------------------ fp32
 
-// Copy a 64-row fp32 token tile of one head into dst [r][d] (ld D + 4);
-// rows past T_ are zero.
+// Warps per CTA of an fp32 backward kernel whose CTAs own blocks of 16 W rows
+// of T (keys for dK/dV, queries for dQ): four (64 rows) when B N ceil(T / 64)
+// such blocks give every SM one, else two, which doubles the CTAs.
+int f32_warps(int B, int T, int N, int sms) {
+  return (long long)B * N * ((T + 63) / 64) >= sms ? 4 : 2;
+}
+
+// Shared memory of the fp32 kernels, in floats, rows of D + 4 (a 16-byte
+// shift per row: conflict-free ldmatrix phases and column reads). A CTA of
+// W warps owns 16 W rows of the resident pair (K and V, or q and dO) and
+// streams tiles of kWalk rows of the other pair through two stages. The
+// dK/dV kernel's stages hold each streamed tensor as hi and lo planes
+// (split once per CTA, split_rows) and the tile's L and D; the dQ kernel's
+// hold K and V as loaded (each warp splits what it reads).
+template <int D, int W, bool DKV>
+struct F32Layout {
+  static constexpr int kLd = D + 4;
+  static constexpr int kRows = 16 * W;        // resident rows
+  static constexpr int kWalk = DKV ? 32 : 64;  // streamed rows per tile
+  static constexpr int kThreads = 32 * W;
+  static constexpr int kStages = 2;
+  static constexpr int kStage = DKV ? 4 * kWalk * kLd + 2 * kWalk : 2 * kWalk * kLd;
+  static constexpr int kSmem = (int)sizeof(float) * (2 * kRows * kLd + kStages * kStage);
+};
+
+// x = hi + lo with hi = tf32(x) rounded to nearest and lo = x - hi (exact in
+// fp32): the tensor cores read lo's top 19 bits, so x is represented to within
+// 2^-21 |x|, as accurate in the products as rounding lo too (one instruction
+// more per operand).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a0 b0 + a1 b1 over two k blocks of 8 of an m16n8k8 tile as 3xTF32: per
+// block a_lo b_hi + a_hi b_lo + a_hi b_hi (small terms first; a_lo b_lo, near
+// 2^-21 of the product, is dropped). The six products are summed on the
+// tensor cores into a fresh accumulator that one fp32 add (round to nearest)
+// folds into c. The tensor cores' fp32 accumulation rounds towards zero:
+// chained over a whole reduction it puts the gradients 12x as far from fp64
+// as the fp32 twin's; chains of three products 0.6x, of six 0.7x (the probe).
+__device__ __forceinline__ void mma_3xtf32_x2(float c[4], const uint32_t (&ah)[2][4],
+                                              const uint32_t (&al)[2][4],
+                                              const uint32_t (&bh)[2][2],
+                                              const uint32_t (&bl)[2][2]) {
+  float z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mma_tf32(z, al[h], bh[h]);
+    mma_tf32(z, ah[h], bl[h]);
+    mma_tf32(z, ah[h], bh[h]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += z[i];
+}
+
+// Four 8 x 4 fp32 blocks of shared memory, one register each: ldmatrix's
+// 8 x 8 b16 matrices read as 8 rows of four 32-bit words, so lane 4g + t
+// gets word t of row g, the m16n8k8 TF32 fragments' layout. Lane l gives
+// the address of row l % 8 of block l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void split4(const uint32_t x[4], uint32_t hi[4], uint32_t lo[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// 16-byte and 4-byte asynchronous copies that read `bytes` (16 or 0, 4 or 0)
+// and zero-fill the rest.
+__device__ __forceinline__ void cp_async16_zfill(float* smem, const float* gmem, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(vfm::smem_u32(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(float* smem, const float* gmem, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(vfm::smem_u32(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
+template <int N_>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_) : "memory");
+}
+
+// Rows row0 .. row0 + rows - 1 of one head's token rows (`src` at row 0,
+// row stride rs floats) into dst [rows][D + 4]; rows past T_ are zeros.
 template <int D>
-__device__ __forceinline__ void stage_f32(const float* __restrict__ src, size_t head, size_t rs,
-                                          int row0, int T_, float* dst, int tid) {
-  for (int i = tid; i < kBT * D / 4; i += kThreadsF32) {
-    const int r = i / (D / 4), c4 = (i % (D / 4)) * 4;
-    const int j = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < T_) val = *reinterpret_cast<const float4*>(src + head + (size_t)j * rs + c4);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c4) = val;
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, size_t rs, int rows,
+                                           int row0, int T_, int tid, int nthreads) {
+  for (int i = tid; i < rows * (D / 4); i += nthreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool in = row0 + r < T_;
+    cp_async16_zfill(dst + r * (D + 4) + c, in ? src + (size_t)(row0 + r) * rs + c : src,
+                     in ? 16 : 0);
   }
 }
 
-// acc[r][i] += A[4ty + r] . Bm[tx + 16i] over d, for two pairs of tiles at
-// once (A1 with B1 into acc1, A2 with B2 into acc2); rows of ld D + 4.
+// A landed tile of `rows` rows split in place: the raw fp32 in `hi` becomes
+// its TF32 high parts, the remainders go to `lo` (the same layout).
 template <int D>
-__device__ __forceinline__ void dots4x4(float acc1[4][4], float acc2[4][4], const float* A1,
-                                        const float* B1, const float* A2, const float* B2, int ty,
-                                        int tx) {
+__device__ __forceinline__ void split_rows(float* hi, float* lo, int rows, int tid,
+                                           int nthreads) {
+  for (int i = tid; i < rows * (D / 4); i += nthreads) {
+    const int o = (i / (D / 4)) * (D + 4) + (i % (D / 4)) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + o);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// acc (this warp's 16 rows x 8 columns per n-tile) += A B over k = D: A (16 x
+// D) from ldmatrix at row `a_base` of a [.][D + 4] tile, B stored [n][k]
+// (rows from `b_base` of a [.][D + 4] tile, two n-tiles per ldmatrix). The A
+// operand is the resident tile (K or V rows in dK/dV, q or dO rows in dQ),
+// split where loaded, B the streamed one: split where loaded, or with
+// kPlanes its hi (`b_base`) and lo (`bl_base`) planes. Two k blocks a step.
+template <int D, int NT, bool kPlanes>
+__device__ __forceinline__ void rows_dot_rows(float acc[NT][4], uint32_t a_base,
+                                              uint32_t b_base, uint32_t bl_base, int lane) {
+  constexpr int LDB = (D + 4) * 4;  // bytes per row
+  const int r = lane & 7, j = lane >> 3;
+  // A blocks: (rows 0-7, k 0-3), (rows 8-15, k 0-3), (rows 0-7, k 4-7), (rows 8-15, k 4-7).
+  const uint32_t a_addr = a_base + (r + 8 * (j & 1)) * LDB + 16 * (j >> 1);
+  // B blocks: (n 0-7, k 0-3), (n 0-7, k 4-7), (n 8-15, k 0-3), (n 8-15, k 4-7).
+  const uint32_t b_off = (r + 8 * (j >> 1)) * LDB + 16 * (j & 1);
+#pragma unroll 1
+  for (int kc = 0; kc < D / 8; kc += 2) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t x[4];
+      ldsm_x4(x, a_addr + 32 * (kc + h));
+      split4(x, ah[h], al[h]);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bh[2][4], bl[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t off = b_off + 16 * np * LDB + 32 * (kc + h);
+        if constexpr (kPlanes) {
+          ldsm_x4(bh[h], b_base + off);
+          ldsm_x4(bl[h], bl_base + off);
+        } else {
+          uint32_t x[4];
+          ldsm_x4(x, b_base + off);
+          split4(x, bh[h], bl[h]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {  // n-tiles 2np and 2np + 1
+        const uint32_t mh[2][2] = {{bh[0][2 * m], bh[0][2 * m + 1]},
+                                   {bh[1][2 * m], bh[1][2 * m + 1]}};
+        const uint32_t ml[2][2] = {{bl[0][2 * m], bl[0][2 * m + 1]},
+                                   {bl[1][2 * m], bl[1][2 * m + 1]}};
+        mma_3xtf32_x2(acc[2 * np + m], ah, al, mh, ml);
+      }
+    }
+  }
+}
+
+// acc (16 rows x D columns) += A M, where A (16 x KT) is held as the C
+// fragments of a product whose columns are M's rows (P^T or dS^T against
+// queries, dS against keys) and M is [KT][D + 4] in shared memory (split
+// where loaded, or with kPlanes its hi `m` and lo `mlo` planes). The k axis
+// is permuted within each block of 8 (fragment k index t is column 2t, t + 4
+// is 2t + 1), so the C registers serve as A fragments as they are and B
+// reads rows 2t and 2t + 1 of M. Two k blocks per step.
+template <int D, int KT, bool kPlanes>
+__device__ __forceinline__ void frag_times_rows(float acc[D / 8][4], const float a[KT / 8][4],
+                                                const float* m, const float* mlo, int lane) {
   constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a1[4], b1[4], a2[4], b2[4];
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a1[r] = *reinterpret_cast<const float4*>(A1 + (4 * ty + r) * LD + d);
-      a2[r] = *reinterpret_cast<const float4*>(A2 + (4 * ty + r) * LD + d);
-      b1[r] = *reinterpret_cast<const float4*>(B1 + (tx + 16 * r) * LD + d);
-      b2[r] = *reinterpret_cast<const float4*>(B2 + (tx + 16 * r) * LD + d);
+  for (int kc = 0; kc < KT / 8; kc += 2) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      split_tf32(a[kc + h][0], ah[h][0], al[h][0]);
+      split_tf32(a[kc + h][2], ah[h][1], al[h][1]);
+      split_tf32(a[kc + h][1], ah[h][2], al[h][2]);
+      split_tf32(a[kc + h][3], ah[h][3], al[h][3]);
     }
+    const int o = (8 * kc + 2 * t) * LD + g;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2][2], bl[2][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = acc1[r][i], y = acc2[r][i];
-        x = fmaf(a1[r].x, b1[i].x, x);
-        x = fmaf(a1[r].y, b1[i].y, x);
-        x = fmaf(a1[r].z, b1[i].z, x);
-        x = fmaf(a1[r].w, b1[i].w, x);
-        y = fmaf(a2[r].x, b2[i].x, y);
-        y = fmaf(a2[r].y, b2[i].y, y);
-        y = fmaf(a2[r].z, b2[i].z, y);
-        y = fmaf(a2[r].w, b2[i].w, y);
-        acc1[r][i] = x;
-        acc2[r][i] = y;
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int at = o + (8 * h + e) * LD + 8 * n;
+          if constexpr (kPlanes) {
+            bh[h][e] = __float_as_uint(m[at]);
+            bl[h][e] = __float_as_uint(mlo[at]);
+          } else {
+            split_tf32(m[at], bh[h][e], bl[h][e]);
+          }
+        }
       }
+      mma_3xtf32_x2(acc[n], ah, al, bh, bl);
     }
   }
 }
 
-// acc[r][c] += sum_j Pm[4ty + r][j] * M[j][64cj + 4tx + c] over 64 rows j
-// of M (ld D + 4); Pm [64][68].
+// This warp's 16 rows of a (T_, D) fp32 gradient, times `mul`, from C
+// fragments: rows row0 + g and row0 + g + 8 (if < T_), columns 8n + 2t, +1.
 template <int D>
-__device__ __forceinline__ void rows_times_tile(float acc[4][D / 16], const float* Pm,
-                                                const float* M, int ty, int tx) {
-  constexpr int CJ = D / 64;
-#pragma unroll 4
-  for (int j = 0; j < kBT; ++j) {
-    float p[4];
+__device__ __forceinline__ void store_frag_rows(float* __restrict__ dst, const float acc[D / 8][4],
+                                                size_t rs, int row0, int T_, float mul,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) p[r] = Pm[(4 * ty + r) * (kBT + 4) + j];
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + g + 8 * hf;
+    if (row >= T_) continue;
 #pragma unroll
-    for (int cj = 0; cj < CJ; ++cj) {
-      const float4 m = *reinterpret_cast<const float4*>(M + j * (D + 4) + 64 * cj + 4 * tx);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[r][4 * cj + 0] = fmaf(p[r], m.x, acc[r][4 * cj + 0]);
-        acc[r][4 * cj + 1] = fmaf(p[r], m.y, acc[r][4 * cj + 1]);
-        acc[r][4 * cj + 2] = fmaf(p[r], m.z, acc[r][4 * cj + 2]);
-        acc[r][4 * cj + 3] = fmaf(p[r], m.w, acc[r][4 * cj + 3]);
-      }
-    }
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dst + (size_t)row * rs + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hf] * mul, acc[n][2 * hf + 1] * mul);
   }
 }
 
-// Rows 4ty..4ty+3 of a (64, D) accumulator, times `mul`, to rows row0 + r < T_.
-template <int D>
-__device__ __forceinline__ void store_rows_f32(float* __restrict__ dst, const float acc[4][D / 16],
-                                               size_t head, size_t rs, int row0, int T_,
-                                               float mul, int ty, int tx) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = row0 + 4 * ty + r;
-    if (j >= T_) continue;
-#pragma unroll
-    for (int cj = 0; cj < D / 64; ++cj) {
-      const float4 val = make_float4(acc[r][4 * cj] * mul, acc[r][4 * cj + 1] * mul,
-                                     acc[r][4 * cj + 2] * mul, acc[r][4 * cj + 3] * mul);
-      *reinterpret_cast<float4*>(dst + head + (size_t)j * rs + 64 * cj + 4 * tx) = val;
-    }
-  }
-}
-
-template <int D>
-constexpr size_t smem_f32() {  // four [64][D+4] tiles, two [64][68] tiles, L and D
-  return sizeof(float) * (size_t)(4 * kBT * (D + 4) + 2 * kBT * (kBT + 4) + 2 * kBT);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32) dkv_f32_kernel(
+// dK and dV: one CTA per block of 16 W keys of one (sample, head), warp w
+// owning keys 16w .. 16w + 15; K and V stay in shared memory and 32-query
+// tiles of q, dO, L and D stream through two stages of cp.async, q and dO
+// split into hi and lo planes once per tile (every warp reads all of them).
+// Per tile: S^T = K q^T (A: K rows, B: q rows as stored), P^T = exp2(S^T
+// scale log2(e) - L log2(e)) in registers, dV += P^T dO with P^T as A
+// fragments; then dP^T = V dO^T, dS^T = P^T (dP^T - D), dK += dS^T q (dP^T
+// after dV: one tile of logits fewer live while dV runs). Query rows past
+// Tq are zeros (q, dO, L and D), so their P^T = 1 meets dO = q = 0 and adds
+// exactly nothing.
+template <int D, int W>
+__global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dkv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Tq,
     int Tk, int N, float scale, float scale_log2) {
-  constexpr int LD = D + 4, LDP = kBT + 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);  // [key][d]
-  float* vs = ks + kBT * LD;                        // [key][d]
-  float* qs = vs + kBT * LD;                        // [query][d]
-  float* dos = qs + kBT * LD;                       // [query][d]
-  float* pts = dos + kBT * LD;                      // P^T [key][query]
-  float* dsts = pts + kBT * LDP;                    // dS^T [key][query]
-  float* lse_s = dsts + kBT * LDP;
-  float* delta_s = lse_s + kBT;
+  using L = F32Layout<D, W, true>;
+  constexpr int LD = L::kLd, BQ = L::kWalk, NT = BQ / 8;
+  extern __shared__ __align__(16) float smem_f[];
+  float* ks = smem_f;                    // [key][d]
+  float* vs = ks + L::kRows * LD;        // [key][d]
+  float* stages = vs + L::kRows * LD;    // per stage: q, dO hi and lo [query][d], L, D
 
-  const int j0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int j0 = blockIdx.x * L::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
   const size_t rs = (size_t)N * D;
-  const size_t qhead = (size_t)b * Tq * rs + (size_t)h * D;
+  const float* qh = q + (size_t)b * Tq * rs + (size_t)h * D;
+  const float* oh = dout + (size_t)b * Tq * rs + (size_t)h * D;
   const size_t khead = (size_t)b * Tk * rs + (size_t)h * D;
   const size_t srow = ((size_t)b * N + h) * Tq;
-  stage_f32<D>(k, khead, rs, j0, Tk, ks, tid);
-  stage_f32<D>(v, khead, rs, j0, Tk, vs, tid);
+  const int n_tiles = (Tq + BQ - 1) / BQ;
 
-  float dka[4][D / 16], dva[4][D / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dka[r][c] = dva[r][c] = 0.f;
-
-  for (int qb = 0; qb < Tq; qb += kBT) {
-    __syncthreads();  // previous tile consumed (and the K/V staging above)
-    stage_f32<D>(q, qhead, rs, qb, Tq, qs, tid);
-    stage_f32<D>(dout, qhead, rs, qb, Tq, dos, tid);
-    for (int r = tid; r < kBT; r += kThreadsF32) {
-      const int tok = qb + r;
-      lse_s[r] = tok < Tq ? lse[srow + tok] * kLog2e : INFINITY;  // +inf: P = 0
-      delta_s[r] = tok < Tq ? delta[srow + tok] : 0.f;
+  auto load_tile = [&](int it) {
+    float* st = stages + (it & 1) * L::kStage;
+    const int q0 = it * BQ;
+    stage_rows<D>(st, qh, rs, BQ, q0, Tq, tid, L::kThreads);
+    stage_rows<D>(st + 2 * BQ * LD, oh, rs, BQ, q0, Tq, tid, L::kThreads);
+    for (int i = tid; i < BQ; i += L::kThreads) {
+      const bool in = q0 + i < Tq;
+      cp_async4_zfill(st + 4 * BQ * LD + i, lse + (in ? srow + q0 + i : 0), in ? 4 : 0);
+      cp_async4_zfill(st + 4 * BQ * LD + BQ + i, delta + (in ? srow + q0 + i : 0), in ? 4 : 0);
     }
+  };
+  stage_rows<D>(ks, k + khead, rs, L::kRows, j0, Tk, tid, L::kThreads);
+  stage_rows<D>(vs, v + khead, rs, L::kRows, j0, Tk, tid, L::kThreads);
+  load_tile(0);
+  vfm::cp_async_commit();
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const uint32_t k_base = vfm::smem_u32(ks + 16 * warp * LD);
+  const uint32_t v_base = vfm::smem_u32(vs + 16 * warp * LD);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    vfm::cp_async_commit();
+    cp_async_wait<1>();  // every group but the newest: tile it (and K, V) landed
+    __syncthreads();
+    float* qs = stages + (it & 1) * L::kStage;  // hi planes, then lo
+    float* ql = qs + BQ * LD;
+    float* dos = ql + BQ * LD;
+    float* dol = dos + BQ * LD;
+    const float* ls = dol + BQ * LD;
+    const float* ds = ls + BQ;
+    split_rows<D>(qs, ql, BQ, tid, L::kThreads);
+    split_rows<D>(dos, dol, BQ, tid, L::kThreads);
     __syncthreads();
 
-    // S^T = K q^T and dP^T = V dO^T: keys 4ty + r x queries tx + 16i.
-    float st[4][4], dpt[4][4];
+    float st[NT][4], dpt[NT][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) st[r][i] = dpt[r][i] = 0.f;
-    dots4x4<D>(st, dpt, ks, qs, vs, dos, ty, tx);
+      for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
+    rows_dot_rows<D, NT, true>(st, k_base, vfm::smem_u32(qs), vfm::smem_u32(ql),
+                               lane);  // S^T = K q^T
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int n = 0; n < NT; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int jq = tx + 16 * i;
-        const float p = exp2f(st[r][i] * scale_log2 - lse_s[jq]);
-        pts[(4 * ty + r) * LDP + jq] = p;
-        dsts[(4 * ty + r) * LDP + jq] = p * (dpt[r][i] - delta_s[jq]);
-      }
+      for (int e = 0; e < 4; ++e)  // P^T
+        st[n][e] = vfm::ex2(fmaf(st[n][e], scale_log2, -((e & 1) ? l.y : l.x) * kLog2e));
     }
-    __syncthreads();
-    rows_times_tile<D>(dva, pts, dos, ty, tx);   // dV += P^T dO
-    rows_times_tile<D>(dka, dsts, qs, ty, tx);   // dK += dS^T q
+    frag_times_rows<D, BQ, true>(dva, st, dos, dol, lane);  // dV += P^T dO
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
+    rows_dot_rows<D, NT, true>(dpt, v_base, vfm::smem_u32(dos), vfm::smem_u32(dol),
+                               lane);  // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 dd = *reinterpret_cast<const float2*>(ds + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpt[n][e] = st[n][e] * (dpt[n][e] - ((e & 1) ? dd.y : dd.x));
+    }
+    frag_times_rows<D, BQ, true>(dka, dpt, qs, ql, lane);  // dK += dS^T q
+    __syncthreads();  // this stage is refilled at iteration it + 1
   }
-  store_rows_f32<D>(dk, dka, khead, rs, j0, Tk, scale, ty, tx);
-  store_rows_f32<D>(dv, dva, khead, rs, j0, Tk, 1.f, ty, tx);
+  store_frag_rows<D>(dk + khead, dka, rs, j0 + 16 * warp, Tk, scale, lane);
+  store_frag_rows<D>(dv + khead, dva, rs, j0 + 16 * warp, Tk, 1.f, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32) dq_f32_kernel(
+// dQ: one CTA per block of 16 W queries, warp w owning queries 16w ..
+// 16w + 15; q and dO stay in shared memory, 64-key tiles of K and V stream
+// through two stages. Per tile: S = q K^T and dP = dO V^T, P = exp2(S scale
+// log2(e) - L log2(e)) (0 for keys past Tk) and dS = P (dP - D) in
+// registers, dQ += dS K with dS as A fragments. L and D of the warp's rows
+// stay in registers (+inf and 0 past Tq: P = 0).
+template <int D, int W>
+__global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int Tq, int Tk, int N, float scale,
     float scale_log2) {
-  constexpr int LD = D + 4, LDP = kBT + 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [query][d]
-  float* dos = qs + kBT * LD;                       // [query][d]
-  float* ks = dos + kBT * LD;                       // [key][d]
-  float* vs = ks + kBT * LD;                        // [key][d]
-  float* dss = vs + kBT * LD;                       // dS [query][key]
+  using L = F32Layout<D, W, false>;
+  constexpr int LD = L::kLd, BK = L::kWalk, NT = BK / 8;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                    // [query][d]
+  float* dos = qs + L::kRows * LD;       // [query][d]
+  float* stages = dos + L::kRows * LD;   // per stage: K, V [key][d]
 
-  const int q0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = blockIdx.x * L::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const size_t rs = (size_t)N * D;
   const size_t qhead = (size_t)b * Tq * rs + (size_t)h * D;
-  const size_t khead = (size_t)b * Tk * rs + (size_t)h * D;
+  const float* kh = k + (size_t)b * Tk * rs + (size_t)h * D;
+  const float* vh = v + (size_t)b * Tk * rs + (size_t)h * D;
   const size_t srow = ((size_t)b * N + h) * Tq;
-  stage_f32<D>(q, qhead, rs, q0, Tq, qs, tid);
-  stage_f32<D>(dout, qhead, rs, q0, Tq, dos, tid);
-  float lr[4], dr[4];
+  const int n_tiles = (Tk + BK - 1) / BK;
+
+  auto load_tile = [&](int it) {
+    float* st = stages + (it & 1) * L::kStage;
+    stage_rows<D>(st, kh, rs, BK, it * BK, Tk, tid, L::kThreads);
+    stage_rows<D>(st + BK * LD, vh, rs, BK, it * BK, Tk, tid, L::kThreads);
+  };
+  stage_rows<D>(qs, q + qhead, rs, L::kRows, q0, Tq, tid, L::kThreads);
+  stage_rows<D>(dos, dout + qhead, rs, L::kRows, q0, Tq, tid, L::kThreads);
+  load_tile(0);
+  vfm::cp_async_commit();
+
+  float lr[2], dr[2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int tok = q0 + 4 * ty + r;
-    lr[r] = tok < Tq ? lse[srow + tok] * kLog2e : INFINITY;
-    dr[r] = tok < Tq ? delta[srow + tok] : 0.f;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = q0 + 16 * warp + g + 8 * hf;
+    lr[hf] = row < Tq ? lse[srow + row] * kLog2e : INFINITY;
+    dr[hf] = row < Tq ? delta[srow + row] : 0.f;
   }
-
-  float dqa[4][D / 16];
+  float dqa[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dqa[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  const uint32_t q_base = vfm::smem_u32(qs + 16 * warp * LD);
+  const uint32_t o_base = vfm::smem_u32(dos + 16 * warp * LD);
 
-  for (int kb = 0; kb < Tk; kb += kBT) {
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    vfm::cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    stage_f32<D>(k, khead, rs, kb, Tk, ks, tid);
-    stage_f32<D>(v, khead, rs, kb, Tk, vs, tid);
-    __syncthreads();
+    const float* kts = stages + (it & 1) * L::kStage;
+    const float* vts = kts + BK * LD;
 
-    // S = q K^T and dP = dO V^T: queries 4ty + r x keys tx + 16i.
-    float s[4][4], dp[4][4];
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[r][i] = dp[r][i] = 0.f;
-    dots4x4<D>(s, dp, qs, ks, dos, vs, ty, tx);
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    rows_dot_rows<D, NT, false>(s, q_base, vfm::smem_u32(kts), 0, lane);   // S = q K^T
+    rows_dot_rows<D, NT, false>(dp, o_base, vfm::smem_u32(vts), 0, lane);  // dP = dO V^T
+    const int kb = it * BK;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = kb + tx + 16 * i;
-        const float p = j < Tk ? exp2f(s[r][i] * scale_log2 - lr[r]) : 0.f;
-        dss[(4 * ty + r) * LDP + tx + 16 * i] = p * (dp[r][i] - dr[r]);
+      for (int e = 0; e < 4; ++e) {
+        const int key = kb + 8 * n + 2 * t + (e & 1);
+        const float p = key < Tk ? vfm::ex2(fmaf(s[n][e], scale_log2, -lr[e >> 1])) : 0.f;
+        s[n][e] = p * (dp[n][e] - dr[e >> 1]);  // dS
       }
     }
+    frag_times_rows<D, BK, false>(dqa, s, kts, nullptr, lane);  // dQ += dS K
     __syncthreads();
-    rows_times_tile<D>(dqa, dss, ks, ty, tx);  // dQ += dS K
   }
-  store_rows_f32<D>(dq, dqa, qhead, rs, q0, Tq, scale, ty, tx);
+  store_frag_rows<D>(dq + qhead, dqa, rs, q0 + 16 * warp, Tq, scale, lane);
 }
-
 
 // Consumer warpgroups per CTA of a bf16 backward kernel whose work tiles are
 // blocks of T rows (keys for dK/dV, queries for dQ) on `sms` SMs: one (64
@@ -964,32 +1182,32 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const v
   return err;
 }
 
-template <int D>
+template <int D, int W>
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, void* dk, void* dv, int B,
                            int Tq, int Tk, int N, float scale, cudaStream_t s) {
-  constexpr size_t smem = smem_f32<D>();
+  using L = F32Layout<D, W, true>;
   static std::atomic<unsigned long long> attr_done{0};
-  const cudaError_t err = vfm::smem_limit_once(dkv_f32_kernel<D>, (int)smem, attr_done);
+  const cudaError_t err = vfm::smem_limit_once(dkv_f32_kernel<D, W>, L::kSmem, attr_done);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tk + kBT - 1) / kBT, N, B);
-  dkv_f32_kernel<D><<<grid, kThreadsF32, smem, s>>>(
+  dim3 grid((Tk + L::kRows - 1) / L::kRows, N, B);
+  dkv_f32_kernel<D, W><<<grid, L::kThreads, L::kSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), Tq, Tk, N, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int W>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dq, int B, int Tq, int Tk,
                           int N, float scale, cudaStream_t s) {
-  constexpr size_t smem = smem_f32<D>();
+  using L = F32Layout<D, W, false>;
   static std::atomic<unsigned long long> attr_done{0};
-  const cudaError_t err = vfm::smem_limit_once(dq_f32_kernel<D>, (int)smem, attr_done);
+  const cudaError_t err = vfm::smem_limit_once(dq_f32_kernel<D, W>, L::kSmem, attr_done);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tq + kBT - 1) / kBT, N, B);
-  dq_f32_kernel<D><<<grid, kThreadsF32, smem, s>>>(
+  dim3 grid((Tq + L::kRows - 1) / L::kRows, N, B);
+  dq_f32_kernel<D, W><<<grid, L::kThreads, L::kSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), Tq, Tk, N, scale,
       scale * kLog2e);
@@ -1005,12 +1223,17 @@ cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const vo
   if (out != nullptr &&
       (err = launch_delta<float, D>(out, dout, delta, B, Tq, N, s)) != cudaSuccess)
     return err;
-  if (dk != nullptr &&
-      (err = launch_dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, N, scale, s)) !=
-          cudaSuccess)
-    return err;
+  const int sms = vfm::sm_count();
+  if (dk != nullptr) {
+    err = f32_warps(B, Tk, N, sms) == 4
+              ? launch_dkv_f32<D, 4>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, N, scale, s)
+              : launch_dkv_f32<D, 2>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, N, scale, s);
+    if (err != cudaSuccess) return err;
+  }
   if (dq != nullptr)
-    err = launch_dq_f32<D>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, N, scale, s);
+    err = f32_warps(B, Tq, N, sms) == 4
+              ? launch_dq_f32<D, 4>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, N, scale, s)
+              : launch_dq_f32<D, 2>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, N, scale, s);
   return err;
 }
 
@@ -1089,5 +1312,31 @@ extern "C" int vfm_flash_bwd_plan(int B, int Tq, int Tk, int N, int D, int sms, 
     q2 ? fill(plan + 7, DqLayout<128, 2>{}, Tq) : fill(plan + 7, DqLayout<128, 1>{}, Tq);
   }
   plan[14] = kPrepassRows;
+  return 0;
+}
+
+// The fp32 backward's launch plan for q (B, Tq, N, D), k (B, Tk, N, D) on a
+// card with `sms` SMs. plan[0..5], the dK/dV kernel: warps per CTA, keys per
+// CTA, queries per streamed tile, stages, dynamic shared memory in bytes,
+// CTAs; plan[6..11] the same for the dQ kernel (queries per CTA, keys per
+// streamed tile).
+extern "C" int vfm_flash_bwd_f32_plan(int B, int Tq, int Tk, int N, int D, int sms, int* plan) {
+  if ((D != 64 && D != 128) || Tq <= 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
+  auto fill = [&](int* p, auto layout, int T) {
+    using L = decltype(layout);
+    const int vals[6] = {L::kThreads / 32, L::kRows, L::kWalk, L::kStages, L::kSmem,
+                         (T + L::kRows - 1) / L::kRows * N * B};
+    for (int i = 0; i < 6; ++i) p[i] = vals[i];
+  };
+  const bool k4 = f32_warps(B, Tk, N, sms) == 4, q4 = f32_warps(B, Tq, N, sms) == 4;
+  if (D == 64) {
+    k4 ? fill(plan, F32Layout<64, 4, true>{}, Tk) : fill(plan, F32Layout<64, 2, true>{}, Tk);
+    q4 ? fill(plan + 6, F32Layout<64, 4, false>{}, Tq)
+       : fill(plan + 6, F32Layout<64, 2, false>{}, Tq);
+  } else {
+    k4 ? fill(plan, F32Layout<128, 4, true>{}, Tk) : fill(plan, F32Layout<128, 2, true>{}, Tk);
+    q4 ? fill(plan + 6, F32Layout<128, 4, false>{}, Tq)
+       : fill(plan + 6, F32Layout<128, 2, false>{}, Tq);
+  }
   return 0;
 }

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "vfm_flash_fwd_plan": [_I, _I, _I, _I, _I, _P],
     "vfm_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P],
     "vfm_flash_bwd_plan": [_I, _I, _I, _I, _I, _I, _P],
+    "vfm_flash_bwd_f32_plan": [_I, _I, _I, _I, _I, _I, _P],
     "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vfm_channel_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vfm_dwconv_tiles": [_I, _I],

@@ -37,8 +37,11 @@ key 0 of k; head dims 64 and 128; bf16 operands on the tensor cores, or
 fp32 operands (the adapter computes in fp32) with fp32 FMA on the CUDA cores
 and no TF32. Its backward (`FlashAttentionNoNull`, K4-dkv and K4-dq)
 replaces the same two library backward kernels as K3's: no-null modes of
-K3's backward kernels in bf16 (d = 64, 128) and an fp32 FMA variant, from
-the per-row log-sum-exp that K4's forward writes when autograd records.
+K3's backward kernels in bf16 (d = 64, 128), and in fp32 two kernels of
+their own with every product on the tensor cores as 3xTF32 (mma.sync, each
+operand split into TF32 hi and lo parts, fp32 accumulation: fp32's accuracy,
+not TF32's; backward_plan_f32 mirrors their launch plan), from the per-row
+log-sum-exp that K4's forward writes when autograd records.
 """
 
 from __future__ import annotations
@@ -176,6 +179,30 @@ def backward_plan(B: int, Tq: int, Tk: int, N: int, D: int, sms: int = 132) -> d
     return dict(dkv=kernel(Tk, Tq, 2 * BWD_TILE), dq=kernel(Tq, Tk, 0), box=(64, 1, BWD_TILE, 1),
                 boxes_per_row=boxes, prepass_rows=PREPASS_ROWS,
                 null_chunks=-(-Tq // PREPASS_ROWS))
+
+
+def backward_plan_f32(B: int, Tq: int, Tk: int, N: int, D: int, sms: int = 132) -> dict:
+    """The fp32 backward's launch plan (3xTF32 on mma.sync) for q (B, Tq, N,
+    D), k (B, Tk, N, D) on a card with `sms` SMs, as the C side computes it
+    (vfm_flash_bwd_f32_plan). `dkv`: one CTA per block of 16 x warps keys (K
+    and V resident), q, dO, L and D streamed in tiles of 32 queries, q and
+    dO held as hi and lo planes; `dq`: one CTA per block of 16 x warps
+    queries (q and dO resident), K and V streamed in tiles of 64 keys. Four
+    warps per CTA unless B * N * ceil(T / 64) < `sms`, then two; two
+    cp.async stages; shared memory in rows of D + 4 floats."""
+    if D not in (64, 128):
+        raise ValueError(f"head dim {D}: the fp32 backward takes 64 or 128")
+    ld = D + 4
+
+    def kernel(T: int, T_walk: int, dkv: bool) -> dict:
+        warps = 4 if B * N * -(-T // 64) >= sms else 2
+        rows, walk = 16 * warps, 32 if dkv else 64
+        stage = 4 * walk * ld + 2 * walk if dkv else 2 * walk * ld
+        return dict(warps=warps, rows=rows, tile=walk, stages=2, threads=32 * warps,
+                    smem_bytes=4 * (2 * rows * ld + 2 * stage), ctas=-(-T // rows) * N * B,
+                    walk_tiles=-(-T_walk // walk))
+
+    return dict(dkv=kernel(Tk, Tq, True), dq=kernel(Tq, Tk, False))
 
 
 def _check_forward(name: str, dtype, dev, specs) -> None:
