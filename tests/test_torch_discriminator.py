@@ -177,17 +177,17 @@ def test_equivariance_transform_draws_like_jax():
     assert EquivarianceTransform(False)(ra) == (1.0, 0, False)
 
 
-def test_d_loss_matches_jax(tmp_path):
+def test_d_loss_matches_jax(disc, tmp_path):
     """The D loss and the gradient of every trainable D parameter, the
-    generator running without gradient, draws off, identity EQ bucket."""
+    generator running without gradient, draws off, identity EQ bucket. D's
+    variables are the module fixture's (one XLA compile of D's init for the
+    file); the port's D is loaded from them afresh."""
     kw = dict(_tiny_g_kwargs(write_tiny_siglip(tmp_path / "siglip2-tiny-patch8-32")),
               use_adaptive_vf_loss=True)
-    jg, jd = JaxG(**kw), JaxD(c_dim=0, vfm_name="siglip2", dino_kwargs=TINY_DINO)
-    dv = fast_jit(lambda r: jd.init({"params": r}, jnp.zeros((1, 32, 32, 3)), train=False),
-                  jax.random.key(3, impl="unsafe_rbg"))
+    jd, dp, db, _ = disc
+    jg = JaxG(**kw)
     gp, gb = jax_variables_from_port(kw, seed=3)
     gp = randomize_zero_init(gp)
-    dp, db = np_tree(dv["params"]), np_tree(dv["buffers"])
     jloss = JaxTotalLoss(jg, jd, vfm_name="siglip2", use_equivariance_regularization=True)
     real = np.random.default_rng(4).random((2, 32, 32, 3)).astype(np.float32)
     eq = (1.0, 0, False)

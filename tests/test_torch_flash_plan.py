@@ -55,11 +55,11 @@ def test_forward_validation_refuses_what_the_kernel_does_not_take():
     shape or a non-contiguous tensor raises ValueError before any launch."""
     q = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        fa._check_forward("k", torch.bfloat16, q.device, ((q, "q", q.shape),))
+        fa.check_all("k", torch.bfloat16, q.device, ((q, "q", q.shape),))
     meta = torch.device("meta")
     qm = q.to(meta)
     with pytest.raises(ValueError):
-        fa._check_forward("k", torch.bfloat16, meta, ((qm, "q", qm.shape),))
+        fa.check_all("k", torch.bfloat16, meta, ((qm, "q", qm.shape),))
     before = (fa.flash_attention_nullkv.launches, fa.flash_attention_nonull.launches)
     with pytest.raises(ValueError):
         fa._launch_nonull(qm, qm.float(), qm, 0.125, False)

@@ -154,6 +154,87 @@ def test_int8_matmul_matches_twin_on_gpu(cuda, M, K, N):
     assert torch.equal(kernels.int8_matmul_raw(xq, wq), kernels.int8_matmul_raw(xq, wq, plain=True))
 
 
+def _int8_inputs(dev, M, K, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(M, K, generator=g, device=dev) * 2).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand(N, generator=g, device=dev) * 1e-2 + 1e-4
+    b = torch.randn(N, generator=g, device=dev)
+    a_s = x.float().abs().amax() / 127 * 0.5  # clips the top half of the range
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+    return x, wq, ws, b, a_s, xq
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4, 32])
+@pytest.mark.parametrize("K,N", [(1024, 1024), (1024, 4096), (4096, 1024)])
+def test_int8_matmul_is_bit_exact_at_served_shapes_on_gpu(cuda, B, K, N):
+    """K6 (dynamic, static) and K10 at the tower's Linear shapes of a
+    serving request (B=4, 128 x 128 tiles) and of the prefetch batch (B=32,
+    128 x 256 tiles): bit for bit against their twins, and again on repeat."""
+    x, wq, ws, b, a_s, xq = _int8_inputs(cuda, 1024 * B, K, N, K + N + B)
+    for args in ((x, wq, ws, b), (x, wq, ws, b, a_s)):
+        got = kernels.int8_matmul(*args)
+        again = kernels.int8_matmul(*args)
+        ref = kernels.int8_matmul(*args, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), len(args)
+        assert torch.equal(got, again), len(args)
+    got, again = kernels.int8_matmul_raw(xq, wq), kernels.int8_matmul_raw(xq, wq)
+    assert torch.equal(got, kernels.int8_matmul_raw(xq, wq, plain=True))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(2048, 1024, 1024), (4096, 1024, 1024), (32768, 1024, 1024),
+                                   (32768, 4096, 1024), (2048, 1024, 4096), (77, 4096, 1024),
+                                   (300, 96, 136)])
+def test_int8_plan_mirror_matches_the_c_export_on_gpu(cuda, M, K, N):
+    """ops/kernels/int8_matmul.plan against vfm_int8_matmul_plan, for the
+    card's SM count and for 132, in every mode."""
+    import ctypes
+    import importlib
+
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    mod = importlib.import_module("vfm_vae_tpu_torch.ops.kernels.int8_matmul")
+    lib = library().lib
+    for sms in (torch.cuda.get_device_properties(cuda).multi_processor_count, 132):
+        for mode, code in mod.MODES.items():
+            buf = (ctypes.c_int * len(mod.PLAN_KEYS))()
+            assert lib.vfm_int8_matmul_plan(M, N, K, code, sms, buf) == 0
+            want = mod.plan(M, N, K, mode, sms)
+            assert list(buf) == [int(want[k]) for k in mod.PLAN_KEYS], (mode, sms)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_refuses_what_it_does_not_take_on_gpu(cuda):
+    """K % 32 != 0 and N % 8 != 0 raise before any launch, through the
+    wrappers and at the C entry point."""
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    x, wq, ws, b, _, xq = _int8_inputs(cuda, 64, 96, 64, 3)
+    before = (kernels.int8_matmul.launches, kernels.int8_matmul_raw.launches)
+    with pytest.raises(ValueError):
+        kernels.int8_matmul(x[:, :80].contiguous(), wq[:, :80].contiguous(), ws, b)
+    with pytest.raises(ValueError):
+        kernels.int8_matmul(x, wq[:60].contiguous(), ws[:60].contiguous(), b[:60].contiguous())
+    with pytest.raises(ValueError):
+        kernels.int8_matmul_raw(xq[:, :80].contiguous(), wq[:, :80].contiguous())
+    with pytest.raises(ValueError):
+        kernels.int8_matmul_raw(xq, wq[:60].contiguous())
+    assert (kernels.int8_matmul.launches, kernels.int8_matmul_raw.launches) == before
+    lib = library()
+    out = torch.empty(64, 64, dtype=torch.int8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for M, N, K in ((64, 64, 80), (64, 60, 96)):
+        err = lib.lib.vfm_int8_matmul(xq.data_ptr(), wq.data_ptr(), None, None, None,
+                                      out.data_ptr(), M, N, K, 2, stream)
+        assert err != 0
+        with pytest.raises(RuntimeError):
+            lib.check(err, "int8_matmul")
+
+
 @pytest.mark.gpu
 def test_int8_matmul_rounds_ties_to_even_on_gpu(cuda):
     """Rows with absmax 127 (scale 1) and entries on .5: with an identity

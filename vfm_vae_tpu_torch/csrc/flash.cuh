@@ -57,6 +57,12 @@ __device__ __forceinline__ void fence_all(float (&r)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_all(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(r[i]);
+}
+
+template <int N>
 __device__ __forceinline__ void fence_all(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)

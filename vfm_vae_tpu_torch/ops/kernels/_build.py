@@ -48,6 +48,7 @@ _SIGNATURES = {
     "vfm_flash_bwd_plan": [_I, _I, _I, _I, _I, _I, _P],
     "vfm_flash_bwd_f32_plan": [_I, _I, _I, _I, _I, _I, _P],
     "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vfm_int8_matmul_plan": [_I, _I, _I, _I, _I, _P],
     "vfm_channel_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vfm_dwconv_tiles": [_I, _I],
     "vfm_dwconv_noise_stats": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
@@ -133,6 +134,25 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_all(name: str, dtype, dev, specs) -> None:
+    """One pass over (tensor, label, shape): raise ValueError unless each is
+    a contiguous tensor of `dtype` and `shape` on the CUDA device `dev`."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
+    for t, label, shape in specs:
+        if t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+            check_tensor(t, label, dtype, shape, dev)  # raises with the reason
+
+
+def call_on(dev, fn, *args) -> int:
+    """fn(*args, stream) with `dev`'s current raw stream; switches the
+    current device only when `dev` is not it already."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def library() -> KernelLibrary:

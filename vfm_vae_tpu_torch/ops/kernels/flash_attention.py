@@ -50,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from ._build import check_tensor, library, refuse_grad
+from ._build import call_on, check_all, check_tensor, library, refuse_grad
 
 
 def flash_attention_nullkv_reference(q, k, v, null_k, null_v, scale: Optional[float] = None,
@@ -205,38 +205,19 @@ def backward_plan_f32(B: int, Tq: int, Tk: int, N: int, D: int, sms: int = 132) 
     return dict(dkv=kernel(Tk, Tq, True), dq=kernel(Tq, Tk, False))
 
 
-def _check_forward(name: str, dtype, dev, specs) -> None:
-    """One pass over (tensor, label, shape): raise ValueError unless each is
-    a contiguous tensor of `dtype` and `shape` on the CUDA device `dev`."""
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
-    for t, label, shape in specs:
-        if t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
-            check_tensor(t, label, dtype, shape, dev)  # raises with the reason
-
-
-def _call_on(dev, fn, *args) -> int:
-    """fn(*args, stream) with `dev`'s current stream; switches the current
-    device only when `dev` is not it already."""
-    if dev.index == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    with torch.cuda.device(dev):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-
-
 def _launch_forward(q, k, v, null_k, null_v, scale: float, with_lse: bool):
     refuse_grad("flash_attention_nullkv", q, k, v, null_k, null_v)
     B, T, N, D = q.shape
     if D != 64:
         raise ValueError(f"flash_attention_nullkv: head dim {D} != 64")
     dev, shape, nshape = q.device, q.shape, (B, 1, N, D)
-    _check_forward("flash_attention_nullkv", torch.bfloat16, dev,
+    check_all("flash_attention_nullkv", torch.bfloat16, dev,
                    ((q, "q", shape), (k, "k", shape), (v, "v", shape),
                     (null_k, "null_k", nshape), (null_v, "null_v", nshape)))
     lib = library()
     out = torch.empty_like(q)
     lse = torch.empty((B, N, T), dtype=torch.float32, device=dev) if with_lse else None
-    err = _call_on(dev, lib.lib.vfm_flash_attention_nullkv, q.data_ptr(), k.data_ptr(),
+    err = call_on(dev, lib.lib.vfm_flash_attention_nullkv, q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), null_k.data_ptr(), null_v.data_ptr(), out.data_ptr(),
                    lse.data_ptr() if with_lse else None, B, T, N, D, scale)
     lib.check(err, "flash_attention_nullkv")
@@ -267,8 +248,8 @@ def _launch_backward(q, k, v, null_k, null_v, out, dout, lse, scale: float, *,
         specs += [(null_k, "null_k", ns), (null_v, "null_v", ns)]
     if out is not None:
         specs.append((out, "out", qs))
-    _check_forward(name, torch.bfloat16 if null else dt, dev, specs)
-    _check_forward(name, torch.float32, dev,
+    check_all(name, torch.bfloat16 if null else dt, dev, specs)
+    check_all(name, torch.float32, dev,
                    [(lse, "lse", rows)] + ([] if delta is None else [(delta, "delta", rows)]))
     if out is None and delta is None:
         raise ValueError(f"{name}: needs `out` (to compute D) or `delta`")
@@ -307,7 +288,7 @@ def _launch_backward(q, k, v, null_k, null_v, out, dout, lse, scale: float, *,
 
     lib = library()
     if null:
-        err = _call_on(dev, lib.lib.vfm_flash_attention_nullkv_bwd, q.data_ptr(), k.data_ptr(),
+        err = call_on(dev, lib.lib.vfm_flash_attention_nullkv_bwd, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), null_k.data_ptr(), null_v.data_ptr(), ptr(out),
                        dout.data_ptr(), lse.data_ptr(), delta_ptr,
                        work + 4 * n_rows if n_part else None, ptr(g_q), ptr(g_k),
@@ -315,7 +296,7 @@ def _launch_backward(q, k, v, null_k, null_v, out, dout, lse, scale: float, *,
         lib.check(err, name)
         counters = (flash_attention_nullkv_bwd_dkv, flash_attention_nullkv_bwd_dq)
     else:
-        err = _call_on(dev, lib.lib.vfm_flash_attention_bwd, q.data_ptr(), k.data_ptr(),
+        err = call_on(dev, lib.lib.vfm_flash_attention_bwd, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), ptr(out), dout.data_ptr(), lse.data_ptr(),
                        delta_ptr, ptr(g_q), ptr(g_k), ptr(g_v), B, Tq, Tk, N, D, scale,
                        int(dt == torch.float32))
@@ -461,12 +442,12 @@ def _launch_nonull(q, k, v, scale: float, with_lse: bool):
     if D not in (64, 128) or dt not in (torch.bfloat16, torch.float32) or Tk == 0 or Tq == 0:
         _check_nonull(q, k, v, "flash_attention_nonull")  # raises with the reason
     kshape = (B, Tk, N, D)
-    _check_forward("flash_attention_nonull", dt, dev,
+    check_all("flash_attention_nonull", dt, dev,
                    ((q, "q", q.shape), (k, "k", kshape), (v, "v", kshape)))
     lib = library()
     out = torch.empty_like(q)
     lse = torch.empty((B, N, Tq), dtype=torch.float32, device=dev) if with_lse else None
-    err = _call_on(dev, lib.lib.vfm_flash_attention, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    err = call_on(dev, lib.lib.vfm_flash_attention, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    out.data_ptr(), lse.data_ptr() if with_lse else None, B, Tq, Tk, N, D, scale,
                    int(dt == torch.float32))
     lib.check(err, "flash_attention_nonull")
