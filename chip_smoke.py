@@ -36,6 +36,13 @@
    with each kernel's device time and fraction of its bound beside SDPA's
    backward alone. The K3 and K4 backward rows carry the kernels' device
    times and SDPA's backward time.
+   K1 and K9 ([kernel-mlp]) are held (twin, fp32, bit-identical repeats,
+   K9 == K1) and timed at every flagship K1 site at B=2 and B=32: events
+   and device time, the fraction of the bound (tensor cores, bytes and the
+   GELU on the CUDA cores, its SASS instruction count read from the built
+   library) and, in turns, a cuBLAS composition (two cuBLAS bf16 GEMMs and
+   PyTorch elementwise steps that store the hidden: a yardstick, not the
+   same function).
 4. Slice phase: answers three encode -> decode requests of B=4 random
    256x256 images through the kernels, checks shapes, finiteness and the
    launch counts per decode, reruns one request with the plain twins
@@ -67,7 +74,7 @@
 7. The opt-in kernels and K4's backward: K5 (GroupNorm moments) against
    its twin and fp64 sums at every K5 site of a decode and the EQ shapes,
    repeatable bit for bit; K9 (K1 pipelined) against K1 at every K1 site,
-   0 ulps; K7 and K8 (depthwise conv + statistics, and without) against
+   0 ulps, and each bit-identical on repeat; K7 and K8 (depthwise conv + statistics, and without) against
    their twins at every ConvNeXt dwconv shape; K4's backward against its
    twin and fp64 at the training path's sites (the adapter's fp32 sites,
    3xTF32 kernels, held to FLASH_FP32_MAX_REL against the twin) at B=2 and
@@ -175,6 +182,9 @@ STATS_REL = 1e-5
 # summed in another order in the fp32 accumulator: one bf16 ulp of t.
 DWCONV_ULPS = 1.0
 PER_DECODE = {"fused_convnext_mlp": 38, "fused_upsample_blur": 10, "flash_attention_nullkv": 6}
+# SASS instructions of one GELU evaluation in the built K1 (main() reads it
+# from the library with cuobjdump; probes/fused_mlp.py:gelu_instructions).
+GELU_INSTRUCTIONS = {"count": None}
 # K3's backward against its twin: the same bounds as the forward (P and dS
 # rounded to bf16 at the same points, summed in another order).
 BWD_TOLERANCE = TOLERANCES["flash_attention_nullkv"]
@@ -383,12 +393,28 @@ def work(name: str, site: dict, B: int):
     return 3 * pair, 5 * tok + 2 * null + 2 * row
 
 
+def mlp_terms(site: dict, B: int):
+    """K1's three bounds in ms for one call: the tensor-core products at the
+    bf16 peak, the bytes at 3.35 TB/s, and the GELU on the CUDA cores: T 4C
+    evaluations of GELU_INSTRUCTIONS SASS instructions each (read from the
+    built library) over 132 x 128 lanes at the fp32 peak's clock (67 TFLOP/s
+    = 2 x 132 x 128 x 1.98 GHz; the special-function unit's lower rate for
+    its instructions is not counted)."""
+    ops, byts = work("fused_convnext_mlp", site, B)
+    lanes = B * site["H"] ** 2 * 4 * site["C"] * GELU_INSTRUCTIONS["count"]
+    return (ops / PEAK_BF16_FLOPS * 1e3, byts / PEAK_BYTES_PER_S * 1e3,
+            lanes / (PEAK_FP32_FLOPS / 2) * 1e3)
+
+
 def bound(name: str, sites, B: int):
-    """(least ms, "operations" or "bytes") for one call at each site times its count."""
+    """(least ms, "operations" or "bytes") for one call at each site times
+    its count; K1 and K9's operations include the GELU (mlp_terms)."""
     t_ops = t_bytes = total = 0.0
     for site in sites:
         ops, byts = work(name, site, B)
         a, b = ops / PEAK_BF16_FLOPS * 1e3, byts / PEAK_BYTES_PER_S * 1e3
+        if name == "fused_convnext_mlp":
+            a = max(a, mlp_terms(site, B)[2])
         total += max(a, b) * site["count"]
         t_ops += a * site["count"]
         t_bytes += b * site["count"]
@@ -1913,7 +1939,8 @@ def kernel_stats_phase(G, B: int = 2) -> dict:
 
 def kernel_pipeline_phase(sites: dict, eq_sites: dict, B: int = 2) -> dict:
     """K9 against K1 on the same inputs at every K1 site of a flagship decode
-    and of the EQ decodes: 0 ulps (torch.equal); K9's, K1's and the twin's
+    and of the EQ decodes: 0 ulps (torch.equal), and each bit-identical on a
+    second call; K9's, K1's and the twin's
     times over one decode's sites. No PyTorch call computes the function:
     K1 is the comparison."""
     import torch
@@ -1936,8 +1963,11 @@ def kernel_pipeline_phase(sites: dict, eq_sites: dict, B: int = 2) -> dict:
         args = kernel_inputs(name, site, B, gen, dev)
         got = kernels.fused_convnext_mlp_pipelined(**args)
         ref = kernels.fused_convnext_mlp(**args)
+        k9_again = kernels.fused_convnext_mlp_pipelined(**args)
+        k1_again = kernels.fused_convnext_mlp(**args)
         torch.cuda.synchronize()
-        exact = torch.equal(got, ref)
+        repeat = torch.equal(got, k9_again) and torch.equal(ref, k1_again)
+        exact = torch.equal(got, ref) and repeat
         diff = float((got.float() - ref.float()).abs().max())
         worst = max(worst, diff)
         line = ""
@@ -1949,7 +1979,8 @@ def kernel_pipeline_phase(sites: dict, eq_sites: dict, B: int = 2) -> dict:
                 tot[key] += val * site["count"]
             line = f" K9_ms={ms:.4f} K1_ms={k1:.4f} plain_ms={pm:.4f} x{site['count']}/decode"
         print(f"[kernel-pipeline] {tag} C={site['C']} H={site['H']} B={B}: K9 vs K1 max_abs="
-              f"{diff:.3e} bit-exact {exact}{line} {'OK' if exact else 'FAIL'}", flush=True)
+              f"{diff:.3e} bit-exact {torch.equal(got, ref)} K1 and K9 repeat-identical "
+              f"{repeat}{line} {'OK' if exact else 'FAIL'}", flush=True)
         if not exact:
             failed.append(f"{tag} C={site['C']} H={site['H']}")
     if failed:
@@ -1960,6 +1991,85 @@ def kernel_pipeline_phase(sites: dict, eq_sites: dict, B: int = 2) -> dict:
           flush=True)
     return {"fused_convnext_mlp_pipelined": dict(max_abs_err=worst, batch=B, bound_ms=bnd,
                                                  bound_by=by, library_ms=None, **tot)}
+
+
+def mlp_batch_phase(sites, batches=(2, 32)) -> dict:
+    """K1 and K9 at every K1 site of a flagship decode at B=2 and B=32: K1
+    against its twin (TOLERANCES) and fp32 (TRUTH_FACTOR), K1 and K9
+    bit-identical on a second call and K9 == K1; CUDA-event and device
+    (profiler) times of K1 and K9, the fraction of the bound (its tensor-core,
+    byte and GELU terms printed), and the cuBLAS composition in turns with
+    K1 (events and device): two cuBLAS bf16 GEMMs and PyTorch's elementwise
+    steps, which round and store the hidden, so not the same function: a
+    yardstick the port never calls."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.probes.fused_mlp import cublas_composition
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    name = "fused_convnext_mlp"
+    tol_max, tol_mean = TOLERANCES[name]
+    out, failed = {}, []
+    for B in batches:
+        keys = ("k1_ms", "k1_device_ms", "k9_ms", "k9_device_ms", "composition_ms",
+                "composition_device_ms", "bound_ms")
+        tot = dict.fromkeys(keys, 0.0)
+        rows = []
+        for site in sites:
+            args = kernel_inputs(name, site, B, gen, dev)
+            k1 = lambda: kernels.fused_convnext_mlp(**args)  # noqa: E731
+            k9 = lambda: kernels.fused_convnext_mlp_pipelined(**args)  # noqa: E731
+            comp = lambda: cublas_composition(**args)  # noqa: E731
+            got, again, p9, p9b = k1(), k1(), k9(), k9()
+            ref = kernels.fused_convnext_mlp(**args, plain=True)
+            truth = kernels.fused_convnext_mlp(
+                **{k: v.float() for k, v in args.items()}, plain=True)
+            torch.cuda.synchronize()
+            _, max_rel, mean_rel = rel_errors(got, ref)
+            k_truth, p_truth = rel_errors(got, truth)[2], rel_errors(ref, truth)[2]
+            same = (torch.equal(got, again) and torch.equal(p9, p9b) and torch.equal(got, p9))
+            ok = (bool(torch.isfinite(got.float()).all()) and max_rel <= tol_max
+                  and mean_rel <= tol_mean and k_truth <= TRUTH_FACTOR * p_truth + 1e-6 and same)
+            del ref, truth
+            ms, ms9 = cuda_time_ms(k1), cuda_time_ms(k9)
+            dev_ms, dev9 = device_ms(k1), device_ms(k9)
+            k1_turn, comp_ms = in_turns(k1, comp)
+            k1_dev_turn, comp_dev, _, _ = device_in_turns(k1, comp)
+            t_ops, t_bytes, t_gelu = mlp_terms(site, B)
+            bnd = max(t_ops, t_bytes, t_gelu)
+            n = site["count"]
+            for key, val in zip(keys, (ms, dev_ms, ms9, dev9, comp_ms, comp_dev, bnd)):
+                tot[key] = add_or_none(tot[key], val, n)
+
+            def frac(t):
+                return "not measured" if t is None else f"{bnd / t:.3f}"
+
+            row = dict(C=site["C"], H=site["H"], count=n, k1_ms=ms, k1_device_ms=dev_ms,
+                       k9_ms=ms9, k9_device_ms=dev9, composition_ms=comp_ms,
+                       composition_device_ms=comp_dev, bound_ms=bnd,
+                       bound_terms_ms=dict(tensor_cores=t_ops, bytes=t_bytes, gelu=t_gelu))
+            rows.append(row)
+            print(f"[kernel-mlp] C={site['C']} H={site['H']} B={B}: max_rel={max_rel:.3e} "
+                  f"mean_rel={mean_rel:.3e} vs_fp32 kernel={k_truth:.3e} plain={p_truth:.3e} "
+                  f"K1/K9 repeat-identical, K9 == K1 {same}; K1 ms={ms:.4f} device "
+                  f"{ms_text(dev_ms)} of_bound={frac(ms)} (device {frac(dev_ms)}); K9 ms="
+                  f"{ms9:.4f} device {ms_text(dev9)}; bound {bnd:.4f} ms (tensor cores "
+                  f"{t_ops:.4f}, bytes {t_bytes:.4f}, GELU {t_gelu:.4f}); in turns K1 "
+                  f"{k1_turn:.4f} vs cuBLAS composition {comp_ms:.4f} (device {ms_text(k1_dev_turn)}"
+                  f" vs {ms_text(comp_dev)}; not the same function) x{n}/decode "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append(f"C={site['C']} H={site['H']} B={B}")
+            del args, got, again, p9, p9b
+            torch.cuda.empty_cache()
+        print(f"[kernel-mlp] the {sum(s['count'] for s in sites)} K1 sites of one decode at "
+              f"B={B}: " + ", ".join(f"{k} {ms_text(v)}" for k, v in tot.items()), flush=True)
+        out[B] = dict(sites=rows, **tot)
+    if failed:
+        raise SystemExit(f"chip_smoke: kernel-mlp phase FAILED at {failed}")
+    return out
 
 
 def dwconv_inputs(site: dict, B: int, gen, dev):
@@ -2437,6 +2547,11 @@ def main() -> int:
 
     lib = library()
     print(f"[build] {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
+    from vfm_vae_tpu_torch.probes.fused_mlp import gelu_instructions
+
+    GELU_INSTRUCTIONS["count"] = gelu_instructions(str(lib.path))
+    print(f"[build] K1's GELU: {GELU_INSTRUCTIONS['count']} SASS instructions an evaluation",
+          flush=True)
     entry = ""
     for line in lib.log.splitlines():
         if "Compiling entry function" in line:
@@ -2473,6 +2588,14 @@ def main() -> int:
         bwd_one_call_ms=k3_fb["bwd_ms"], bwd_one_call_device_ms=k3_fb["bwd_device_ms"])
     summary.update(kernel_stats_phase(G))
     summary.update(kernel_pipeline_phase(sites, eq_sites))
+    mlp = mlp_batch_phase(sites["fused_convnext_mlp"])
+    for name, pre in (("fused_convnext_mlp", "k1"), ("fused_convnext_mlp_pipelined", "k9")):
+        summary[name].update(device_ms=mlp[2][f"{pre}_device_ms"],
+                             composition_ms=mlp[2]["composition_ms"],
+                             composition_device_ms=mlp[2]["composition_device_ms"],
+                             gelu_instructions=GELU_INSTRUCTIONS["count"],
+                             b32={k: v for k, v in mlp[32].items() if k != "sites"})
+    summary["fused_convnext_mlp"]["b32"]["sites"] = mlp[32]["sites"]
     dw_err = kernel_dwconv_phase(sites)
     enc = encode_sites(G, int8=True)
     summary.update(kernel_int8_phase(enc["int8_matmul"]))

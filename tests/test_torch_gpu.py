@@ -335,27 +335,72 @@ def test_dwconv_kernels_match_twins_on_gpu(cuda, H, W, C, k):
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def _mlp_args(dev, C, H, W, B=2):
+    g = torch.Generator(device=dev).manual_seed(C + H)
+    bf, f32 = torch.bfloat16, torch.float32
+    rn = lambda *s, dt=bf, scale=1.0: (torch.randn(s, generator=g, device=dev)  # noqa: E731
+                                       * scale).to(dt)
+    return dict(x=rn(B, H, W, C), x_in=rn(B, H, W, C), A=rn(B, C, dt=f32).abs() + 0.5,
+                d=rn(B, 4 * C, dt=f32).abs() + 0.5, w1=rn(4 * C, C, scale=C ** -0.5),
+                b1=rn(B, 4 * C, dt=f32), w2=rn(C, 4 * C, scale=(4 * C) ** -0.5),
+                b2=rn(C, dt=f32), gamma=rn(C, dt=f32))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,H,W", [(128, 5, 70), (256, 9, 9), (512, 8, 8), (512, 3, 2)])
+@pytest.mark.parametrize("C,H,W", [(128, 5, 70), (256, 9, 9), (512, 8, 8), (512, 3, 2),
+                                   (256, 16, 16)])
 def test_pipelined_mlp_is_bit_exact_with_k1_on_gpu(cuda, C, H, W):
-    """K9 against K1 on the same inputs: 0 ulps (the same tiles in the same
-    order); off-grid H x W exercises the ragged token tile."""
-    args = dict(_cases(cuda, H, W)[0][1])
-    if C != 128:
-        g = torch.Generator(device=cuda).manual_seed(C)
-        bf, f32 = torch.bfloat16, torch.float32
-        rn = lambda *s, dt=bf, scale=1.0: (torch.randn(s, generator=g, device=cuda)  # noqa: E731
-                                           * scale).to(dt)
-        args = dict(x=rn(2, H, W, C), x_in=rn(2, H, W, C), A=rn(2, C, dt=f32).abs() + 0.5,
-                    d=rn(2, 4 * C, dt=f32).abs() + 0.5, w1=rn(4 * C, C, scale=C ** -0.5),
-                    b1=rn(2, 4 * C, dt=f32), w2=rn(C, 4 * C, scale=(4 * C) ** -0.5),
-                    b2=rn(C, dt=f32), gamma=rn(C, dt=f32))
+    """K9 against K1 on the same inputs: 0 ulps (the same plan and the same
+    products into every accumulator); off-grid H x W exercises the ragged
+    token tile, and every shape here splits the hidden across a cluster."""
+    args = dict(_cases(cuda, H, W)[0][1]) if C == 128 else _mlp_args(cuda, C, H, W)
     before = kernels.fused_convnext_mlp_pipelined.launches
     got = kernels.fused_convnext_mlp_pipelined(**args)
     ref = kernels.fused_convnext_mlp(**args)
     torch.cuda.synchronize()
     assert kernels.fused_convnext_mlp_pipelined.launches == before + 1
     assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,W", [(512, 8, 8), (512, 64, 64), (128, 5, 70), (256, 128, 128)])
+def test_mlp_is_bit_identical_on_repeat_on_gpu(cuda, C, H, W):
+    """K1 and K9 twice on the same inputs give the same bits: the split
+    shapes (C=512 at 8 x 8, C=128 at 5 x 70) sum their cluster's partials in
+    rank order, the unsplit ones (64 x 64, 128 x 128) do not split."""
+    from vfm_vae_tpu_torch.ops.kernels import fused_mlp
+
+    args = _mlp_args(cuda, C, H, W)
+    split = fused_mlp.plan(2, H * W, C, sms=torch.cuda.get_device_properties(cuda)
+                           .multi_processor_count)["split"]
+    assert (split > 1) == (H * W <= 350), split
+    for fn in (kernels.fused_convnext_mlp, kernels.fused_convnext_mlp_pipelined):
+        first, second = fn(**args), fn(**args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), fn.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,HW,C", [(2, 64, 512), (2, 256, 512), (2, 1024, 512), (2, 4096, 512),
+                                    (2, 16384, 256), (2, 65536, 128), (32, 64, 512),
+                                    (32, 65536, 128), (2, 350, 128), (2, 6, 512), (1, 3, 128)])
+def test_mlp_plan_mirror_matches_the_c_export_on_gpu(cuda, B, HW, C):
+    """ops/kernels/fused_mlp.plan against vfm_fused_mlp_plan, for the card's
+    SM count and for 132, K1 and K9."""
+    import ctypes
+
+    from vfm_vae_tpu_torch.ops.kernels import fused_mlp
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    lib = library().lib
+    for sms in (torch.cuda.get_device_properties(cuda).multi_processor_count, 132):
+        for pipelined in (0, 1):
+            buf = (ctypes.c_int * len(fused_mlp.PLAN_KEYS))()
+            assert lib.vfm_fused_mlp_plan(B, HW, C, pipelined, sms, buf) == 0
+            want = fused_mlp.plan(B, HW, C, bool(pipelined), sms)
+            assert list(buf) == [int(want[k]) for k in fused_mlp.PLAN_KEYS], (sms, pipelined)
+    buf = (ctypes.c_int * len(fused_mlp.PLAN_KEYS))()
+    assert lib.vfm_fused_mlp_plan(B, HW, 384, 0, 132, buf) != 0
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
 // Shared device helpers for the hand-written Hopper kernels (sm_90a).
 //
-// The tensor-core kernels use warp-level bf16 tensor-core products through
+// K2 (fused_upsample.cu) uses warp-level bf16 tensor-core products through
 // mma.sync.m16n8k16 (fp32 accumulation) with operands staged in shared
-// memory. Fragment layouts follow the PTX ISA for .row.col bf16:
+// memory (the wgmma kernels' helpers are in hopper.cuh). Fragment layouts
+// follow the PTX ISA for .row.col bf16:
 //   g = lane / 4, t = lane % 4
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
 //                         a2 = A[g][2t+8..2t+9], a3 = A[g+8][2t+8..2t+9]
@@ -69,9 +70,5 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 }  // namespace vfm

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels and
-// the int8 GEMM: mbarriers, TMA tensor loads and stores, warpgroup matrix
-// products (wgmma, bf16 and s8) and their shared-memory descriptors.
+// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels, the
+// int8 GEMM and the fused MLP: mbarriers, TMA tensor loads, stores and L2
+// prefetches, warpgroup matrix products (wgmma, bf16 and s8) and their
+// shared-memory descriptors, cluster barriers and distributed shared memory.
 //
 // Shared-memory tiles are in the 128-byte swizzled layout that a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma descriptor of
@@ -93,6 +94,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Prefetches the box of a 4-D tensor map at (c0 innermost .. c3) into L2.
+__device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map, int c0, int c1, int c2,
+                                                int c3) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -230,6 +241,48 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32 fp32) = A * B (scale_d 0) or D += A * B (scale_d 1); A (64 x 16 bf16)
+// and B (32 x 16 bf16) in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64 fp32) += A (64 x 16 bf16, registers) * B (64 x 16 bf16, shared,
+// K-major: the tile is stored [n][k], k contiguous; transpose bit off).
+__device__ __forceinline__ void wgmma_rs_m64n64_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // D (64 x 64 fp32) += A (64 x 16 bf16, registers) * B (16 x 64 bf16, shared,
@@ -496,6 +549,31 @@ __device__ __forceinline__ void wgmma_s8_rs_m64n256(int (&d)[128], const uint32_
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
         "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------- thread-block clusters
+
+// Every thread of every CTA of the cluster arrives, then waits: shared-memory
+// writes before the arrive are visible to the other CTAs after the wait.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of shared address `addr` of this CTA in the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // 2^x on the special-function unit (about 2 ulp; 2^-inf = 0).

@@ -39,6 +39,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vfm_fused_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vfm_fused_convnext_mlp_pipelined": [_P] * 10 + [_I, _I, _I, _P],
+    "vfm_fused_mlp_plan": [_I, _I, _I, _I, _I, _P],
     "vfm_fused_upsample_blur": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "vfm_flash_attention_nullkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vfm_flash_attention_nullkv_bwd": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
