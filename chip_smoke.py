@@ -43,6 +43,11 @@
    library) and, in turns, a cuBLAS composition (two cuBLAS bf16 GEMMs and
    PyTorch elementwise steps that store the hidden: a yardstick, not the
    same function).
+   K2 ([kernel-upsample]) is held at every flagship K2 site at B=2 and
+   B=32: against its twin and fp32, bit-identical on a second call, one
+   launch a call (the wrapper's counter and the profiler's kernel count),
+   with its events and device time beside the bound. K4's fp32 forward is
+   timed against SDPA's fp32 forward in turns at the adapter's sites.
 4. Slice phase: answers three encode -> decode requests of B=4 random
    256x256 images through the kernels, checks shapes, finiteness and the
    launch counts per decode, reruns one request with the plain twins
@@ -73,8 +78,9 @@
    quantity (--determinism-trials N repeats it on N batches).
 7. The opt-in kernels and K4's backward: K5 (GroupNorm moments) against
    its twin and fp64 sums at every K5 site of a decode and the EQ shapes,
-   repeatable bit for bit; K9 (K1 pipelined) against K1 at every K1 site,
-   0 ulps, and each bit-identical on repeat; K7 and K8 (depthwise conv + statistics, and without) against
+   repeatable bit for bit, one kernel a call by the profiler's count; K9
+   (K1 pipelined) against K1 at every K1 site, 0 ulps, and each
+   bit-identical on repeat; K7 and K8 (depthwise conv + statistics, and without) against
    their twins at every ConvNeXt dwconv shape; K4's backward against its
    twin and fp64 at the training path's sites (the adapter's fp32 sites,
    3xTF32 kernels, held to FLASH_FP32_MAX_REL against the twin) at B=2 and
@@ -299,6 +305,37 @@ def device_kernels(fn, reps: int = 10):
 def device_ms(fn, reps: int = 10):
     """Device time per call of `fn` (device_kernels), or None."""
     return device_kernels(fn, reps)[0]
+
+
+def device_launches(fn, reps: int = 5, windows: int = 3) -> dict:
+    """{kernel name: launches per call} of `fn` on the card, from the
+    profiler's kernel counts over `reps` calls in the active step of a
+    profiler schedule (a warm-up step first: CUPTI can miss the first
+    kernels of a window). A dropped event can only lower a count, so up to
+    `windows` windows are read and the first whose counts are whole numbers
+    a call is returned (else the last)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()  # the warm-up step ends; the window closes inside the active one
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: e.count / reps for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total
+               and not e.key.startswith("ProfilerStep")}  # the step's own range
+        if per and all(v == int(v) for v in per.values()):
+            return per
+    return per
 
 
 def kernel_ms(per: dict, part: str):
@@ -881,7 +918,9 @@ def flash_work(B, Tq, Tk, N, D, itemsize):
 def kernel_flash_phase(sites, B: int = 2) -> dict:
     """K4 against its twin and an fp64 evaluation at every encode site (the
     tower's bf16 T=1024 16 x 64, the adapter's fp32 sites) and at one d=128
-    shape; kernel, twin and SDPA times and the bound."""
+    shape; kernel, twin and SDPA times and the bound; at the fp32 sites K4's
+    forward and SDPA's fp32 forward also in turns (K4, SDPA, SDPA, K4), by
+    CUDA events and on the device."""
     import torch
     import torch.nn.functional as F
 
@@ -923,6 +962,18 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
         dev_ms = device_ms(lambda: kernels.flash_attention_nonull(q, k, v))
         rates = flash_rate_text(ms, dev_ms, ops, bnd, lib_ms, device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+        if dt == torch.float32:  # K4's fp32 forward and SDPA's, in turns
+            kern = lambda: kernels.flash_attention_nonull(q, k, v)  # noqa: E731
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+            k_turn, s_turn = in_turns(kern, sdpa)
+            k_dev, s_dev, _, s_per = device_in_turns(kern, sdpa)
+            for key, val in (("fp32_turns_ms", k_turn), ("fp32_turns_library_ms", s_turn),
+                             ("fp32_turns_device_ms", k_dev),
+                             ("fp32_turns_library_device_ms", s_dev)):
+                tot[key] = add_or_none(tot.get(key, 0.0), val, n)
+            rates += (f"; in turns K4 {k_turn:.4f} vs SDPA {s_turn:.4f} ms (device "
+                      f"{ms_text(k_dev)} vs {ms_text(s_dev)}; SDPA's kernels "
+                      f"{', '.join(k[:50] for k in s_per)})")
         print(f"[kernel-flash] {site['at']} {str(dt).split('.')[-1]} T={T} N={N} D={D} B={B}: "
               f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol_max:g}) mean_rel="
               f"{mean_rel:.3e} (tol {tol_mean:g}) vs_fp64 kernel={k_truth:.3e} plain="
@@ -941,7 +992,11 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
         raise SystemExit(f"chip_smoke: kernel-flash phase FAILED at {failed}")
     print(f"[kernel-flash] all K4 sites of one encode at B={B}: kernel {tot['ms']:.4f} ms "
           f"(device {ms_text(tot['device_ms'])}), plain {tot['plain_ms']:.4f} ms, sdpa "
-          f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms", flush=True)
+          f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; the fp32 sites in "
+          f"turns: K4 {ms_text(tot.get('fp32_turns_ms'))} vs SDPA "
+          f"{ms_text(tot.get('fp32_turns_library_ms'))} ms (device "
+          f"{ms_text(tot.get('fp32_turns_device_ms'))} vs "
+          f"{ms_text(tot.get('fp32_turns_library_device_ms'))})", flush=True)
     return {"flash_attention_nonull": dict(max_abs_err=worst_abs, batch=B,
                                            bound_by=max(by, key=by.get), **tot)}
 
@@ -1874,11 +1929,13 @@ def plain_bound(ops: float, byts: float, peak: float):
     return max(a, b), ("operations" if a >= b else "bytes")
 
 
-def kernel_stats_phase(G, B: int = 2) -> dict:
+def kernel_stats_phase(G, batches=(2, 32)) -> dict:
     """K5 against its twin and fp64 sums at every K5 site of a flagship decode
-    (VFM_VAE_PALLAS_STATS=1) and at the EQ decodes' shapes, bf16 O(1) inputs
-    with an offset (s1 then cancels); two launches on one input must agree
-    bit for bit; kernel, twin and bound times over one decode's sites."""
+    (VFM_VAE_PALLAS_STATS=1) and, at the first batch, at the EQ decodes'
+    shapes, bf16 O(1) inputs with an offset (s1 then cancels); two launches
+    on one input must agree bit for bit, and a call must be one kernel on
+    the card (the profiler's count); kernel (CUDA events and device time),
+    twin and bound times over one decode's sites at each batch."""
     import torch
 
     from vfm_vae_tpu_torch.entry import kernel_sites
@@ -1895,46 +1952,54 @@ def kernel_stats_phase(G, B: int = 2) -> dict:
                 if (s["C"], s["H"]) not in seen:
                     seen.add((s["C"], s["H"]))
                     cases.append((dict(s, count=0), f"eq{hw}"))
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0)
-    worst, by, failed = 0.0, {}, []
-    for site, tag in cases:
-        C, H, n = site["C"], site["H"], site["count"]
-        x = (torch.randn((B, H, H, C), generator=gen, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
-        s1, s2 = kernels.channel_moments(x)
-        r1, r2 = kernels.channel_moments(x)
-        t1, t2 = kernels.channel_moments(x, plain=True)
-        torch.cuda.synchronize()
-        repeat = torch.equal(s1, r1) and torch.equal(s2, r2)
-        k1, k2 = stats_errors(s1, s2, x)
-        p1, p2 = stats_errors(t1, t2, x)
-        finite = bool(torch.isfinite(s1).all() and torch.isfinite(s2).all())
-        ok = finite and repeat and k1 <= STATS_REL and k2 <= STATS_REL
-        worst = max(worst, float((s1 - t1).abs().max()), float((s2 - t2).abs().max()))
-        line = ""
-        if n:
-            ms = cuda_time_ms(lambda: kernels.channel_moments(x))
-            plain_ms = cuda_time_ms(lambda: kernels.channel_moments(x, plain=True))
-            dev_ms = device_ms(lambda: kernels.channel_moments(x))
-            bnd, b_by = plain_bound(3 * x.numel(), 2 * x.numel() + 8 * B * C, PEAK_FP32_FLOPS)
-            by[b_by] = by.get(b_by, 0) + n
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
-                             ("device_ms", dev_ms)):
-                tot[key] = None if val is None or tot[key] is None else tot[key] + val * n
-            line = (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({b_by}) "
-                    f"device_ms={ms_text(dev_ms)} x{n}/decode")
-        print(f"[kernel-stats] {tag} C={C} H=W={H} B={B}: s1 err/sum|x| kernel {k1:.2e} twin "
-              f"{p1:.2e}, s2 rel kernel {k2:.2e} twin {p2:.2e} (tol {STATS_REL:g}); two launches "
-              f"bit-identical {repeat}; finite={finite}{line} {'OK' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            failed.append(f"{tag} C={C} H={H}")
+    totals, worst, by, failed = {}, 0.0, {}, []
+    for B in batches:
+        tot = totals[B] = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0)
+        for site, tag in cases if B == batches[0] else cases[:len(flag)]:
+            C, H, n = site["C"], site["H"], site["count"]
+            x = (torch.randn((B, H, H, C), generator=gen, device=dev) * 1.5
+                 + 0.5).to(torch.bfloat16)
+            s1, s2 = kernels.channel_moments(x)
+            r1, r2 = kernels.channel_moments(x)
+            t1, t2 = kernels.channel_moments(x, plain=True)
+            torch.cuda.synchronize()
+            repeat = torch.equal(s1, r1) and torch.equal(s2, r2)
+            k1, k2 = stats_errors(s1, s2, x)
+            p1, p2 = stats_errors(t1, t2, x)
+            finite = bool(torch.isfinite(s1).all() and torch.isfinite(s2).all())
+            per_call = device_launches(lambda: kernels.channel_moments(x))
+            one = sum(per_call.values()) == 1
+            ok = finite and repeat and one and k1 <= STATS_REL and k2 <= STATS_REL
+            worst = max(worst, float((s1 - t1).abs().max()), float((s2 - t2).abs().max()))
+            line = ""
+            if n:
+                ms = cuda_time_ms(lambda: kernels.channel_moments(x))
+                plain_ms = cuda_time_ms(lambda: kernels.channel_moments(x, plain=True))
+                dev_ms = device_ms(lambda: kernels.channel_moments(x))
+                bnd, b_by = plain_bound(3 * x.numel(), 2 * x.numel() + 8 * B * C,
+                                        PEAK_FP32_FLOPS)
+                by[b_by] = by.get(b_by, 0) + n
+                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
+                                 ("device_ms", dev_ms)):
+                    tot[key] = None if val is None or tot[key] is None else tot[key] + val * n
+                line = (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} "
+                        f"({b_by}) device_ms={ms_text(dev_ms)} x{n}/decode")
+            print(f"[kernel-stats] {tag} C={C} H=W={H} B={B}: s1 err/sum|x| kernel {k1:.2e} "
+                  f"twin {p1:.2e}, s2 rel kernel {k2:.2e} twin {p2:.2e} (tol {STATS_REL:g}); "
+                  f"two launches bit-identical {repeat}; kernels a call {per_call}; "
+                  f"finite={finite}{line} {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append(f"{tag} C={C} H={H} B={B}")
+            del x, s1, s2, r1, r2, t1, t2
+        print(f"[kernel-stats] all {sum(s['count'] for s in flag)} K5 sites of one decode at "
+              f"B={B}: kernel {tot['ms']:.4f} ms (device {ms_text(tot['device_ms'])}), plain "
+              f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms", flush=True)
     if failed:
         raise SystemExit(f"chip_smoke: kernel-stats phase FAILED at {failed}")
-    print(f"[kernel-stats] all {sum(s['count'] for s in flag)} K5 sites of one decode at B={B}: "
-          f"kernel {tot['ms']:.4f} ms (device {ms_text(tot['device_ms'])}), plain "
-          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms", flush=True)
+    B = batches[0]
     return {"channel_moments": dict(max_abs_err=worst, batch=B, bound_by=max(by, key=by.get),
-                                    library_ms=None, **tot)}
+                                    library_ms=None, **totals[B],
+                                    **{f"b{b}": totals[b] for b in batches[1:]})}
 
 
 def kernel_pipeline_phase(sites: dict, eq_sites: dict, B: int = 2) -> dict:
@@ -2069,6 +2134,79 @@ def mlp_batch_phase(sites, batches=(2, 32)) -> dict:
         out[B] = dict(sites=rows, **tot)
     if failed:
         raise SystemExit(f"chip_smoke: kernel-mlp phase FAILED at {failed}")
+    return out
+
+
+def upsample_batch_phase(sites, batches=(2, 32)) -> dict:
+    """K2 at every flagship K2 site of a decode at B=2 and B=32: against its
+    twin (TOLERANCES) and fp32 (TRUTH_FACTOR), bit-identical on a second
+    call, one launch a call (the wrapper's counter over two calls, and the
+    profiler's kernel count: one kernel); CUDA-event and device (profiler)
+    times, the bound and the fraction of it that each reaches, and their sums
+    over one decode's sites. No PyTorch call computes the function."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    name, fn = "fused_upsample_blur", kernels.fused_upsample_blur
+    tol_max, tol_mean = TOLERANCES[name]
+    out, failed = {}, []
+    for B in batches:
+        tot = dict(ms=0.0, device_ms=0.0, bound_ms=0.0)
+        rows = []
+        worst = 0.0
+        for site in sites:
+            args = kernel_inputs(name, site, B, gen, dev)
+            before = fn.launches
+            got, again = fn(**args), fn(**args)
+            calls = fn.launches - before
+            ref = fn(**args, plain=True)
+            truth = fn(**{k: (v.float() if torch.is_tensor(v) else v) for k, v in args.items()},
+                       plain=True)
+            torch.cuda.synchronize()
+            max_abs, max_rel, mean_rel = rel_errors(got, ref)
+            k_truth, p_truth = rel_errors(got, truth)[2], rel_errors(ref, truth)[2]
+            finite = bool(torch.isfinite(got.float()).all())
+            same = torch.equal(got, again)
+            del got, again, ref, truth
+            torch.cuda.empty_cache()
+            per_call = device_launches(lambda: fn(**args))
+            one = calls == 2 and sum(per_call.values()) == 1
+            ok = (finite and max_rel <= tol_max and mean_rel <= tol_mean
+                  and k_truth <= TRUTH_FACTOR * p_truth + 1e-6 and same and one)
+            ms, dev_ms = cuda_time_ms(lambda: fn(**args)), device_ms(lambda: fn(**args))
+            bnd, by = bound(name, [dict(site, count=1)], B)
+            n = site["count"]
+            for key, val in (("ms", ms), ("device_ms", dev_ms), ("bound_ms", bnd)):
+                tot[key] = add_or_none(tot[key], val, n)
+            worst = max(worst, max_abs)
+
+            def frac(t):
+                return "not measured" if t is None else f"{bnd / t:.3f}"
+
+            rows.append(dict(Ci=site["Ci"], Co=site["Co"], H=site["H"], taps=len(site["taps"]),
+                             count=n, ms=ms, device_ms=dev_ms, bound_ms=bnd, bound_by=by))
+            print(f"[kernel-upsample] Ci={site['Ci']} Co={site['Co']} H={site['H']} "
+                  f"taps={len(site['taps'])} B={B}: max_rel={max_rel:.3e} (tol {tol_max:g}) "
+                  f"mean_rel={mean_rel:.3e} (tol {tol_mean:g}) vs_fp32 kernel={k_truth:.3e} "
+                  f"plain={p_truth:.3e} finite={finite} repeat-identical {same}; launches a "
+                  f"call {calls / 2:g} (profiler: {per_call}); kernel_ms={ms:.4f} device "
+                  f"{ms_text(dev_ms)} bound {bnd:.4f} ({by}) of_bound={frac(ms)} (device "
+                  f"{frac(dev_ms)}) x{n}/decode {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append(f"Ci={site['Ci']} H={site['H']} B={B}")
+            del args
+            torch.cuda.empty_cache()
+        frac_dev = ("not measured" if tot["device_ms"] is None
+                    else f"{tot['bound_ms'] / tot['device_ms']:.3f}")
+        print(f"[kernel-upsample] the {sum(s['count'] for s in sites)} K2 sites of one decode at "
+              f"B={B}: events {tot['ms']:.4f} ms, device {ms_text(tot['device_ms'])}, bound "
+              f"{tot['bound_ms']:.4f} (of_bound device {frac_dev})", flush=True)
+        out[B] = dict(sites=rows, max_abs_err=worst, **tot)
+    if failed:
+        raise SystemExit(f"chip_smoke: kernel-upsample phase FAILED at {failed}")
     return out
 
 
@@ -2596,6 +2734,10 @@ def main() -> int:
                              gelu_instructions=GELU_INSTRUCTIONS["count"],
                              b32={k: v for k, v in mlp[32].items() if k != "sites"})
     summary["fused_convnext_mlp"]["b32"]["sites"] = mlp[32]["sites"]
+    up = upsample_batch_phase(sites["fused_upsample_blur"])
+    summary["fused_upsample_blur"].update(
+        device_ms=up[2]["device_ms"],
+        b32={k: v for k, v in up[32].items() if k != "max_abs_err"})
     dw_err = kernel_dwconv_phase(sites)
     enc = encode_sites(G, int8=True)
     summary.update(kernel_int8_phase(enc["int8_matmul"]))

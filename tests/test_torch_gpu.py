@@ -57,6 +57,8 @@ def test_kernels_match_twins_on_gpu(cuda, H, W, T):
         scale = float(ref.float().abs().max())
         # Same bf16 rounding points summed in another order: a few output ulps.
         assert float((got.float() - ref.float()).abs().max()) <= 4 * 2.0 ** -8 * scale, fn.__name__
+        if fn is kernels.fused_upsample_blur:  # no float atomics: the same bits again
+            assert torch.equal(fn(**args), got)
 
 
 @pytest.mark.gpu
@@ -281,15 +283,26 @@ def _bf16_ulps(got, ref) -> float:
                                          ((1, 5, 7, 8), "bf16")])
 def test_channel_moments_match_fp64_and_repeat_on_gpu(cuda, shape, dtype):
     """K5 against fp64 sums (s2 within 1e-5 relative, s1 within 1e-5 of
-    sum |x|) and its twin; two launches on one input agree bit for bit."""
+    sum |x|) and its twin; two launches on one input agree bit for bit; a
+    call is one kernel on the card (the profiler's count), once the
+    stream's workspace exists."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     g = torch.Generator(device=cuda).manual_seed(shape[1])
     x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dt)
-    before = kernels.channel_moments.launches
-    s1, s2 = kernels.channel_moments(x)
-    r1, r2 = kernels.channel_moments(x)
+    kernels.channel_moments(x)
     torch.cuda.synchronize()
+    before = kernels.channel_moments.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s1, s2 = kernels.channel_moments(x)
+        r1, r2 = kernels.channel_moments(x)
+        torch.cuda.synchronize()
     assert kernels.channel_moments.launches == before + 2
+    ran = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total}
+    assert sum(ran.values()) == 2 and all("channel_moments_kernel" in k for k in ran), ran
     assert torch.equal(s1, r1) and torch.equal(s2, r2)
     xd = x.double()
     e1, e2, a1 = xd.sum((1, 2)), xd.square().sum((1, 2)), xd.abs().sum((1, 2))
@@ -401,6 +414,64 @@ def test_mlp_plan_mirror_matches_the_c_export_on_gpu(cuda, B, HW, C):
             assert list(buf) == [int(want[k]) for k in fused_mlp.PLAN_KEYS], (sms, pipelined)
     buf = (ctypes.c_int * len(fused_mlp.PLAN_KEYS))()
     assert lib.vfm_fused_mlp_plan(B, HW, 384, 0, 132, buf) != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Ci,Co,kb", [(1, 5, 7, 1088, 32, 3), (1, 9, 9, 1024, 64, 1),
+                                           (2, 3, 40, 544, 32, 3), (1, 7, 5, 96, 96, 5),
+                                           (2, 20, 19, 32, 32, 3), (3, 2, 2, 512, 512, 3)])
+def test_upsample_matches_twin_off_the_flagship_on_gpu(cuda, B, H, W, Ci, Co, kb):
+    """K2 against its twin where the plan takes its other routes: A in
+    chunks of 1024 channels recomputed per N tile (Ci > 1024), 64 GEMM rows
+    (Ci > 512), half a 64-channel k block (Ci % 64 == 32), several tiles
+    with ragged edges, an N walk split over many CTAs; one launch a call,
+    the same bits on repeat."""
+    g = torch.Generator(device=cuda).manual_seed(H * W)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*s, dt=bf, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(dt)
+
+    taps = {1: [1.0], 3: [0.25, 0.5, 0.25], 5: TAPS5}[kb]
+    args = dict(x=rn(B, H, W, Ci), a=rn(B, Ci, dt=f32).abs() + 0.5, c=rn(B, Ci, dt=f32),
+                dw=rn(Ci, 3, 3, dt=f32, scale=1 / 3), pw=rn(4 * Co, Ci, scale=Ci ** -0.5),
+                taps=taps)
+    fn = kernels.fused_upsample_blur
+    before = fn.launches
+    got, again = fn(**args), fn(**args)
+    ref = fn(**args, plain=True)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= 4 * 2.0 ** -8 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Ci,Co,kb", [
+    (2, 8, 8, 768, 512, 3), (32, 32, 32, 640, 512, 5), (1, 5, 7, 1088, 32, 3),
+    (2, 8, 8, 512, 512, 3), (32, 16, 16, 512, 512, 3), (2, 32, 32, 512, 512, 5),
+    (32, 64, 64, 512, 256, 5), (2, 128, 128, 256, 128, 5), (4, 2, 2, 512, 512, 3),
+    (4, 6, 6, 512, 512, 3), (4, 24, 24, 512, 512, 5), (4, 96, 96, 256, 128, 5),
+    (2, 5, 70, 256, 128, 5), (2, 1, 3, 256, 128, 5), (1, 9, 9, 1024, 64, 1)])
+def test_upsample_plan_mirror_matches_the_c_export_on_gpu(cuda, B, H, W, Ci, Co, kb):
+    """ops/kernels/fused_upsample.plan against vfm_fused_upsample_plan at the
+    flagship, EQ and ragged K2 sites (and A chunked over Ci > 1024), for the
+    card's SM count and for 132."""
+    import ctypes
+
+    from vfm_vae_tpu_torch.ops.kernels import fused_upsample
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    lib = library().lib
+    for sms in (torch.cuda.get_device_properties(cuda).multi_processor_count, 132):
+        buf = (ctypes.c_int * len(fused_upsample.PLAN_KEYS))()
+        assert lib.vfm_fused_upsample_plan(B, H, W, Ci, Co, kb, sms, buf) == 0
+        want = fused_upsample.plan(B, H, W, Ci, Co, kb, sms)
+        assert list(buf) == [int(want[k]) for k in fused_upsample.PLAN_KEYS], sms
+    buf = (ctypes.c_int * len(fused_upsample.PLAN_KEYS))()
+    assert lib.vfm_fused_upsample_plan(B, H, W, Ci, Co, 4, 132, buf) != 0
+    assert lib.vfm_fused_upsample_plan(B, H, W, 48, Co, kb, 132, buf) != 0
 
 
 @pytest.mark.gpu

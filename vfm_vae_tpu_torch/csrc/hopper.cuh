@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels, the
-// int8 GEMM and the fused MLP: mbarriers, TMA tensor loads, stores and L2
-// prefetches, warpgroup matrix products (wgmma, bf16 and s8) and their
-// shared-memory descriptors, cluster barriers and distributed shared memory.
+// int8 GEMM, the fused MLP and the fused upsample: mbarriers, TMA tensor
+// loads, stores and L2 prefetches, bulk copies, warpgroup matrix products
+// (wgmma, bf16 and s8) and their shared-memory descriptors, cluster barriers
+// and distributed shared memory.
 //
 // Shared-memory tiles are in the 128-byte swizzled layout that a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma descriptor of
@@ -104,6 +105,17 @@ __device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map, int c0, 
       "cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global memory to shared memory at `dst`; completion is counted in bytes on
+// `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -1,12 +1,11 @@
-// The second pass of the fixed-order two-stage reductions of K5
-// (group_stats.cu) and K7 (dwconv_stats.cu).
+// The second pass of K7's fixed-order two-stage reduction (dwconv_stats.cu).
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// Second pass of the fixed-order two-stage reductions (K5, K7): one thread
+// Second pass of the fixed-order two-stage reduction (K7): one thread
 // per (sample, channel) adds its `nchunk` fp32 partials (B, nchunk, C) in
 // chunk order in fp64 and writes the fp32 sum. No atomics: the result does
 // not depend on the order in which the first pass's CTAs ran.

@@ -40,7 +40,8 @@ _SIGNATURES = {
     "vfm_fused_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vfm_fused_convnext_mlp_pipelined": [_P] * 10 + [_I, _I, _I, _P],
     "vfm_fused_mlp_plan": [_I, _I, _I, _I, _I, _P],
-    "vfm_fused_upsample_blur": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vfm_fused_upsample_blur": [_P] * 6 + [_I, _P, _I, _I, _I, _I, _I, _P],
+    "vfm_fused_upsample_plan": [_I] * 7 + [_P],
     "vfm_flash_attention_nullkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vfm_flash_attention_nullkv_bwd": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
     "vfm_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -50,7 +51,7 @@ _SIGNATURES = {
     "vfm_flash_bwd_f32_plan": [_I, _I, _I, _I, _I, _I, _P],
     "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vfm_int8_matmul_plan": [_I, _I, _I, _I, _I, _P],
-    "vfm_channel_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vfm_channel_moments": [_P] * 4 + [_I] * 5 + [_P],
     "vfm_dwconv_tiles": [_I, _I],
     "vfm_dwconv_noise_stats": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
     "vfm_depthwise_conv2d_same": [_P] * 4 + [_I, _I, _I, _I, _I, _P],

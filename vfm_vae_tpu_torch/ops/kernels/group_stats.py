@@ -7,11 +7,16 @@ Replaces the TPU kernel vfm_vae_tpu/ops/pallas/group_stats.py:_moments
 without the TPU-backend test.
 
 On the H100 the kernel (csrc/group_stats.cu) is bound by the one read of x.
-Its design is a fixed-order two-stage reduction: CTAs over (sample, row
-chunk, 128-channel block) write fp32 partials to a workspace, and a second
-pass adds each sample's partials in chunk order in fp64. No float atomics,
-so two launches on the same input give the same bits (the training step's
-determinism gate pairs quantities across calls).
+Its design is a fixed-order reduction in one launch: CTAs over (sample, row
+chunk, 128-channel block) write fp32 partials to a workspace, and the last
+CTA of each (sample, channel block) to arrive, found through a counter,
+adds the block's partials in chunk order in fp64. No float atomics, so two
+launches on the same input give the same bits (the training step's
+determinism gate pairs quantities across calls). The workspace (partials
+and counters) is kept per (device, stream) and grows as needed; the kernel
+leaves its counters at 0, and calls on one stream run in order, so no two
+kernels ever share it. A call allocates only its output, s1 and s2 as
+views of one (2, B, C) tensor.
 
 Gradients: `ChannelMoments` carries the JAX custom VJP `_bwd` (:82) in
 PyTorch: dx = g1 + 2 x g2 in fp32, cast to x's dtype.
@@ -24,12 +29,16 @@ import os
 
 import torch
 
-from ._build import check_tensor, library, refuse_grad
+from ._build import call_on, check_all, library, refuse_grad
 
-# CTAs of the first pass the chunk count aims at (132 SMs x 8 resident
-# CTAs of 256 threads), and the fewest rows a chunk takes.
-_TARGET_CTAS = 132 * 8
-_MIN_ROWS = 64
+# CTAs the chunk count aims at (132 SMs x 4 CTAs of 256 threads, each
+# thread with four 16-byte loads in flight), and the fewest rows a chunk
+# takes.
+_TARGET_CTAS = 132 * 4
+_MIN_ROWS = 128
+# (device index, raw stream) -> (fp32 partials, int32 counters): the
+# kernel's workspace, one per stream (calls on a stream run in order).
+_WORKSPACES: dict = {}
 
 
 def moments_eligible(x: torch.Tensor) -> bool:
@@ -56,6 +65,21 @@ def num_chunks(B: int, HW: int, C: int) -> int:
     return max(1, min(math.ceil(_TARGET_CTAS / blocks), math.ceil(HW / _MIN_ROWS)))
 
 
+def _workspace(dev: torch.device, n_part: int, n_count: int):
+    """The current stream's workspace with room for `n_part` floats and
+    `n_count` counters (zero), grown to twice what it had when too small;
+    the counters are zeroed once, when allocated, and the kernel leaves them
+    at zero."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(n_part, 2 * old[0]), dtype=torch.float32, device=dev),
+              torch.zeros(max(n_count, 2 * old[1]), dtype=torch.int32, device=dev))
+        _WORKSPACES[key] = ws
+    return ws
+
+
 def _launch(x: torch.Tensor):
     refuse_grad("channel_moments", x)
     if x.dim() != 4:
@@ -67,20 +91,17 @@ def _launch(x: torch.Tensor):
         raise ValueError(f"channel_moments: shape {tuple(x.shape)}; C must be a multiple of "
                          f"{16 // x.element_size()} and the map non-empty")
     dev = x.device
-    check_tensor(x, "x", x.dtype, (B, H, W, C), dev)
+    check_all("channel_moments", x.dtype, dev, [(x, "x", (B, H, W, C))])
     lib = library()
     nchunk = num_chunks(B, H * W, C)
-    part = torch.empty((2, B, nchunk, C), dtype=torch.float32, device=dev)
-    s1 = torch.empty((B, C), dtype=torch.float32, device=dev)
-    s2 = torch.empty_like(s1)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vfm_channel_moments(x.data_ptr(), part.data_ptr(), s1.data_ptr(),
-                                          s2.data_ptr(), B, H * W, C, nchunk,
-                                          int(x.dtype == torch.float32), stream)
+    part, counters = _workspace(dev, 2 * B * nchunk * C, B * math.ceil(C / 128))
+    s = torch.empty((2, B, C), dtype=torch.float32, device=dev)
+    err = call_on(dev, lib.lib.vfm_channel_moments, x.data_ptr(), part.data_ptr(),
+                  counters.data_ptr(), s.data_ptr(), B, H * W, C, nchunk,
+                  int(x.dtype == torch.float32))
     lib.check(err, "channel_moments")
     channel_moments.launches += 1
-    return s1, s2
+    return s[0], s[1]
 
 
 def _forward(x: torch.Tensor, plain: bool):
