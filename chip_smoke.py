@@ -46,8 +46,15 @@
    K2 ([kernel-upsample]) is held at every flagship K2 site at B=2 and
    B=32: against its twin and fp32, bit-identical on a second call, one
    launch a call (the wrapper's counter and the profiler's kernel count),
-   with its events and device time beside the bound. K4's fp32 forward is
-   timed against SDPA's fp32 forward in turns at the adapter's sites.
+   with its events and device time beside the bound. K4's fp32 forward
+   (3xTF32 on wgmma; its SASS is checked for TF32 HGMMA and no FFMA main
+   loop at the build) is held at the adapter's sites at B=2 and B=32, at
+   ragged Tq != Tk and at d=128: against its twin (FLASH_FP32_MAX_REL, max
+   and mean), its log-sum-exp against the twin's, against float64
+   (TRUTH_FACTOR), bit-identical on repeat, one launch a call by the
+   wrapper's counter and one kernel a call by the profiler; and it is timed
+   against SDPA's fp32 forward in turns (events and device time) at the
+   adapter's sites at B=2 and B=32, with the fraction of its 3xTF32 bound.
 4. Slice phase: answers three encode -> decode requests of B=4 random
    256x256 images through the kernels, checks shapes, finiteness and the
    launch counts per decode, reruns one request with the plain twins
@@ -69,9 +76,10 @@
    full-depth G with the 24-layer SigLIP2-L, the StyleGAN-T D with a
    12-layer DINO ViT-S/16, random-weight LPIPS) takes 1 warm-up and 3 timed
    [D, G] steps at B=4 over EQ buckets drawn from a seeded numpy generator
-   plus the three forced kinds; gates on finite losses, nonzero gradients,
-   changed trainable and unchanged frozen parameters, a moving EMA and the
-   launch counts that entry.kernel_sites predicts; prints ms per D and G
+   plus the three forced kinds; gates on finite losses, a nonzero gradient
+   and a move in some step for every trainable tensor, unchanged frozen
+   parameters, a moving EMA and the launch counts that
+   entry.kernel_sites predicts; prints ms per D and G
    step, peak memory and a profile of one G step. One deterministic step
    then runs with the kernels, with the plain twins and in fp32, and its
    loss terms and per-module gradient norms are compared quantity by
@@ -200,7 +208,8 @@ FORCED_BUCKETS = [(1.0, 0, False), (0.5, 1, False), (0.75, 0, True)]
 # H100 SXM data-sheet peaks (dense bf16, TF32 and int8 tensor cores, fp32
 # outside the tensor cores, HBM3), for the bounds. fp32 flash work (K4 at the
 # adapter) is bound at the 3xTF32 rate, three TF32 products per fp32
-# product, with the FMA bound beside it: K4's fp32 backward runs as 3xTF32.
+# product, with the FMA bound beside it: K4's fp32 forward and backward run
+# as 3xTF32.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_TF32_FLOPS = 495e12
@@ -212,10 +221,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # so do two runs of the kernel; INT8_RAGGED are the card test's shapes off
 # the tiles (rows, columns, K steps; N=136 takes K10's direct-store route).
 # K4 in bf16 takes K3's bounds; in
-# fp32 the kernel and the twin differ in summation order and exp2 vs exp
-# (the forward, fp32 FMA) and in the 3xTF32 products' splits (the backward,
-# within 2^-21 of each product): max |kernel - twin| <= 1e-5 of max |twin|,
-# and the mean likewise, forward and backward.
+# fp32 the kernel and the twin differ in summation order, exp2 vs exp and
+# the 3xTF32 products' splits (within 2^-21 of each product): max |kernel -
+# twin| <= 1e-5 of max |twin|, and the mean likewise, forward and backward.
 INT8_RAGGED = ((77, 4096, 1024), (300, 96, 136))
 FLASH_FP32_MAX_REL = 1e-5
 # int8 serving holds each K6 and K4 site to the bounds above on that site's
@@ -307,7 +315,7 @@ def device_ms(fn, reps: int = 10):
     return device_kernels(fn, reps)[0]
 
 
-def device_launches(fn, reps: int = 5, windows: int = 3) -> dict:
+def device_launches(fn, reps: int = 5, windows: int = 6) -> dict:
     """{kernel name: launches per call} of `fn` on the card, from the
     profiler's kernel counts over `reps` calls in the active step of a
     profiler schedule (a warm-up step first: CUPTI can miss the first
@@ -949,6 +957,11 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
             tol_max, tol_mean = FLASH_FP32_MAX_REL, FLASH_FP32_MAX_REL
         ok = (finite and max_rel <= tol_max and mean_rel <= tol_mean
               and k_truth <= TRUTH_FACTOR * p_truth + 1e-7)
+        if dt == torch.float32:
+            f32_ok, f32_text, _ = k4_f32_gates(q, k, v)
+            print(f"[kernel-flash] {site['at']} float32 T={T} N={N} D={D} B={B} gates: {f32_text} "
+                  f"{'OK' if f32_ok else 'FAIL'}", flush=True)
+            ok = ok and f32_ok
         ms = cuda_time_ms(lambda: kernels.flash_attention_nonull(q, k, v))
         plain_ms = cuda_time_ms(lambda: kernels.flash_attention_nonull(q, k, v, plain=True))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -988,6 +1001,14 @@ def kernel_flash_phase(sites, B: int = 2) -> dict:
                          ("bound_ms", bnd), ("fma_bound_ms", fma_bnd)):
             tot[key] += val * n
         by[b_by] = by.get(b_by, 0) + n
+    for Bx, Tq, Tk, N, D in K4_F32_EXTRA:
+        q = torch.randn(Bx, Tq, N, D, generator=gen, device=dev)
+        k, v = (torch.randn(Bx, Tk, N, D, generator=gen, device=dev) for _ in range(2))
+        f32_ok, f32_text, _ = k4_f32_gates(q, k, v)
+        print(f"[kernel-flash] float32 B={Bx} Tq={Tq} Tk={Tk} N={N} D={D} gates: {f32_text} "
+              f"{'OK' if f32_ok else 'FAIL'}", flush=True)
+        if not f32_ok:
+            failed.append(f"float32 Tq={Tq} Tk={Tk} D={D}")
     if failed:
         raise SystemExit(f"chip_smoke: kernel-flash phase FAILED at {failed}")
     print(f"[kernel-flash] all K4 sites of one encode at B={B}: kernel {tot['ms']:.4f} ms "
@@ -1064,6 +1085,46 @@ def flash_batch_phase(k3_sites, k4_sites, B: int = 32) -> dict:
             library_device_ms=lib_dev, bound_ms=bnd, tflops=flops / ms / 1e9, max_abs_err=max_abs)
         del got, args, sdpa_args, q, k, v
         torch.cuda.empty_cache()
+    # K4's fp32 forward at the adapter's sites: its gates, then the kernel and
+    # SDPA's fp32 forward in turns (events and device time).
+    tot = dict(ms=0.0, library_ms=0.0, device_ms=0.0, library_device_ms=0.0, bound_ms=0.0,
+               fma_bound_ms=0.0)
+    for site in (x for x in k4_sites if x["at"] == "adapter"):
+        T, N, D, n = site["T"], site["N"], site["D"], site["count"]
+        q, k, v = (torch.randn(B, T, N, D, generator=gen, device=dev) for _ in range(3))
+        ok, text, max_abs = k4_f32_gates(q, k, v)
+        sdpa_args = tuple(t.transpose(1, 2) for t in (q, k, v))
+        kern = lambda: kernels.flash_attention_nonull(q, k, v)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(*sdpa_args)  # noqa: E731
+        ms, lib_ms = in_turns(kern, sdpa)
+        dev_ms, lib_dev, _, s_per = device_in_turns(kern, sdpa)
+        flops, byts = flash_work(B, T, T, N, D, 4)
+        a, bb = flops / PEAK_3XTF32_FLOPS * 1e3, byts / PEAK_BYTES_PER_S * 1e3
+        bnd, fma_bnd = max(a, bb), max(flops / PEAK_FP32_FLOPS * 1e3, bb)
+        print(f"[flash-b{B}] flash_attention_nonull adapter float32 T={T} N={N} D={D} B={B} "
+              f"x{n}/encode: {text} kernel_ms={ms:.4f} bound_ms={bnd:.4f} (3xTF32; FMA bound "
+              f"{fma_bnd:.4f}) {flash_rate_text(ms, dev_ms, flops, bnd, lib_ms, lib_dev)} in turns "
+              f"(K4, SDPA, SDPA, K4); SDPA's kernels "
+              f"{', '.join(x[:50] for x in s_per)} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"flash_attention_nonull adapter float32 T={T}")
+        for key, val in (("ms", ms), ("library_ms", lib_ms), ("device_ms", dev_ms),
+                         ("library_device_ms", lib_dev), ("bound_ms", bnd),
+                         ("fma_bound_ms", fma_bnd)):
+            tot[key] = add_or_none(tot[key], val, n)
+        out.setdefault("flash_attention_nonull", {})[f"adapter_fp32_T{T}"] = dict(
+            batch=B, T=T, N=N, D=D, count=n, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bnd, fma_bound_ms=fma_bnd, max_abs_err=max_abs)
+        del q, k, v, sdpa_args
+        torch.cuda.empty_cache()
+    dev_share = (f"{tot['bound_ms'] / tot['device_ms']:.3f}" if tot["device_ms"] else
+                 "not measured")
+    print(f"[flash-b{B}] K4 float32 forward, the four adapter sites of one encode: kernel "
+          f"{tot['ms']:.4f} ms (device {ms_text(tot['device_ms'])}), SDPA's fp32 forward "
+          f"{tot['library_ms']:.4f} ms (device {ms_text(tot['library_device_ms'])}) in turns, "
+          f"bound {tot['bound_ms']:.4f} ms (3xTF32; FMA {tot['fma_bound_ms']:.4f}): "
+          f"{tot['bound_ms'] / tot['ms']:.3f} of the bound (device {dev_share})", flush=True)
+    out.setdefault("flash_attention_nonull", {})["adapter_fp32"] = dict(batch=B, **tot)
     if failed:
         raise SystemExit(f"chip_smoke: flash-b{B} phase FAILED at {failed}")
     return out
@@ -1340,6 +1401,69 @@ def attention_fp64(q, k, v):
 
     s = torch.einsum("btnh,bsnh->bnts", q.double(), k.double()) * q.shape[-1] ** -0.5
     return torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.double())
+
+
+def short_kernel_name(name: str) -> str:
+    """A profiler kernel name without its scope and arguments, e.g.
+    flash_fwd_f32_kernel<64, 2>; else its first 40 characters."""
+    m = re.search(r"(\w+<[^>]*>)\(", name)
+    return m.group(1) if m else name[:40]
+
+
+def mean_rel64(got, truth) -> float:
+    """mean |got - truth| / mean |truth|, in float64."""
+    return float((got.double() - truth).abs().mean() / truth.abs().mean())
+
+
+def k4_f32_gates(q, k, v) -> tuple:
+    """K4's fp32 forward on fp32 (q, k, v) held to its gates: within
+    FLASH_FP32_MAX_REL of the twin (max and mean), its log-sum-exp within
+    1e-5 of the twin's (of scale, + 1e-5), within TRUTH_FACTOR x the twin's
+    mean error against float64 (+1e-7), bit-identical on repeat (with and
+    without the log-sum-exp), one launch a call by the wrapper's counter and
+    one kernel a call by the profiler (flash_fwd_f32_kernel, nothing else).
+    Returns (ok, the row's text, max |kernel - twin|)."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    before = kernels.flash_attention_nonull.launches
+    out, lse = fa._launch_nonull(q, k, v, scale, True)
+    out2, lse2 = fa._launch_nonull(q, k, v, scale, True)
+    out3 = kernels.flash_attention_nonull(q, k, v)
+    torch.cuda.synchronize()
+    one = kernels.flash_attention_nonull.launches - before == 3
+    same = torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(out, out3)
+    del out2, lse2, out3
+    ref, ref_lse = kernels.flash_attention_nonull_reference(q, k, v, scale, return_lse=True)
+    max_abs, max_rel, mean_rel = rel_errors(out, ref)
+    lse_err = float((lse - ref_lse).abs().max())
+    lse_ok = lse_err <= 1e-5 * float(ref_lse.abs().max()) + 1e-5
+    del ref_lse
+    truth = attention_fp64(q, k, v)
+    k64, p64 = mean_rel64(out, truth), mean_rel64(ref, truth)
+    del truth, ref
+    per = device_launches(lambda: kernels.flash_attention_nonull(q, k, v))
+    one_kernel = (sum(n for name, n in per.items() if "flash_fwd_f32_kernel" in name) == 1
+                  and sum(per.values()) == 1)
+    finite = bool(torch.isfinite(out).all())
+    ok = (finite and max_rel <= FLASH_FP32_MAX_REL and mean_rel <= FLASH_FP32_MAX_REL and lse_ok
+          and k64 <= TRUTH_FACTOR * p64 + 1e-7 and same and one and one_kernel)
+    names = ", ".join(f"{short_kernel_name(name)} x{n:g}" for name, n in per.items())
+    text = (f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} mean_rel={mean_rel:.3e} (tol "
+            f"{FLASH_FP32_MAX_REL:g}) lse_err={lse_err:.3e} vs_fp64 kernel={k64:.3e} "
+            f"plain={p64:.3e} (limit {TRUTH_FACTOR} x plain) finite={finite} bit_identical={same} "
+            f"launches_a_call={'1' if one else 'not 1'} kernels_a_call=[{names}]")
+    return ok, text, max_abs
+
+
+# K4's fp32 forward off the adapter's sites (B, Tq, Tk, N, D): the card
+# test's ragged Tq != Tk shapes (partial query blocks and key tiles) and
+# d=128 (one consumer warpgroup, 32-key tiles).
+K4_F32_EXTRA = ((2, 77, 130, 4, 64), (2, 300, 1000, 4, 64), (2, 129, 640, 8, 128),
+                (2, 1024, 1024, 8, 128))
 
 
 FLASH_SWITCHES = {"VFM_VAE_USE_PALLAS_FLASH": "1", "VFM_VAE_ADAPTER_ATTN": "3mm-flash"}
@@ -1730,13 +1854,24 @@ def train_phase(card: str, B: int = 4):
     return tr, state, reals[0], launches
 
 
+GRAD_HISTORY: dict = {}  # tensor name -> ["label:step:raw gradient norm"] over train_steps calls
+
+
 def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
     """One [D, G] step per bucket (the first a warm-up), timed, with the
-    training gates: finite losses, a nonzero first-step gradient for every
-    trainable tensor, every trainable tensor changed and every frozen one
-    (SigLIP, DINO, LPIPS) bit-identical, every EMA tensor moved, and the
-    launch counts predicted_launches gives for the switches set now.
-    Returns (state, launches)."""
+    training gates: finite losses, a nonzero gradient in some step for every
+    trainable tensor, every trainable tensor moved by some step and every
+    frozen one (SigLIP, DINO, LPIPS) bit-identical, every EMA tensor moved,
+    and the launch counts predicted_launches gives for the switches set now.
+    Returns (state, launches).
+
+    Both gates look at each step, not at the first or at the phase as a
+    whole. A D head's cls bias takes the hinge loss's gradient
+    (#fake - #real logits inside the margin) / N, exactly zero when the
+    counts tie, as they do when every logit lies inside the margin. A
+    scalar's Adam steps can sum to less than half its spacing and bring it
+    back to its starting bits. A tensor that no step moved, or whose
+    gradient was zero in every step, fails with its per-step story."""
     import torch
 
     from vfm_vae_tpu_torch.ops import kernels
@@ -1755,7 +1890,9 @@ def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     tr.record_grad_norms = True
-    d_ms, g_ms, first_norms = [], [], None
+    d_ms, g_ms = [], []
+    step_norms, step_moved = [], []  # per step: raw gradient norms, tensors that moved
+    prev = {n: p.detach().clone() for n, p in params.items() if n in trainable}
     for i, (eq, img) in enumerate(zip(buckets, reals)):
         t0 = time.perf_counter()
         state, d_stats, d_total = tr.d_step(state, img, eq, gen)
@@ -1766,8 +1903,12 @@ def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
         t2 = time.perf_counter()
         d_ms.append((t1 - t0) * 1e3)
         g_ms.append((t2 - t1) * 1e3)
-        if i == 0:
-            first_norms, tr.record_grad_norms = dict(tr.grad_norms), False
+        step_norms.append(dict(tr.grad_norms))
+        for n, v in tr.grad_norms.items():
+            GRAD_HISTORY.setdefault(n, []).append(f"{label}:{i}:{v:.3e}")
+        step_moved.append({n for n in prev if not torch.equal(prev[n], params[n])})
+        for n in step_moved[-1]:
+            prev[n].copy_(params[n])
         stats = {**d_stats, **g_stats}
         vals = torch.stack([v for v in stats.values()] + [d_total.reshape(1).expand(3),
                                                           g_total.reshape(1).expand(3)])
@@ -1781,6 +1922,8 @@ def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
               f"{tr.G.ldm_adapter.z_resolution * eq[0]:g} px: D {d_ms[-1]:.1f} ms G "
               f"{g_ms[-1]:.1f} ms; D total {float(d_total):.4g} G total {float(g_total):.4g} "
               f"{terms} vf_w={mean['Loss/G/cur_vf_loss_weight']:.4g}", flush=True)
+    tr.record_grad_norms = False
+    del prev
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"[{label}] launches over {len(buckets)} [D, G] steps: {launches}; predicted {want}",
@@ -1795,25 +1938,48 @@ def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
           f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)", flush=True)
 
     after = named_params(tr)
-    zero = sorted(n for n in trainable if first_norms[n] == 0 and not bn_fed_bias(n))
-    unchanged = sorted(n for n in trainable
-                       if torch.equal(before[n], after[n]) and not bn_fed_bias(n))
+    gated = sorted(n for n in trainable if not bn_fed_bias(n))
+    zero = [n for n in gated if all(d[n] == 0 for d in step_norms)]
+    unchanged = [n for n in gated if not any(n in m for m in step_moved)]
+    returned = [n for n in gated if n not in unchanged and torch.equal(before[n], after[n])]
     moved = sorted(n for n in frozen if not torch.equal(before[n], after[n]))
     still = sorted(k for k in state.ema if torch.equal(ema0[k], state.ema[k]))
     bn = sorted(n for n in trainable if bn_fed_bias(n))
-    print(f"[{label}] first step: {sum(first_norms[n] > 0 for n in trainable)}/{len(trainable)} "
-          f"trainable tensors with a nonzero gradient (min "
-          f"{min(first_norms[n] for n in trainable if not bn_fed_bias(n)):.3e}); "
-          f"{len(bn)} BatchNormLocal-fed head biases (zero in exact arithmetic) had norms up to "
-          f"{max(first_norms[n] for n in bn):.3e}", flush=True)
-    print(f"[{label}] after {len(buckets)} steps: {len(trainable) - len(unchanged)}/"
-          f"{len(trainable)} trainable tensors changed, {len(frozen) - len(moved)}/{len(frozen)} "
-          f"frozen (SigLIP, DINO, LPIPS) unchanged bit for bit, {len(state.ema) - len(still)}/"
-          f"{len(state.ema)} EMA tensors moved, cur_nimg {state.cur_nimg}", flush=True)
+    first = step_norms[0]
+    print(f"[{label}] gradients: {len(gated) - len(zero)}/{len(gated)} trainable tensors with a "
+          f"nonzero gradient in some step ({sum(first[n] > 0 for n in gated)} in the first, min "
+          f"{min(first[n] for n in gated):.3e}); {len(bn)} BatchNormLocal-fed head biases (zero "
+          f"in exact arithmetic) had norms up to {max(first[n] for n in bn):.3e}", flush=True)
+    print(f"[{label}] after {len(buckets)} steps: {len(gated) - len(unchanged)}/{len(gated)} "
+          f"trainable tensors moved by some step ({len(returned)} back at their starting bits: "
+          f"{returned[:4]}), {len(frozen) - len(moved)}/{len(frozen)} frozen (SigLIP, DINO, "
+          f"LPIPS) unchanged bit for bit, {len(state.ema) - len(still)}/{len(state.ema)} EMA "
+          f"tensors moved, cur_nimg {state.cur_nimg}", flush=True)
+
+    def story(n: str) -> str:
+        """A gated tensor's raw gradient norm and movement per step, its
+        Adam state and its gradient norms in the earlier gated phases."""
+        p = params[n]
+        opt = state.g_opt if n.startswith("G.") else state.d_opt
+        st = opt.state.get(p)
+        b2 = opt.param_groups[0]["betas"][1]
+        rms = (float((st["exp_avg_sq"] / (1 - b2 ** float(st["step"]))).sqrt().max())
+               if st else None)
+        a = p.detach().abs().float()
+        return (f"{n}: raw gradient norm per step {[d[n] for d in step_norms]}, moved "
+                f"{[n in m for m in step_moved]}, |p| max {float(a.max()):.4e}, spacing min "
+                f"{float((torch.nextafter(a, a + 1) - a).min()):.3e}, Adam step "
+                f"{float(st['step']) if st else None}, sqrt(v_hat) max {rms}, history "
+                f"{GRAD_HISTORY.get(n)}")
+
+    odd = [n for n in gated if any(not math.isfinite(d[n]) for d in step_norms)]
+    for n in sorted(set(zero) | set(unchanged) | set(returned) | set(odd)):
+        print(f"[{label}] {story(n)}", flush=True)
     if (zero or unchanged or moved or still
             or state.cur_nimg != nimg0 + B * len(buckets)):
         raise SystemExit(f"chip_smoke: {label} gates failed: zero grad {zero[:4]}, unchanged "
-                         f"{unchanged[:4]}, frozen moved {moved[:4]}, EMA still {still[:4]}")
+                         f"{unchanged[:4]}, frozen moved {moved[:4]}, EMA still {still[:4]}; "
+                         + "; ".join(story(n) for n in sorted(set(zero + unchanged))[:2]))
     return state, launches
 
 
@@ -2696,6 +2862,18 @@ def main() -> int:
             entry = kernel_name(line)
         if "registers" in line or "spill" in line:
             print(f"[build] {entry}: {line.strip()}", flush=True)
+    from vfm_vae_tpu_torch.probes.flash_forward import sass_counts
+
+    # K4's fp32 forward runs its products on the tensor cores (TF32 HGMMA):
+    # an FMA main loop would show as thousands of FFMA.
+    fwd_f32 = sass_counts(str(lib.path))
+    if not fwd_f32:
+        raise SystemExit("chip_smoke: no flash_fwd_f32_kernel in the library's SASS")
+    for name, c in fwd_f32.items():
+        print(f"[build] {name} SASS: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA, {c['FFMA']} FFMA of "
+              f"{c['instructions']} instructions", flush=True)
+        if c["HGMMA"] == 0 or c["FFMA"] > 512:
+            raise SystemExit(f"chip_smoke: {name} is not a tensor-core kernel ({c})")
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")

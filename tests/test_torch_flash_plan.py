@@ -1,7 +1,8 @@
-"""The bf16 flash kernels' launch plans (forward_plan and backward_plan, the
-Python mirrors of vfm_flash_fwd_plan and vfm_flash_bwd_plan in
-csrc/flash_attention_nullkv{,_bwd}.cu) and the wrappers' single validation
-pass, on the CPU: no kernel, no JAX."""
+"""The flash kernels' launch plans (forward_plan, forward_plan_f32,
+backward_plan and backward_plan_f32, the Python mirrors of
+vfm_flash_fwd_plan, vfm_flash_fwd_f32_plan, vfm_flash_bwd_plan and
+vfm_flash_bwd_f32_plan in csrc/flash_attention_nullkv{,_bwd}.cu) and the
+wrappers' single validation pass, on the CPU: no kernel, no JAX."""
 
 import pytest
 import torch
@@ -208,3 +209,51 @@ def test_f32_backward_plan_refuses_other_head_dims():
     for D in (32, 96, 256):
         with pytest.raises(ValueError):
             fa.backward_plan_f32(2, 1024, 1024, 8, D)
+
+
+# (B, Tq, N, D) of the fp32 forward: the adapter's sites (T=1024 N=16,
+# T=256 N=12) at B=2, 4 and 32, ragged Tq at d = 64 and 128, d=128 at
+# T=1024, one and five queries.
+F32_FORWARD_SHAPES = [(2, 1024, 16, 64), (4, 1024, 16, 64), (32, 1024, 16, 64), (2, 256, 12, 64),
+                      (4, 256, 12, 64), (32, 256, 12, 64), (2, 77, 4, 64), (2, 129, 8, 128),
+                      (2, 1024, 8, 128), (1, 5, 1, 64), (1, 1, 1, 128)]
+
+
+@pytest.mark.parametrize("B,Tq,N,D", F32_FORWARD_SHAPES)
+def test_f32_forward_plan_covers_every_query_and_fits_a_block(B, Tq, N, D):
+    """The fp32 forward's CTAs cover every query row of every (sample,
+    head) in blocks of 64 per consumer warpgroup; K/V tiles hold 16 KB of
+    fp32 (4096 / D keys); its shared memory (Q's hi and lo planes, two
+    stages of K, K lo, V, V^T hi and V^T lo, nine barriers, alignment
+    slack) fits one block; TMA boxes are 32 fp32 columns (128 bytes, the
+    swizzle's span)."""
+    p = fa.forward_plan_f32(B, Tq, N, D, H100_SMS)
+    rows, kt = p["query_tile"], p["key_tile"]
+    assert p["wgs"] in (1, 2) and rows == 64 * p["wgs"]
+    assert p["threads"] == 128 * p["wgs"] + 128  # consumer warpgroups + the producer's
+    blocks = p["ctas"] // (N * B)
+    assert p["ctas"] == blocks * N * B and blocks * rows >= Tq > (blocks - 1) * rows
+    assert kt * D == 4096 and p["stages"] == 2
+    plane, tile = rows * D * 4, kt * D * 4
+    assert p["smem_bytes"] == 2 * plane + 2 * 5 * tile + 8 * (2 + 3 * 2) + 1024
+    assert p["smem_bytes"] <= SMEM_LIMIT, p["smem_bytes"]
+    assert p["boxes_per_row"] * 32 == D
+    assert p["q_box"] == (32, 1, rows, 1) and p["kv_box"] == (32, 1, kt, 1)
+
+
+@pytest.mark.parametrize("B,T,N,D,wgs", [(2, 1024, 16, 64, 2), (32, 1024, 16, 64, 2),
+                                         (2, 256, 12, 64, 1), (4, 256, 12, 64, 1),
+                                         (32, 256, 12, 64, 2), (2, 1024, 8, 128, 1),
+                                         (32, 1024, 16, 128, 1)])
+def test_f32_forward_plan_takes_two_warpgroups_only_where_they_fit_and_fill(B, T, N, D, wgs):
+    """128-query CTAs at d=64 where B * N * ceil(T / 128) >= the SM count,
+    else 64: the adapter's T=256 site at B=2 gets 96 CTAs, not 48; d=128
+    always 64 (two warpgroups' Q planes would not fit)."""
+    assert fa.forward_plan_f32(B, T, N, D, H100_SMS)["wgs"] == wgs
+
+
+def test_f32_forward_plan_refuses_other_head_dims():
+    for D in (32, 96, 256):
+        with pytest.raises(ValueError):
+            fa.forward_plan_f32(2, 1024, 8, D)
+

@@ -730,3 +730,70 @@ def test_flash_backward_f32_plan_matches_the_kernel_on_gpu(cuda):
         want = [p[n][key] for n in ("dkv", "dq") for key in
                 ("warps", "rows", "tile", "stages", "smem_bytes", "ctas")]
         assert list(got) == want, (B, Tq, Tk, N, D)
+
+
+# (B, Tq, Tk, N, D): the adapter's fp32 forward sites (T=1024 N=16 and T=256
+# N=12, d=64) at B=2, 4 and the offline batch's 32 (two consumer warpgroups
+# where the grid fills the card, one at T=256 B=2), ragged Tq != Tk at d =
+# 64 and 128 (partial query blocks and key tiles; B=1 with 5 queries and 3
+# keys, and a single query and key), and d=128 at T=1024.
+FP32_FORWARD_CASES = [(2, 1024, 1024, 16, 64), (4, 1024, 1024, 16, 64), (32, 1024, 1024, 16, 64),
+                      (2, 256, 256, 12, 64), (4, 256, 256, 12, 64), (32, 256, 256, 12, 64),
+                      (2, 77, 130, 4, 64), (2, 300, 1000, 4, 64), (2, 129, 640, 8, 128),
+                      (2, 1024, 77, 8, 128), (2, 1024, 1024, 8, 128), (1, 5, 3, 1, 64),
+                      (1, 1, 1, 1, 128)]
+
+
+def _fp64_attention(q, k, v, scale):
+    s = torch.einsum("btnh,bsnh->bnts", q.double(), k.double()) * scale
+    return torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,Tk,N,D", FP32_FORWARD_CASES)
+def test_k4_fp32_forward_matches_twin_and_fp64_on_gpu(cuda, B, Tq, Tk, N, D):
+    """K4's fp32 forward (3xTF32 on wgmma, K/V by TMA): the output against
+    the fp32 twin within 1e-5 of scale (max and mean), against fp64 within
+    1.5x the twin's mean error (+1e-7), its log-sum-exp against the twin's
+    logsumexp, bit-identical on repeat, with and without the log-sum-exp,
+    one launch a call."""
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(B * Tq + Tk + N + D + 11)
+    q = torch.randn(B, Tq, N, D, generator=g, device=cuda)
+    k, v = (torch.randn(B, Tk, N, D, generator=g, device=cuda) for _ in range(2))
+    scale = D ** -0.5
+    before = kernels.flash_attention_nonull.launches
+    out, lse = fa._launch_nonull(q, k, v, scale, True)
+    out2, lse2 = fa._launch_nonull(q, k, v, scale, True)
+    out3, none = fa._launch_nonull(q, k, v, scale, False)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention_nonull.launches == before + 3 and none is None
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(out, out3)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    ref, ref_lse = kernels.flash_attention_nonull_reference(q, k, v, scale, True)
+    max_rel, mean_rel = _errors(out, ref)
+    assert max_rel <= 1e-5 and mean_rel <= 1e-5, (max_rel, mean_rel)
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max()) + 1e-5
+    del ref_lse
+    truth = _fp64_attention(q, k, v, scale)
+    k64, p64 = _errors(out, truth)[1], _errors(ref, truth)[1]
+    assert k64 <= 1.5 * p64 + 1e-7, (k64, p64)
+
+
+@pytest.mark.gpu
+def test_flash_forward_f32_plan_matches_the_kernel_on_gpu(cuda):
+    """forward_plan_f32 (Python) and vfm_flash_fwd_f32_plan (the C launch) agree."""
+    import ctypes
+
+    from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    lib = library().lib
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, Tq, _, N, D in FP32_FORWARD_CASES:
+        got = (ctypes.c_int * 7)()
+        assert lib.vfm_flash_fwd_f32_plan(B, Tq, N, D, sms, got) == 0
+        p = fa.forward_plan_f32(B, Tq, N, D, sms)
+        assert list(got) == [p[key] for key in ("wgs", "query_tile", "key_tile", "stages",
+                                                "threads", "smem_bytes", "ctas")], (B, Tq, N, D)

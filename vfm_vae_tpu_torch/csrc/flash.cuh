@@ -262,21 +262,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 (B, T, N, D) tensor as a 4-D map (innermost first: D, N, T, B) with
-// boxes of (64, 1, rows, 1) in the 128-byte swizzle; rows past T read as 0.
+// A bf16 or fp32 (elem_bytes 2 or 4) (B, T, N, D) tensor as a 4-D map
+// (innermost first: D, N, T, B) with boxes of 128 bytes of D (64 bf16 or 32
+// fp32 columns), one head, `rows` tokens, in the 128-byte swizzle; rows past
+// T read as 0.
 inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int N, int D,
-                              int rows) {
+                              int rows, int elem_bytes = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t e = (cuuint64_t)elem_bytes;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
-                                 (cuuint64_t)T * N * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * e, (cuuint64_t)N * D * e,
+                                 (cuuint64_t)T * N * D * e};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map,
+                        elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        4, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -61,11 +61,43 @@
 // The layout, the ring and its producer, the products and the launch
 // helpers are in flash.cuh, shared with the backward kernels.
 //
-// fp32 design (K4 at the adapter, which computes in fp32 in both packages):
-// fp32 FMA on the CUDA cores, no TF32. One CTA of 256 threads per (64-query
-// tile, head, sample); thread (ty, tx) owns query rows 4ty..4ty+3, keys
-// tx + 16i of each 64-key tile and output columns 4tx.. (+64); P goes through
-// shared memory between the two products.
+// fp32 design (K4 at the adapter, which computes in fp32 in both packages;
+// flash_fwd_f32_kernel<D, NWG>): every product on the tensor cores as 3xTF32
+// (tf32x3.cuh: hi = tf32(x), lo = x - hi, a b = a_lo b_hi + a_hi b_lo +
+// a_hi b_hi), fp32's accuracy, not TF32's. The card's bound is then the
+// tensor cores at a third of the TF32 rate, 165 TFLOP/s of fp32 work, 2.5x
+// the CUDA cores' FMA.
+// - A CTA holds NWG consumer warpgroups of 64 queries each (two at d = 64
+//   when B N ceil(Tq / 128) CTAs give every SM one, else one) and a producer
+//   warpgroup. One lane of the producer TMA-loads the CTA's Q block once and
+//   64-key (d = 64) or 32-key (d = 128) K and V tiles into a ring of two
+//   stages: fp32 boxes of 32 columns in the 128-byte swizzle, zero-filled
+//   past Tq and Tk.
+// - The producer's other three warps split each landed tile once for the CTA
+//   (every consumer reads all of it): Q and K in place into hi planes with
+//   lo planes beside them (elementwise: the swizzled layout is kept, the
+//   K-major operand layout of tf32 wgmma), V into the hi and lo planes of its
+//   transpose (d rows, keys contiguous: tf32 wgmma takes K-major operands
+//   only), keys permuted within each block of 8.
+// - S = Q K^T: wgmma m64n64k8 (m64n32k8 at d = 128) SS from the Q and K
+//   planes, three products per k step of 8, in chains of two k steps (six
+//   products) into fresh accumulators, folded into S in order by fp32 adds
+//   (two accumulators in flight, so the tensor cores run while a chain is
+//   added): the tensor cores' accumulation rounds towards zero, and over a
+//   whole tile it measured 3x the twin's error against fp64 in the CPU
+//   emulation (tests/test_torch_tf32x3.py).
+// - The online softmax runs in registers (rows across the four lanes of a
+//   quad, ex2.approx). P stays fp32 (the twin rounds P to the input dtype),
+//   is split in registers, and its C fragments serve as the A fragments of
+//   O += P V (wgmma m64nDk8 RS) with k permuted within blocks of 8, which the
+//   V planes' key order matches. O is rescaled, then each chain of 16 keys is
+//   summed into a fresh accumulator and added to O.
+// - Masking: keys past Tk (zero-filled) get -inf logits in the last tile;
+//   query rows past Tq (zero-filled) are computed and not stored.
+// No float atomics: every output is bit-identical from run to run.
+// At the adapter's sites it reaches about half of its bound at B=32; the
+// split (about 30% of the time) and the products' shared-memory operand
+// reads are what remain (PERF.md, probes/flash_forward.py --fp32).
 //
 // Training mode: given an `lse` pointer, the kernel (bf16 or fp32) also
 // writes each query row's log-sum-exp over the walk (natural-log units,
@@ -75,15 +107,11 @@
 // Layouts: q, out (B, Tq, N, D); k, v (B, Tk, N, D); null_k, null_v
 // (B, 1, N, D) or null; bf16 or (K4) fp32; lse (B, N, Tq) fp32 or null.
 #include "flash.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using vfm::bf16;
-
-// fp32 kernel tiles.
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreadsF32 = 256;
 
 // Shared-memory layout of flash_fwd_kernel with NWG consumer warpgroups
 // (flash.cuh): Q resident (one box of 64 NWG rows per 64 columns), K/V tiles
@@ -328,155 +356,258 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1) flash_fwd_kernel(
   }
 }
 
-template <int D>
-constexpr size_t smem_f32() {
-  return sizeof(float) * (size_t)(kBQ * (D + 4) + kBK * (D + 4) + kBK * D + kBQ * (kBK + 4));
+// Shared-memory layout of flash_fwd_f32_kernel<D, NWG>, bytes from a
+// 1024-aligned base: Q's hi plane (where its TMA boxes land raw) and lo
+// plane, then two stages of [K (raw, split in place into hi), K lo, V raw,
+// V^T hi, V^T lo], then the barriers. Every plane is 32-column boxes in the
+// 128-byte swizzle: Q (64 NWG rows), K (kKT rows), V^T (D rows, kKT keys).
+template <int D, int NWG>
+struct F32Layout {
+  static constexpr int kKT = 4096 / D;           // keys per tile: 64 at d = 64, 32 at d = 128
+  static constexpr int kRows = 64 * NWG;         // queries per CTA
+  static constexpr int kQPlane = kRows * D * 4;  // one plane of Q
+  static constexpr int kQBox = kRows * 128;      // one 32-column box of a Q plane
+  static constexpr int kTile = kKT * D * 4;      // one plane of K, V or V^T
+  static constexpr int kKBox = kKT * 128;        // one 32-column box of K or V
+  static constexpr int kVtBox = D * 128;         // one 32-key box of V^T
+  static constexpr int kStages = 2;
+  static constexpr int kStage = 5 * kTile;
+  static constexpr int kRing = 2 * kQPlane;
+  static constexpr int kBar = kRing + kStages * kStage;  // q_full, q_ready, full, ready, empty
+  static constexpr int kSmem = kBar + 8 * (2 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr int kThreads = 128 * (NWG + 1);
+  static constexpr int kSplitters = 96;  // warps 1-3 of the producer warpgroup
+  // Two consumer warpgroups need ~200 registers a thread, above the 168 of
+  // entry: the producer warpgroup keeps 40 and gives the rest away.
+  static constexpr bool kMoveRegisters = NWG > 1;
+};
+
+// acc += x in fp32 (round to nearest), once the wgmma group that wrote x
+// has completed: one chain of products folded into its running sum.
+template <int R>
+__device__ __forceinline__ void fold(float (&acc)[R], float (&x)[R]) {
+  fence_all(x);
+  fence_all(acc);
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] += x[i];
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int N, float scale_log2) {
-  constexpr int LD = D + 4;       // q and k rows: conflict-free float4 loads across keys
-  constexpr int LDP = kBK + 4;
-  constexpr int CJ = D / 64;      // float4 column groups per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [query][d]
-  float* ks = qs + kBQ * LD;                        // [key][d]
-  float* vs = ks + kBK * LD;                        // [key][d]
-  float* ps = vs + kBK * D;                         // [query][key]
+// One chain of S = Q K^T, k steps 2c and 2c + 1 of d: six products
+// (a_lo b_hi, a_hi b_lo, a_hi b_hi per step) into acc, started fresh, and
+// committed as one wgmma group. Q's and K's hi and lo planes at qh, ql (this
+// warpgroup's rows), kh, kl.
+template <typename L>
+__device__ __forceinline__ void s_chain(float (&acc)[L::kKT / 2], int c, uint32_t qh, uint32_t ql,
+                                        uint32_t kh, uint32_t kl) {
+  vfm::wgmma_fence();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kk = 2 * c + hh;
+    const uint32_t qo = (kk >> 2) * L::kQBox + (kk & 3) * 32;
+    const uint32_t ko = (kk >> 2) * L::kKBox + (kk & 3) * 32;
+    const uint64_t dqh = vfm::sw128_desc(qh + qo, 16, 1024);
+    const uint64_t dql = vfm::sw128_desc(ql + qo, 16, 1024);
+    const uint64_t dkh = vfm::sw128_desc(kh + ko, 16, 1024);
+    const uint64_t dkl = vfm::sw128_desc(kl + ko, 16, 1024);
+    vfm::wgmma_tf32_ss<L::kKT>(acc, dql, dkh, hh);
+    vfm::wgmma_tf32_ss<L::kKT>(acc, dqh, dkl, 1);
+    vfm::wgmma_tf32_ss<L::kKT>(acc, dqh, dkh, 1);
+  }
+  vfm::wgmma_commit();
+}
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+// One chain of O += P V, k steps 2c and 2c + 1 of the tile's keys: six
+// products into acc, started fresh, committed as one group. P's hi and lo A
+// fragments, V^T's hi and lo planes at vh, vl.
+template <int D, typename L>
+__device__ __forceinline__ void pv_chain(float (&acc)[D / 2], int c,
+                                         const uint32_t (&ph)[L::kKT / 8][4],
+                                         const uint32_t (&pl)[L::kKT / 8][4], uint32_t vh,
+                                         uint32_t vl) {
+  vfm::wgmma_fence();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kk = 2 * c + hh;
+    const uint32_t vo = (kk >> 2) * L::kVtBox + (kk & 3) * 32;
+    const uint64_t dvh = vfm::sw128_desc(vh + vo, 16, 1024);
+    const uint64_t dvl = vfm::sw128_desc(vl + vo, 16, 1024);
+    vfm::wgmma_tf32_rs<D>(acc, pl[kk], dvh, hh);
+    vfm::wgmma_tf32_rs<D>(acc, ph[kk], dvl, 1);
+    vfm::wgmma_tf32_rs<D>(acc, ph[kk], dvh, 1);
+  }
+  vfm::wgmma_commit();
+}
+
+// One consumer warpgroup `wg` of flash_fwd_f32_kernel: its 64 query rows
+// against every K/V tile, then the output rows and their log-sum-exp. This
+// thread holds rows r0 and r0 + 8 of the CTA's block, columns 8 c + 2 t and
+// 8 c + 2 t + 1 of every 8-column chunk c (the wgmma accumulator layout).
+template <int D, int NWG>
+__device__ __forceinline__ void consume_f32(uint32_t base, uint32_t bar, float* __restrict__ out,
+                                            float* __restrict__ lse, int wg, int q0, int h, int b,
+                                            int Tq, int Tk, int N, float scale_log2) {
+  using L = F32Layout<D, NWG>;
+  constexpr int KT = L::kKT;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int r0 = wg * 64 + (threadIdx.x / 32 % 4) * 16 + g;
+  const int n_tiles = (Tk + KT - 1) / KT;
+  const uint32_t qh = base + wg * 64 * 128, ql = qh + L::kQPlane;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  vfm::mbar_wait(bar + 8u, 0);  // q_ready
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j & 1;
+    const uint32_t st = base + L::kRing + s * L::kStage;
+    const uint32_t kh = st, kl = st + L::kTile, vh = st + 3 * L::kTile, vl = st + 4 * L::kTile;
+    vfm::mbar_wait(bar + 8u * (2 + L::kStages + s), (j >> 1) & 1);  // ready(s)
+
+    // S = Q K^T over d: D / 16 chains of two k steps, chain 0 into S, chain
+    // c > 0 into zs[(c - 1) % 2], added to S in order (two in flight).
+    constexpr int NC = D / 16;
+    float sc[KT / 2], zs[2][KT / 2];
+    s_chain<L>(sc, 0, qh, ql, kh, kl);
+#pragma unroll
+    for (int c = 1; c < NC; ++c) {
+      if (c >= 3) {
+        vfm::wgmma_wait<1>();
+        fold(sc, zs[(c - 1) & 1]);  // chain c - 2
+      }
+      s_chain<L>(zs[(c - 1) & 1], c, qh, ql, kh, kl);
+    }
+    vfm::wgmma_wait<1>();
+    fold(sc, zs[(NC - 3) & 1]);  // chain NC - 2
+    vfm::wgmma_wait<0>();
+    fold(sc, zs[(NC - 2) & 1]);  // chain NC - 1
+
+    float alpha[2];
+    online_softmax<KT>(sc, m, l, alpha, j * KT, Tk, t, scale_log2);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      o[4 * c] *= alpha[0];
+      o[4 * c + 1] *= alpha[0];
+      o[4 * c + 2] *= alpha[1];
+      o[4 * c + 3] *= alpha[1];
+    }
+    // P's C fragments as A fragments: k index t <- column 2t, t + 4 <- 2t + 1.
+    uint32_t ph[KT / 8][4], pl[KT / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      vfm::split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
+      vfm::split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      vfm::split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      vfm::split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+    }
+
+    // O += P V over the tile's keys: KT / 16 chains of two k steps, each into
+    // a fresh accumulator added to O in order (one in flight: two measured
+    // no faster, and at d = 128 O, P and one chain fill the registers).
+    float zo[D / 2];
+#pragma unroll
+    for (int c = 0; c < KT / 16; ++c) {
+      pv_chain<D, L>(zo, c, ph, pl, vh, vl);
+      vfm::wgmma_wait<0>();
+      fold(o, zo);
+    }
+    fence_all(ph);
+    fence_all(pl);
+    vfm::mbar_arrive(bar + 8u * (2 + 2 * L::kStages + s));  // empty(s)
+  }
+
   const size_t rs = (size_t)N * D;
   const size_t qhead = (size_t)b * Tq * rs + (size_t)h * D;
-  const size_t khead = (size_t)b * Tk * rs + (size_t)h * D;
-
-  for (int i = tid; i < kBQ * D / 4; i += kThreadsF32) {
-    const int r = i / (D / 4), c4 = (i % (D / 4)) * 4;
-    const int tok = q0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tok < Tq) val = *reinterpret_cast<const float4*>(q + qhead + tok * rs + c4);
-    *reinterpret_cast<float4*>(qs + r * LD + c4) = val;
-  }
-
-  float m[4], l[4], o[4][4 * CJ];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * CJ; ++c) o[r][c] = 0.f;
-  }
-
-  for (int kb = 0; kb < Tk; kb += kBK) {
-    __syncthreads();
-    for (int i = tid; i < kBK * D / 4; i += kThreadsF32) {
-      const int r = i / (D / 4), c4 = (i % (D / 4)) * 4;
-      const int j = kb + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (j < Tk) {
-        kv = *reinterpret_cast<const float4*>(k + khead + (size_t)j * rs + c4);
-        vv = *reinterpret_cast<const float4*>(v + khead + (size_t)j * rs + c4);
-      }
-      *reinterpret_cast<float4*>(ks + r * LD + c4) = kv;
-      *reinterpret_cast<float4*>(vs + r * D + c4) = vv;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(qs + (4 * ty + r) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        kv[i] = *reinterpret_cast<const float4*>(ks + (tx + 16 * i) * LD + d);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = s[r][i];
-          a = fmaf(qv[r].x, kv[i].x, a);
-          a = fmaf(qv[r].y, kv[i].y, a);
-          a = fmaf(qv[r].z, kv[i].z, a);
-          a = fmaf(qv[r].w, kv[i].w, a);
-          s[r][i] = a;
-        }
-      }
-    }
-
-    // Online softmax over this thread's 4 x 4 logits; a row's 16 threads are
-    // the 16 consecutive lanes that share ty.
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = kb + tx + 16 * i;
-        s[r][i] = j < Tk ? s[r][i] * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[r][i]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mnew = fmaxf(m[r], mx);  // finite: key kb is always valid
-      const float alpha = exp2f(m[r] - mnew);
-      m[r] = mnew;
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[r][i] = exp2f(s[r][i] - mnew);
-        sum += s[r][i];
-        ps[(4 * ty + r) * LDP + tx + 16 * i] = s[r][i];
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < 4 * CJ; ++c) o[r][c] *= alpha;
-    }
-    __syncthreads();
-
-    // O += P V over the tile's 64 keys.
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float p[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = ps[(4 * ty + r) * LDP + j];
-#pragma unroll
-      for (int cj = 0; cj < CJ; ++cj) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + j * D + 64 * cj + 4 * tx);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          o[r][4 * cj + 0] = fmaf(p[r], vv.x, o[r][4 * cj + 0]);
-          o[r][4 * cj + 1] = fmaf(p[r], vv.y, o[r][4 * cj + 1]);
-          o[r][4 * cj + 2] = fmaf(p[r], vv.z, o[r][4 * cj + 2]);
-          o[r][4 * cj + 3] = fmaf(p[r], vv.w, o[r][4 * cj + 3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int tok = q0 + 4 * ty + r;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int tok = q0 + r0 + 8 * hf;
     if (tok >= Tq) continue;
-    const float inv = 1.f / l[r];
+    const float inv = 1.f / l[hf];
 #pragma unroll
-    for (int cj = 0; cj < CJ; ++cj) {
-      const float4 val = make_float4(o[r][4 * cj] * inv, o[r][4 * cj + 1] * inv,
-                                     o[r][4 * cj + 2] * inv, o[r][4 * cj + 3] * inv);
-      *reinterpret_cast<float4*>(out + qhead + (size_t)tok * rs + 64 * cj + 4 * tx) = val;
-    }
-    if (lse != nullptr && tx == 0)
-      lse[((size_t)b * N + h) * Tq + tok] = (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(out + qhead + (size_t)tok * rs + 8 * c + 2 * t) =
+          make_float2(o[4 * c + 2 * hf] * inv, o[4 * c + 2 * hf + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * N + h) * Tq + tok] = (m[hf] + log2f(l[hf])) * 0.6931471805599453f;
   }
 }
 
+// One CTA per (block of 64 NWG queries, head, sample); see the fp32 design
+// above. Barriers: q_full (Q landed), q_ready (Q split), and per stage full
+// (K and V landed), ready (split) and empty (every consumer done with it).
+template <int D, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1) flash_fwd_f32_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, float* __restrict__ out, float* __restrict__ lse,
+    int Tq, int Tk, int N, float scale_log2) {
+  using L = F32Layout<D, NWG>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = vfm::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);  // generic pointer to `base`
+  const uint32_t bar = base + L::kBar;
+  auto full = [&](int s) { return bar + 8u * (2 + s); };
+  auto ready = [&](int s) { return bar + 8u * (2 + S + s); };
+  auto empty = [&](int s) { return bar + 8u * (2 + 2 * S + s); };
+  const int q0 = blockIdx.x * L::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (Tk + L::kKT - 1) / L::kKT;
+  if (threadIdx.x == 0) {
+    vfm::mbar_init(bar, 1);
+    vfm::mbar_init(bar + 8u, L::kSplitters);
+    for (int s = 0; s < S; ++s) {
+      vfm::mbar_init(full(s), 1);
+      vfm::mbar_init(ready(s), L::kSplitters);
+      vfm::mbar_init(empty(s), NWG * 128);
+    }
+    vfm::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Warpgroup 0 produces: lane 0 issues every TMA load, warps 1-3 split. The
+  // roles are read through shuffles so that the compiler sees them uniform
+  // per warp.
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    if constexpr (L::kMoveRegisters) vfm::reg_dealloc<40>();
+    const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+    if (warp == 0) {
+      if (threadIdx.x == 0) {
+        vfm::mbar_expect_tx(bar, L::kQPlane);
+        for (int x = 0; x < D / 32; ++x)
+          vfm::tma_load_4d(base + x * L::kQBox, &tq, bar, 32 * x, h, q0, b);
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = j % S;
+          const uint32_t st = base + L::kRing + s * L::kStage;
+          if (j >= S) vfm::mbar_wait(empty(s), ((j / S) - 1) & 1);
+          vfm::mbar_expect_tx(full(s), 2 * L::kTile);
+          for (int x = 0; x < D / 32; ++x)
+            vfm::tma_load_4d(st + x * L::kKBox, &tk, full(s), 32 * x, h, j * L::kKT, b);
+          for (int x = 0; x < D / 32; ++x)
+            vfm::tma_load_4d(st + 2 * L::kTile + x * L::kKBox, &tv, full(s), 32 * x, h,
+                             j * L::kKT, b);
+        }
+      }
+    } else {
+      const int tid = threadIdx.x - 32;
+      vfm::mbar_wait(bar, 0);
+      vfm::split_plane(smem, smem + L::kQPlane, L::kQPlane, tid, L::kSplitters);
+      vfm::fence_proxy_async();  // the planes are read by wgmma (the async proxy)
+      vfm::mbar_arrive(bar + 8u);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % S;
+        unsigned char* st = smem + L::kRing + s * L::kStage;
+        vfm::mbar_wait(full(s), (j / S) & 1);
+        vfm::split_plane(st, st + L::kTile, L::kTile, tid, L::kSplitters);
+        vfm::split_transpose<D, L::kKT>(st + 2 * L::kTile, st + 3 * L::kTile, st + 4 * L::kTile,
+                                        tid, L::kSplitters);
+        vfm::fence_proxy_async();
+        vfm::mbar_arrive(ready(s));
+      }
+    }
+  } else {
+    if constexpr (L::kMoveRegisters) vfm::reg_alloc<232>();
+    consume_f32<D, NWG>(base, bar, out, lse, role - 1, q0, h, b, Tq, Tk, N, scale_log2);
+  }
+}
 
 using vfm::sm_count;
 using vfm::smem_limit_once;
@@ -525,18 +656,38 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   return launch_bf16<D, 1>(q, k, v, nk, nv, out, lse, B, Tq, Tk, N, scale, stream);
 }
 
+// Consumer warpgroups per CTA of the fp32 forward for (B, Tq, N, D) on `sms`
+// SMs: two (128 queries) at d = 64 when B N ceil(Tq / 128) CTAs give every
+// SM one, else one (64 queries); one at d = 128 (two would not fit in shared
+// memory).
+int f32_wgs(int B, int Tq, int N, int D, int sms) {
+  return D == 64 && (long long)B * N * ((Tq + 127) / 128) >= sms ? 2 : 1;
+}
+
+template <int D, int NWG>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                       int Tq, int Tk, int N, float scale, cudaStream_t stream) {
+  using L = F32Layout<D, NWG>;
+  static std::atomic<unsigned long long> attr_done{0};
+  cudaError_t err = smem_limit_once(flash_fwd_f32_kernel<D, NWG>, L::kSmem, attr_done);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if ((err = tensor_map(&tq, q, B, Tq, N, D, L::kRows, 4)) != cudaSuccess) return err;
+  if ((err = tensor_map(&tk, k, B, Tk, N, D, L::kKT, 4)) != cudaSuccess) return err;
+  if ((err = tensor_map(&tv, v, B, Tk, N, D, L::kKT, 4)) != cudaSuccess) return err;
+  dim3 grid((Tq + L::kRows - 1) / L::kRows, N, B);
+  flash_fwd_f32_kernel<D, NWG><<<grid, L::kThreads, L::kSmem, stream>>>(
+      tq, tk, tv, static_cast<float*>(out), lse, Tq, Tk, N, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                        int Tq, int Tk, int N, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_f32<D>();
-  static std::atomic<unsigned long long> attr_done{0};
-  cudaError_t err = smem_limit_once(flash_fwd_f32_kernel<D>, (int)smem, attr_done);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + kBQ - 1) / kBQ, N, B);
-  flash_fwd_f32_kernel<D><<<grid, kThreadsF32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, Tq, Tk, N, scale * 1.4426950408889634f);
-  return cudaGetLastError();
+  if constexpr (D == 64)
+    if (f32_wgs(B, Tq, N, D, sm_count()) == 2)
+      return launch_f32<D, 2>(q, k, v, out, lse, B, Tq, Tk, N, scale, stream);
+  return launch_f32<D, 1>(q, k, v, out, lse, B, Tq, Tk, N, scale, stream);
 }
 
 }  // namespace
@@ -586,5 +737,25 @@ extern "C" int vfm_flash_fwd_plan(int B, int Tq, int N, int D, int sms, int* pla
     wgs == 2 ? fill(FwdLayout<64, 2>{}) : fill(FwdLayout<64, 1>{});
   else
     wgs == 2 ? fill(FwdLayout<128, 2>{}) : fill(FwdLayout<128, 1>{});
+  return 0;
+}
+
+// The fp32 forward's launch plan for (B, Tq, N, D) on a card with `sms` SMs:
+// plan[0] consumer warpgroups, [1] queries per CTA, [2] keys per tile,
+// [3] ring stages, [4] threads per CTA, [5] dynamic shared memory in bytes,
+// [6] CTAs.
+extern "C" int vfm_flash_fwd_f32_plan(int B, int Tq, int N, int D, int sms, int* plan) {
+  if ((D != 64 && D != 128) || Tq <= 0) return (int)cudaErrorInvalidValue;
+  const int wgs = f32_wgs(B, Tq, N, D, sms);
+  auto fill = [&](auto layout) {
+    using L = decltype(layout);
+    const int vals[7] = {wgs, L::kRows, L::kKT, L::kStages, L::kThreads, L::kSmem,
+                         (Tq + L::kRows - 1) / L::kRows * N * B};
+    for (int i = 0; i < 7; ++i) plan[i] = vals[i];
+  };
+  if (D == 64)
+    wgs == 2 ? fill(F32Layout<64, 2>{}) : fill(F32Layout<64, 1>{});
+  else
+    fill(F32Layout<128, 1>{});
   return 0;
 }

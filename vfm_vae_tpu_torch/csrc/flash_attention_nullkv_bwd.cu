@@ -101,6 +101,7 @@
 // (B, N, Tq) fp32 (lse in natural-log units); K3's partial sums (B, N,
 // ceil(Tq / 64), 2, D) fp32. bf16 or (K4) fp32.
 #include "flash.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -697,59 +698,6 @@ struct F32Layout {
   static constexpr int kSmem = (int)sizeof(float) * (2 * kRows * kLd + kStages * kStage);
 };
 
-// x = hi + lo with hi = tf32(x) rounded to nearest and lo = x - hi (exact in
-// fp32): the tensor cores read lo's top 19 bits, so x is represented to within
-// 2^-21 |x|, as accurate in the products as rounding lo too (one instruction
-// more per operand).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a0 b0 + a1 b1 over two k blocks of 8 of an m16n8k8 tile as 3xTF32: per
-// block a_lo b_hi + a_hi b_lo + a_hi b_hi (small terms first; a_lo b_lo, near
-// 2^-21 of the product, is dropped). The six products are summed on the
-// tensor cores into a fresh accumulator that one fp32 add (round to nearest)
-// folds into c. The tensor cores' fp32 accumulation rounds towards zero:
-// chained over a whole reduction it puts the gradients 12x as far from fp64
-// as the fp32 twin's; chains of three products 0.6x, of six 0.7x (the probe).
-__device__ __forceinline__ void mma_3xtf32_x2(float c[4], const uint32_t (&ah)[2][4],
-                                              const uint32_t (&al)[2][4],
-                                              const uint32_t (&bh)[2][2],
-                                              const uint32_t (&bl)[2][2]) {
-  float z[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mma_tf32(z, al[h], bh[h]);
-    mma_tf32(z, ah[h], bl[h]);
-    mma_tf32(z, ah[h], bh[h]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += z[i];
-}
-
-// Four 8 x 4 fp32 blocks of shared memory, one register each: ldmatrix's
-// 8 x 8 b16 matrices read as 8 rows of four 32-bit words, so lane 4g + t
-// gets word t of row g, the m16n8k8 TF32 fragments' layout. Lane l gives
-// the address of row l % 8 of block l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void split4(const uint32_t x[4], uint32_t hi[4], uint32_t lo[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
-}
-
 // 16-byte and 4-byte asynchronous copies that read `bytes` (16 or 0, 4 or 0)
 // and zero-fill the rest.
 __device__ __forceinline__ void cp_async16_zfill(float* smem, const float* gmem, int bytes) {
@@ -777,119 +725,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, size_t 
     const bool in = row0 + r < T_;
     cp_async16_zfill(dst + r * (D + 4) + c, in ? src + (size_t)(row0 + r) * rs + c : src,
                      in ? 16 : 0);
-  }
-}
-
-// A landed tile of `rows` rows split in place: the raw fp32 in `hi` becomes
-// its TF32 high parts, the remainders go to `lo` (the same layout).
-template <int D>
-__device__ __forceinline__ void split_rows(float* hi, float* lo, int rows, int tid,
-                                           int nthreads) {
-  for (int i = tid; i < rows * (D / 4); i += nthreads) {
-    const int o = (i / (D / 4)) * (D + 4) + (i % (D / 4)) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(hi + o);
-    uint4 h, l;
-    split_tf32(x.x, h.x, l.x);
-    split_tf32(x.y, h.y, l.y);
-    split_tf32(x.z, h.z, l.z);
-    split_tf32(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + o) = h;
-    *reinterpret_cast<uint4*>(lo + o) = l;
-  }
-}
-
-// acc (this warp's 16 rows x 8 columns per n-tile) += A B over k = D: A (16 x
-// D) from ldmatrix at row `a_base` of a [.][D + 4] tile, B stored [n][k]
-// (rows from `b_base` of a [.][D + 4] tile, two n-tiles per ldmatrix). The A
-// operand is the resident tile (K or V rows in dK/dV, q or dO rows in dQ),
-// split where loaded, B the streamed one: split where loaded, or with
-// kPlanes its hi (`b_base`) and lo (`bl_base`) planes. Two k blocks a step.
-template <int D, int NT, bool kPlanes>
-__device__ __forceinline__ void rows_dot_rows(float acc[NT][4], uint32_t a_base,
-                                              uint32_t b_base, uint32_t bl_base, int lane) {
-  constexpr int LDB = (D + 4) * 4;  // bytes per row
-  const int r = lane & 7, j = lane >> 3;
-  // A blocks: (rows 0-7, k 0-3), (rows 8-15, k 0-3), (rows 0-7, k 4-7), (rows 8-15, k 4-7).
-  const uint32_t a_addr = a_base + (r + 8 * (j & 1)) * LDB + 16 * (j >> 1);
-  // B blocks: (n 0-7, k 0-3), (n 0-7, k 4-7), (n 8-15, k 0-3), (n 8-15, k 4-7).
-  const uint32_t b_off = (r + 8 * (j >> 1)) * LDB + 16 * (j & 1);
-#pragma unroll 1
-  for (int kc = 0; kc < D / 8; kc += 2) {
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t x[4];
-      ldsm_x4(x, a_addr + 32 * (kc + h));
-      split4(x, ah[h], al[h]);
-    }
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bh[2][4], bl[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t off = b_off + 16 * np * LDB + 32 * (kc + h);
-        if constexpr (kPlanes) {
-          ldsm_x4(bh[h], b_base + off);
-          ldsm_x4(bl[h], bl_base + off);
-        } else {
-          uint32_t x[4];
-          ldsm_x4(x, b_base + off);
-          split4(x, bh[h], bl[h]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {  // n-tiles 2np and 2np + 1
-        const uint32_t mh[2][2] = {{bh[0][2 * m], bh[0][2 * m + 1]},
-                                   {bh[1][2 * m], bh[1][2 * m + 1]}};
-        const uint32_t ml[2][2] = {{bl[0][2 * m], bl[0][2 * m + 1]},
-                                   {bl[1][2 * m], bl[1][2 * m + 1]}};
-        mma_3xtf32_x2(acc[2 * np + m], ah, al, mh, ml);
-      }
-    }
-  }
-}
-
-// acc (16 rows x D columns) += A M, where A (16 x KT) is held as the C
-// fragments of a product whose columns are M's rows (P^T or dS^T against
-// queries, dS against keys) and M is [KT][D + 4] in shared memory (split
-// where loaded, or with kPlanes its hi `m` and lo `mlo` planes). The k axis
-// is permuted within each block of 8 (fragment k index t is column 2t, t + 4
-// is 2t + 1), so the C registers serve as A fragments as they are and B
-// reads rows 2t and 2t + 1 of M. Two k blocks per step.
-template <int D, int KT, bool kPlanes>
-__device__ __forceinline__ void frag_times_rows(float acc[D / 8][4], const float a[KT / 8][4],
-                                                const float* m, const float* mlo, int lane) {
-  constexpr int LD = D + 4;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kc = 0; kc < KT / 8; kc += 2) {
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      split_tf32(a[kc + h][0], ah[h][0], al[h][0]);
-      split_tf32(a[kc + h][2], ah[h][1], al[h][1]);
-      split_tf32(a[kc + h][1], ah[h][2], al[h][2]);
-      split_tf32(a[kc + h][3], ah[h][3], al[h][3]);
-    }
-    const int o = (8 * kc + 2 * t) * LD + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int at = o + (8 * h + e) * LD + 8 * n;
-          if constexpr (kPlanes) {
-            bh[h][e] = __float_as_uint(m[at]);
-            bl[h][e] = __float_as_uint(mlo[at]);
-          } else {
-            split_tf32(m[at], bh[h][e], bl[h][e]);
-          }
-        }
-      }
-      mma_3xtf32_x2(acc[n], ah, al, bh, bl);
-    }
   }
 }
 
@@ -978,8 +813,8 @@ __global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dkv_f32_kernel(
     float* dol = dos + BQ * LD;
     const float* ls = dol + BQ * LD;
     const float* ds = ls + BQ;
-    split_rows<D>(qs, ql, BQ, tid, L::kThreads);
-    split_rows<D>(dos, dol, BQ, tid, L::kThreads);
+    vfm::split_rows<D>(qs, ql, BQ, tid, L::kThreads);
+    vfm::split_rows<D>(dos, dol, BQ, tid, L::kThreads);
     __syncthreads();
 
     float st[NT][4], dpt[NT][4];
@@ -987,7 +822,7 @@ __global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dkv_f32_kernel(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
-    rows_dot_rows<D, NT, true>(st, k_base, vfm::smem_u32(qs), vfm::smem_u32(ql),
+    vfm::rows_dot_rows<D, NT, true>(st, k_base, vfm::smem_u32(qs), vfm::smem_u32(ql),
                                lane);  // S^T = K q^T
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -996,12 +831,12 @@ __global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dkv_f32_kernel(
       for (int e = 0; e < 4; ++e)  // P^T
         st[n][e] = vfm::ex2(fmaf(st[n][e], scale_log2, -((e & 1) ? l.y : l.x) * kLog2e));
     }
-    frag_times_rows<D, BQ, true>(dva, st, dos, dol, lane);  // dV += P^T dO
+    vfm::frag_times_rows<D, BQ, true>(dva, st, dos, dol, lane);  // dV += P^T dO
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
-    rows_dot_rows<D, NT, true>(dpt, v_base, vfm::smem_u32(dos), vfm::smem_u32(dol),
+    vfm::rows_dot_rows<D, NT, true>(dpt, v_base, vfm::smem_u32(dos), vfm::smem_u32(dol),
                                lane);  // dP^T = V dO^T
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -1009,7 +844,7 @@ __global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dkv_f32_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) dpt[n][e] = st[n][e] * (dpt[n][e] - ((e & 1) ? dd.y : dd.x));
     }
-    frag_times_rows<D, BQ, true>(dka, dpt, qs, ql, lane);  // dK += dS^T q
+    vfm::frag_times_rows<D, BQ, true>(dka, dpt, qs, ql, lane);  // dK += dS^T q
     __syncthreads();  // this stage is refilled at iteration it + 1
   }
   store_frag_rows<D>(dk + khead, dka, rs, j0 + 16 * warp, Tk, scale, lane);
@@ -1082,8 +917,8 @@ __global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dq_f32_kernel(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    rows_dot_rows<D, NT, false>(s, q_base, vfm::smem_u32(kts), 0, lane);   // S = q K^T
-    rows_dot_rows<D, NT, false>(dp, o_base, vfm::smem_u32(vts), 0, lane);  // dP = dO V^T
+    vfm::rows_dot_rows<D, NT, false>(s, q_base, vfm::smem_u32(kts), 0, lane);   // S = q K^T
+    vfm::rows_dot_rows<D, NT, false>(dp, o_base, vfm::smem_u32(vts), 0, lane);  // dP = dO V^T
     const int kb = it * BK;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -1094,7 +929,7 @@ __global__ void __launch_bounds__(32 * W, D == 64 ? 2 : 1) dq_f32_kernel(
         s[n][e] = p * (dp[n][e] - dr[e >> 1]);  // dS
       }
     }
-    frag_times_rows<D, BK, false>(dqa, s, kts, nullptr, lane);  // dQ += dS K
+    vfm::frag_times_rows<D, BK, false>(dqa, s, kts, nullptr, lane);  // dQ += dS K
     __syncthreads();
   }
   store_frag_rows<D>(dq + qhead, dqa, rs, q0 + 16 * warp, Tq, scale, lane);

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu",
            "flash_attention_nullkv_bwd.cu", "int8_matmul.cu", "group_stats.cu", "dwconv_stats.cu")
-HEADERS = ("common.cuh", "partials.cuh", "hopper.cuh", "flash.cuh")
+HEADERS = ("common.cuh", "partials.cuh", "hopper.cuh", "flash.cuh", "tf32x3.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +46,7 @@ _SIGNATURES = {
     "vfm_flash_attention_nullkv_bwd": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
     "vfm_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "vfm_flash_fwd_plan": [_I, _I, _I, _I, _I, _P],
+    "vfm_flash_fwd_f32_plan": [_I, _I, _I, _I, _I, _P],
     "vfm_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P],
     "vfm_flash_bwd_plan": [_I, _I, _I, _I, _I, _I, _P],
     "vfm_flash_bwd_f32_plan": [_I, _I, _I, _I, _I, _I, _P],

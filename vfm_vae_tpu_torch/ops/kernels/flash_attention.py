@@ -34,8 +34,10 @@ package routes the SigLIP tower and the adapter's AttnProjections to when
 ops/attention.py's eligibility rule admits them. It is a mode of the same
 CUDA source: null pointers for the null token, so the key walk starts at
 key 0 of k; head dims 64 and 128; bf16 operands on the tensor cores, or
-fp32 operands (the adapter computes in fp32) with fp32 FMA on the CUDA cores
-and no TF32. Its backward (`FlashAttentionNoNull`, K4-dkv and K4-dq)
+fp32 operands (the adapter computes in fp32) with every product on the
+tensor cores as 3xTF32 (wgmma fed by TMA, each operand split into TF32 hi
+and lo parts, fp32 accumulation in short chains: fp32's accuracy, not
+TF32's; forward_plan_f32 mirrors its launch plan). Its backward (`FlashAttentionNoNull`, K4-dkv and K4-dq)
 replaces the same two library backward kernels as K3's: no-null modes of
 K3's backward kernels in bf16 (d = 64, 128), and in fp32 two kernels of
 their own with every product on the tensor cores as 3xTF32 (mma.sync, each
@@ -139,6 +141,31 @@ def forward_plan(B: int, Tq: int, N: int, D: int, sms: int = 132) -> dict:
     return dict(wgs=wgs, query_tile=rows, key_tile=KEY_TILE, stages=STAGES,
                 threads=wgs * 128 + 128, smem_bytes=smem, work_tiles=-(-Tq // rows) * N * B,
                 q_box=(64, 1, rows, 1), kv_box=(64, 1, KEY_TILE, 1), boxes_per_row=boxes)
+
+
+# The fp32 forward kernel's ring of K/V stages (csrc/flash_attention_nullkv.cu).
+F32_STAGES = 2
+
+
+def forward_plan_f32(B: int, Tq: int, N: int, D: int, sms: int = 132) -> dict:
+    """The fp32 forward kernel's launch plan (3xTF32 on wgmma) for q (B, Tq,
+    N, D) on a card with `sms` SMs, as the C side computes it
+    (vfm_flash_fwd_f32_plan): one CTA per block of 64 x wgs queries of one
+    (sample, head), two consumer warpgroups at d=64 when B * N * ceil(Tq /
+    128) CTAs give every SM one, else one (always one at d=128); K/V tiles of
+    4096 / D keys (64 at d=64, 32 at d=128) in a ring of two stages, each
+    holding K (split in place), K's lo plane, V as loaded and the hi and lo
+    planes of its transpose; Q's hi and lo planes; TMA boxes of 32 fp32
+    columns; a producer warpgroup (one TMA lane, three splitting warps)."""
+    if D not in (64, 128):
+        raise ValueError(f"head dim {D}: the fp32 forward takes 64 or 128")
+    wgs = 2 if D == 64 and B * N * -(-Tq // 128) >= sms else 1
+    rows, key_tile = 64 * wgs, 4096 // D
+    plane, tile = rows * D * 4, key_tile * D * 4  # bytes of one Q plane, one K/V plane
+    smem = 2 * plane + F32_STAGES * 5 * tile + 8 * (2 + 3 * F32_STAGES) + 1024
+    return dict(wgs=wgs, query_tile=rows, key_tile=key_tile, stages=F32_STAGES,
+                threads=wgs * 128 + 128, smem_bytes=smem, ctas=-(-Tq // rows) * N * B,
+                q_box=(32, 1, rows, 1), kv_box=(32, 1, key_tile, 1), boxes_per_row=D // 32)
 
 
 # The bf16 backward kernels' streamed tile (64 queries for dK/dV, 64 keys
