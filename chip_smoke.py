@@ -88,8 +88,11 @@
    its twin and fp64 sums at every K5 site of a decode and the EQ shapes,
    repeatable bit for bit, one kernel a call by the profiler's count; K9
    (K1 pipelined) against K1 at every K1 site, 0 ulps, and each
-   bit-identical on repeat; K7 and K8 (depthwise conv + statistics, and without) against
-   their twins at every ConvNeXt dwconv shape; K4's backward against its
+   bit-identical on repeat; K7 and K8 (depthwise conv + statistics, and
+   without; one kernel template, whose ten instances must build with a
+   0-byte stack frame and no spills) against their twins at every ConvNeXt
+   dwconv shape at B=2 and B=32, bit-identical on repeat, one kernel a K7
+   call by the profiler's count; K4's backward against its
    twin and fp64 at the training path's sites (the adapter's fp32 sites,
    3xTF32 kernels, held to FLASH_FP32_MAX_REL against the twin) at B=2 and
    at the stage-0 step's B=4, at ragged fp32 shapes and d=128, bit for bit
@@ -99,7 +102,8 @@
    requests and the stage-0 steps run under the gates above, with img/s
    and step times beside the default path in turns; the dwconv probe
    launches K7 and K8 at the 38 dwconvs of a decode in a window of their
-   own.
+   own, then times them at B=2 and B=32 beside cuDNN's chain (events, and
+   device time in turns).
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -255,8 +259,8 @@ def kernel_name(ptxas_line: str) -> str:
         start = pos + m.end()
         name, pos = mangled[start:start + int(m.group())], start + int(m.group())
         if name.endswith("kernel"):
-            args = re.match(r"I((?:Li-?\d+E)+)", mangled[pos:])
-            return name + (f"<{', '.join(re.findall(r'Li(-?[0-9]+)E', args.group(1)))}>"
+            args = re.match(r"I((?:L[ib]-?\d+E)+)", mangled[pos:])
+            return name + (f"<{', '.join(re.findall(r'L[ib](-?[0-9]+)E', args.group(1)))}>"
                            if args else "")
     return mangled
 
@@ -2388,10 +2392,33 @@ def dwconv_inputs(site: dict, B: int, gen, dev):
     return x, w, b, noise
 
 
-def kernel_dwconv_phase(sites: dict, B: int = 2) -> dict:
+def dwconv_resources(lib_path: str) -> dict:
+    """{dwconv instance: (registers, stack frame bytes, local memory bytes)}
+    from `cuobjdump -res-usage` of the built library (a spill needs both a
+    stack frame and local memory); chip_smoke fails unless every K7/K8
+    instance has neither."""
+    from vfm_vae_tpu_torch.ops.kernels._build import _nvcc
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    dump = subprocess.run([tool, "-res-usage", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in dump.splitlines():
+        if (m := re.search(r"Function (\S+?):?\s*$", line)):
+            name = kernel_name(m.group(1)) if "dwconv_kernel" in m.group(1) else None
+        elif name and (m := re.search(r"REG:(\d+) STACK:(\d+).*LOCAL:(\d+)", line)):
+            out[name] = tuple(int(g) for g in m.groups())
+    return out
+
+
+def kernel_dwconv_phase(sites: dict, batches=(2, 32)) -> dict:
     """K7 (noise on and off) and K8 against their twins at every ConvNeXt
-    dwconv shape of a flagship decode: t within DWCONV_ULPS bf16 ulps, K7's
-    statistics against fp64 sums of the kernel's own t at K5's bounds."""
+    dwconv shape of a flagship decode, at B=2 and B=32: t within DWCONV_ULPS
+    bf16 ulps, K7's statistics against fp64 sums of the kernel's own t at
+    K5's bounds; t, s1, s2 and K8's output bit-identical on a second call;
+    one wrapper launch a call and, for K7 with noise, one kernel a call on
+    the card (the profiler's count). The twins' fp32 conv runs in full fp32
+    (cuDNN's TF32 off for the phase)."""
     import torch
 
     from vfm_vae_tpu_torch.ops import kernels
@@ -2400,35 +2427,59 @@ def kernel_dwconv_phase(sites: dict, B: int = 2) -> dict:
     gen = torch.Generator(device=dev).manual_seed(77)
     worst = {"dwconv_noise_stats": 0.0, "depthwise_conv2d_same": 0.0}
     failed = []
-    for site in sites["dwconv_noise_stats"]:
-        x, w, b, noise = dwconv_inputs(site, B, gen, dev)
-        line = []
-        for tag, nz in (("noise", noise), ("no noise", None)):
-            t, s1, s2 = kernels.dwconv_noise_stats(x, w, b, nz)
-            rt, _, _ = kernels.dwconv_noise_stats(x, w, b, nz, plain=True)
-            torch.cuda.synchronize()
-            ulps = bf16_ulps(t, rt)
-            e1, e2 = stats_errors(s1, s2, t)
-            ok = bool(torch.isfinite(t.float()).all()) and ulps <= DWCONV_ULPS and max(
-                e1, e2) <= STATS_REL
-            worst["dwconv_noise_stats"] = max(worst["dwconv_noise_stats"],
-                                              float((t.float() - rt.float()).abs().max()))
-            line.append(f"K7 {tag} {ulps:g} ulps, stats {e1:.2e} / {e2:.2e}"
-                        f"{'' if ok else ' FAIL'}")
-            if not ok:
-                failed.append(f"K7 {tag} {site_label(site)}")
-        w8 = w[:, :, None, :].contiguous()
-        got = kernels.depthwise_conv2d_same(x, w8, b)
-        ref = kernels.depthwise_conv2d_same(x, w8, b, plain=True)
-        torch.cuda.synchronize()
-        ulps = bf16_ulps(got, ref)
-        worst["depthwise_conv2d_same"] = max(worst["depthwise_conv2d_same"],
-                                             float((got.float() - ref.float()).abs().max()))
-        line.append(f"K8 {ulps:g} ulps{'' if ulps <= DWCONV_ULPS else ' FAIL'}")
-        if ulps > DWCONV_ULPS:
-            failed.append(f"K8 {site_label(site)}")
-        print(f"[kernel-dwconv] {site_label(site)} B={B}: " + "; ".join(line)
-              + f" (tol {DWCONV_ULPS:g} ulp, stats {STATS_REL:g})", flush=True)
+    k7, k8 = kernels.dwconv_noise_stats, kernels.depthwise_conv2d_same
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for B in batches:
+            for site in sites["dwconv_noise_stats"]:
+                x, w, b, noise = dwconv_inputs(site, B, gen, dev)
+                line = []
+                for tag, nz in (("noise", noise), ("no noise", None)):
+                    before = k7.launches
+                    t, s1, s2 = k7(x, w, b, nz)
+                    t2, r1, r2 = k7(x, w, b, nz)
+                    calls = k7.launches - before
+                    rt, _, _ = k7(x, w, b, nz, plain=True)
+                    torch.cuda.synchronize()
+                    ulps = bf16_ulps(t, rt)
+                    e1, e2 = stats_errors(s1, s2, t)
+                    same = torch.equal(t, t2) and torch.equal(s1, r1) and torch.equal(s2, r2)
+                    ok = (bool(torch.isfinite(t.float()).all()) and ulps <= DWCONV_ULPS
+                          and max(e1, e2) <= STATS_REL and same and calls == 2)
+                    worst["dwconv_noise_stats"] = max(worst["dwconv_noise_stats"],
+                                                      float((t.float() - rt.float()).abs().max()))
+                    line.append(f"K7 {tag} {ulps:g} ulps, stats {e1:.2e} / {e2:.2e}, repeat "
+                                f"bit-identical {same}, launches a call {calls / 2:g}"
+                                f"{'' if ok else ' FAIL'}")
+                    if not ok:
+                        failed.append(f"K7 {tag} {site_label(site)} B={B}")
+                    del t, t2, rt, s1, s2, r1, r2
+                per_call = device_launches(lambda: k7(x, w, b, noise), reps=3)
+                one = sum(per_call.values()) == 1 and all("dwconv_kernel" in key
+                                                          for key in per_call)
+                line.append(f"K7 kernels a call {per_call}{'' if one else ' FAIL'}")
+                if not one:
+                    failed.append(f"K7 one kernel {site_label(site)} B={B}")
+                w8 = w[:, :, None, :].contiguous()
+                got, again = k8(x, w8, b), k8(x, w8, b)
+                ref = k8(x, w8, b, plain=True)
+                torch.cuda.synchronize()
+                ulps = bf16_ulps(got, ref)
+                same = torch.equal(got, again)
+                worst["depthwise_conv2d_same"] = max(worst["depthwise_conv2d_same"],
+                                                     float((got.float() - ref.float()).abs().max()))
+                ok = ulps <= DWCONV_ULPS and same
+                line.append(f"K8 {ulps:g} ulps, repeat bit-identical {same}"
+                            f"{'' if ok else ' FAIL'}")
+                if not ok:
+                    failed.append(f"K8 {site_label(site)} B={B}")
+                print(f"[kernel-dwconv] {site_label(site)} B={B}: " + "; ".join(line)
+                      + f" (tol {DWCONV_ULPS:g} ulp, stats {STATS_REL:g})", flush=True)
+                del x, w, b, noise, w8, got, again, ref
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     if failed:
         raise SystemExit(f"chip_smoke: kernel-dwconv phase FAILED at {failed}")
     return worst
@@ -2445,12 +2496,14 @@ def dwconv_work(site: dict, B: int, stats: bool):
     return ops, byts
 
 
-def dwconv_probe(G, B: int = 2) -> tuple:
+def dwconv_probe(G, batches=(2, 32)) -> tuple:
     """The dwconv probe, the port's counterpart of tools/bench_dwstats.py: K7
     and K8 on the weights, bias and legacy noise map of every ConvNeXt layer
-    of the flagship decoder, in a launch window of their own (no model path
-    runs them); then each shape's kernel, twin and library times (cuDNN's
-    depthwise F.conv2d, plus the noise add and the two reductions for K7)."""
+    of the flagship decoder at B=2, in a launch window of their own (no
+    model path runs them); then, at B=2 and B=32, each shape's kernel (CUDA
+    events and device time), twin (events, B=2) and library times: cuDNN's
+    depthwise F.conv2d with a bf16 bias, plus for K7 the noise add and the
+    two reductions, by events and by device time in turns with the kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -2471,7 +2524,7 @@ def dwconv_probe(G, B: int = 2) -> tuple:
                 noise = (m.noise_const * m.noise_strength).float()
                 if noise.shape != (res, res):
                     noise = resize_bilinear(noise[None, :, :, None], size=(res, res))[0, :, :, 0]
-                x = torch.randn((B, res, res, C), generator=gen, device=dev).to(torch.bfloat16)
+                x = torch.randn((2, res, res, C), generator=gen, device=dev).to(torch.bfloat16)
                 calls.append((x, w, m.dwconv.bias.float().contiguous(), noise.contiguous()))
     want = {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
     for name in PROBE_KERNELS:
@@ -2485,54 +2538,67 @@ def dwconv_probe(G, B: int = 2) -> tuple:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     print(f"[dwconv-probe] launches over the {len(calls)} ConvNeXt dwconvs of one decode at "
-          f"B={B}: K7 {launches['dwconv_noise_stats']}, K8 {launches['depthwise_conv2d_same']}; "
+          f"B=2: K7 {launches['dwconv_noise_stats']}, K8 {launches['depthwise_conv2d_same']}; "
           f"predicted {want['dwconv_noise_stats']}, {want['depthwise_conv2d_same']}", flush=True)
     if launches != want:
         raise SystemExit(f"chip_smoke: dwconv probe launches {launches}")
+    del calls
 
     out = {}
-    for name in PROBE_KERNELS:
-        stats = name == "dwconv_noise_stats"
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0)
-        by = {}
-        for site in sites[name]:
-            x, w, b, noise = dwconv_inputs(site, B, gen, dev)
-            C, k, n = site["C"], site["k"], site["count"]
-            xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
-            wc = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
-            bb = b.to(torch.bfloat16)
-            if stats:
-                fn = lambda: kernels.dwconv_noise_stats(x, w, b, noise)  # noqa: E731
-                pfn = lambda: kernels.dwconv_noise_stats(x, w, b, noise, plain=True)  # noqa: E731
-                nz = noise.to(torch.bfloat16)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")
+    for B in batches:
+        for name in PROBE_KERNELS:
+            stats = name == "dwconv_noise_stats"
+            tot = dict.fromkeys(keys, 0.0)
+            by = {}
+            for site in sites[name]:
+                x, w, b, noise = dwconv_inputs(site, B, gen, dev)
+                C, k, n = site["C"], site["k"], site["count"]
+                xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
+                wc = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
+                bb = b.to(torch.bfloat16)
+                if stats:
+                    fn = lambda: kernels.dwconv_noise_stats(x, w, b, noise)  # noqa: E731
+                    pfn = lambda: kernels.dwconv_noise_stats(x, w, b, noise, plain=True)  # noqa: E731
+                    nz = noise.to(torch.bfloat16)
 
-                def lib():
-                    y = (F.conv2d(xc, wc, bb, padding=k // 2, groups=C) + nz).float()
-                    return y.sum((2, 3)), y.square().sum((2, 3))
-            else:
-                w8 = w[:, :, None, :].contiguous()
-                fn = lambda: kernels.depthwise_conv2d_same(x, w8, b)  # noqa: E731
-                pfn = lambda: kernels.depthwise_conv2d_same(x, w8, b, plain=True)  # noqa: E731
-                lib = lambda: F.conv2d(xc, wc, bb, padding=k // 2, groups=C)  # noqa: E731
-            ms, plain_ms, lib_ms = cuda_time_ms(fn), cuda_time_ms(pfn), cuda_time_ms(lib)
-            dev_ms = device_ms(fn)
-            ops, byts = dwconv_work(site, B, stats)
-            bnd, b_by = plain_bound(ops, byts, PEAK_FP32_FLOPS)
-            by[b_by] = by.get(b_by, 0) + n
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                             ("bound_ms", bnd), ("device_ms", dev_ms)):
-                tot[key] = None if val is None or tot[key] is None else tot[key] + val * n
-            print(f"[dwconv-probe] {'K7' if stats else 'K8'} C={C} H=W={site['H']} k={k} B={B}: "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                  f"bound_ms={bnd:.4f} ({b_by}) device_ms={ms_text(dev_ms)} {ops / ms / 1e9:.2f} "
-                  f"TFLOP/s x{n}/decode",
+                    def lib():
+                        y = (F.conv2d(xc, wc, bb, padding=k // 2, groups=C) + nz).float()
+                        return y.sum((2, 3)), y.square().sum((2, 3))
+                else:
+                    w8 = w[:, :, None, :].contiguous()
+                    fn = lambda: kernels.depthwise_conv2d_same(x, w8, b)  # noqa: E731
+                    pfn = lambda: kernels.depthwise_conv2d_same(x, w8, b, plain=True)  # noqa: E731
+                    lib = lambda: F.conv2d(xc, wc, bb, padding=k // 2, groups=C)  # noqa: E731
+                ms, lib_ms = in_turns(fn, lib)
+                plain_ms = cuda_time_ms(pfn) if B == batches[0] else None
+                dev_ms, lib_dev, _, lib_per = device_in_turns(fn, lib)
+                ops, byts = dwconv_work(site, B, stats)
+                bnd, b_by = plain_bound(ops, byts, PEAK_FP32_FLOPS)
+                by[b_by] = by.get(b_by, 0) + n
+                for key, val in zip(keys, (ms, plain_ms, lib_ms, bnd, dev_ms, lib_dev)):
+                    tot[key] = add_or_none(tot[key], val, n)
+                frac = "not measured" if dev_ms is None else f"{bnd / dev_ms:.3f}"
+                print(f"[dwconv-probe] {'K7' if stats else 'K8'} C={C} H=W={site['H']} k={k} B={B}: "
+                      f"kernel_ms={ms:.4f} device_ms={ms_text(dev_ms)} library_ms={lib_ms:.4f} "
+                      f"library_device_ms={ms_text(lib_dev)} (in turns; "
+                      f"{', '.join(short_kernel_name(key) for key in lib_per)}) plain_ms="
+                      f"{ms_text(plain_ms)} bound_ms={bnd:.4f} ({b_by}) of_bound device {frac} "
+                      f"{ops / ms / 1e9:.2f} TFLOP/s x{n}/decode", flush=True)
+                del x, w, b, noise, xc, wc, bb, fn, pfn, lib
+                torch.cuda.empty_cache()
+            frac = ("not measured" if tot["device_ms"] is None
+                    else f"{tot['bound_ms'] / tot['device_ms']:.3f}")
+            print(f"[dwconv-probe] {'K7' if stats else 'K8'}, all dwconvs of one decode at B={B}: "
+                  f"kernel {tot['ms']:.4f} ms (device {ms_text(tot['device_ms'])}, of_bound "
+                  f"{frac}), plain {ms_text(tot['plain_ms'])} ms, library (cuDNN"
+                  f"{' + reductions' if stats else ''}) {tot['library_ms']:.4f} ms (device "
+                  f"{ms_text(tot['library_device_ms'])}), bound {tot['bound_ms']:.4f} ms",
                   flush=True)
-        out[name] = dict(batch=B, bound_by=max(by, key=by.get), **tot)
-        print(f"[dwconv-probe] {'K7' if stats else 'K8'}, all dwconvs of one decode at B={B}: "
-              f"kernel {tot['ms']:.4f} ms (device {ms_text(tot['device_ms'])}), plain "
-              f"{tot['plain_ms']:.4f} ms, library (cuDNN"
-              f"{' + reductions' if stats else ''}) {tot['library_ms']:.4f} ms, bound "
-              f"{tot['bound_ms']:.4f} ms", flush=True)
+            if B == batches[0]:
+                out[name] = dict(batch=B, bound_by=max(by, key=by.get), **tot)
+            else:
+                out[name][f"b{B}"] = dict(bound_by=max(by, key=by.get), **tot)
     return out, launches
 
 
@@ -2874,6 +2940,13 @@ def main() -> int:
               f"{c['instructions']} instructions", flush=True)
         if c["HGMMA"] == 0 or c["FFMA"] > 512:
             raise SystemExit(f"chip_smoke: {name} is not a tensor-core kernel ({c})")
+    # K7 and K8: ten instances (k, statistics, tile geometry), none spilling.
+    dw_build = dwconv_resources(str(lib.path))
+    for name, (regs, stack, local) in sorted(dw_build.items()):
+        print(f"[build] {name}: {regs} registers, {stack} bytes stack frame, {local} bytes "
+              f"local memory", flush=True)
+    if len(dw_build) != 10 or any(v[1:] != (0, 0) for v in dw_build.values()):
+        raise SystemExit(f"chip_smoke: a dwconv instance spills or is missing: {dw_build}")
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")

@@ -313,17 +313,21 @@ def test_channel_moments_match_fp64_and_repeat_on_gpu(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W,C,k", [(17, 16, 128, 7), (8, 8, 512, 5), (2, 2, 512, 5),
-                                     (33, 40, 256, 7)])
-def test_dwconv_kernels_match_twins_on_gpu(cuda, H, W, C, k):
+@pytest.mark.parametrize("B,H,W,C,k", [(2, 17, 16, 128, 7), (2, 8, 8, 512, 5), (2, 2, 2, 512, 5),
+                                       (2, 33, 40, 256, 7), (32, 256, 256, 128, 7),
+                                       (5, 33, 40, 256, 7), (3, 5, 70, 64, 5), (7, 8, 8, 256, 7)])
+def test_dwconv_kernels_match_twins_on_gpu(cuda, B, H, W, C, k):
     """K7 (noise on and off) and K8 against their twins: t within one bf16
     ulp (the taps summed in another order, the same rounding points); K7's
-    statistics against fp64 sums of its own t, at K5's bounds."""
+    statistics against fp64 sums of its own t, at K5's bounds. The shapes
+    take the ring's edges: ragged tiles, maps under one tile, the 256-channel
+    tiles, B=32 at the top site and sample counts that split the persistent
+    grid's runs of tiles unevenly."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the twins' fp32 conv in full fp32
     try:
         g = torch.Generator(device=cuda).manual_seed(H * W + k)
-        x = torch.randn(2, H, W, C, generator=g, device=cuda).to(torch.bfloat16)
+        x = torch.randn(B, H, W, C, generator=g, device=cuda).to(torch.bfloat16)
         w = torch.randn(k, k, C, generator=g, device=cuda) / k
         b = torch.randn(C, generator=g, device=cuda)
         noise = torch.randn(H, W, generator=g, device=cuda) * 0.3
@@ -338,6 +342,7 @@ def test_dwconv_kernels_match_twins_on_gpu(cuda, H, W, C, k):
             e1, e2 = td.sum((1, 2)), td.square().sum((1, 2))
             assert float(((s1.double() - e1).abs() / td.abs().sum((1, 2))).max()) <= 1e-5
             assert float(((s2.double() - e2).abs() / e2).max()) <= 1e-5
+            del rt, td
         w8 = w[:, :, None, :].contiguous()
         for bias in (b, None):
             got = kernels.depthwise_conv2d_same(x, w8, bias)
@@ -346,6 +351,112 @@ def test_dwconv_kernels_match_twins_on_gpu(cuda, H, W, C, k):
             assert _bf16_ulps(got, ref) <= 1.0
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,C,k", [(2, 17, 16, 128, 7), (32, 64, 64, 512, 7),
+                                       (5, 33, 40, 256, 7), (2, 8, 8, 512, 5),
+                                       (3, 96, 80, 128, 7)])
+def test_dwconv_stats_repeat_and_fold_in_one_kernel_on_gpu(cuda, B, H, W, C, k):
+    """K7 gives the same bits on a second call (t, s1, s2) and K8 too; s1
+    and s2 are, bit for bit, the CPU emulation of the kernel's fixed-order
+    reduction (dwconv_stats.emulate_stats) applied to its own t, for blocks
+    of one tile and for blocks cut into segments between CTAs; a K7 call is
+    one kernel on the card (the profiler's count, once the stream's
+    workspace exists)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vfm_vae_tpu_torch.ops.kernels import dwconv_stats as dws
+
+    g = torch.Generator(device=cuda).manual_seed(B + H + k)
+    x = (torch.randn(B, H, W, C, generator=g, device=cuda) + 0.25).to(torch.bfloat16)
+    w = torch.randn(k, k, C, generator=g, device=cuda) / k
+    b = torch.randn(C, generator=g, device=cuda)
+    noise = torch.randn(H, W, generator=g, device=cuda) * 0.3
+    t, s1, s2 = kernels.dwconv_noise_stats(x, w, b, noise)
+    torch.cuda.synchronize()
+    # The kernels of the active step, after a warm-up step; CUPTI can drop a
+    # window's kernel events (never add one), so up to six windows are read
+    # and the first with two kernels for two calls is taken.
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=1)) as prof:
+            kernels.dwconv_noise_stats(x, w, b, noise)
+            torch.cuda.synchronize()
+            prof.step()
+            t2, r1, r2 = kernels.dwconv_noise_stats(x, w, b, noise)
+            t3, q1, q2 = kernels.dwconv_noise_stats(x, w, b, noise)
+            torch.cuda.synchronize()
+        ran = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total and not e.key.startswith("ProfilerStep")}
+        if sum(ran.values()) >= 2:
+            break
+    assert sum(ran.values()) == 2 and all("dwconv_kernel" in key for key in ran), ran
+    for name, a, c in (("t", t, t2), ("s1", s1, r1), ("s2", s2, r2), ("t", t, t3),
+                       ("s1", s1, q1), ("s2", s2, q2)):
+        assert torch.equal(a, c), (name, int((a != c).sum()))
+    p = dws.plan(B, H, W, C, k, True, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    e1, e2 = dws.emulate_stats(t.cpu(), p)
+    for name, e, g in (("s1", e1, s1), ("s2", e2, s2)):
+        assert torch.equal(e, g.cpu()), (name, int((e != g.cpu()).sum()),
+                                         float((e - g.cpu()).abs().max()))
+    w8 = w[:, :, None, :].contiguous()
+    assert torch.equal(kernels.depthwise_conv2d_same(x, w8, b),
+                       kernels.depthwise_conv2d_same(x, w8, b))
+
+
+@pytest.mark.gpu
+def test_dwconv_stats_on_two_streams_in_turn_on_gpu(cuda):
+    """Calls on two streams in turn, each with its own workspace, give the
+    bits of calls on the default stream, at two shapes whose workspaces
+    differ in size (the second grows the first's)."""
+    shapes = [(2, 64, 64, 512, 7), (4, 128, 128, 256, 7)]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    args = []
+    for B, H, W, C, k in shapes:
+        args.append((torch.randn(B, H, W, C, generator=g, device=cuda).to(torch.bfloat16),
+                     torch.randn(k, k, C, generator=g, device=cuda) / k,
+                     torch.randn(C, generator=g, device=cuda),
+                     torch.randn(H, W, generator=g, device=cuda) * 0.3))
+    want = [kernels.dwconv_noise_stats(*a) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for turn in range(3):
+        for i, a in enumerate(args):
+            st = streams[(turn + i) % 2]
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                got.append((i, kernels.dwconv_noise_stats(*a)))
+    torch.cuda.synchronize()
+    for i, outs in got:
+        for a, c in zip(outs, want[i]):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,C,k,stats", [
+    (2, 8, 8, 512, 5, 1), (32, 16, 16, 512, 5, 1), (32, 32, 32, 512, 7, 1), (2, 64, 64, 512, 7, 0),
+    (32, 128, 128, 256, 7, 1), (32, 256, 256, 128, 7, 0), (5, 33, 40, 256, 7, 1),
+    (1, 2, 2, 512, 3, 0), (3, 5, 70, 64, 5, 1), (7, 8, 8, 256, 7, 0)])
+def test_dwconv_plan_mirror_matches_the_c_export_on_gpu(cuda, B, H, W, C, k, stats):
+    """ops/kernels/dwconv_stats.plan against vfm_dwconv_plan at the flagship
+    and ragged sites, for the card's SM count and for 132; the C side refuses
+    what the kernel does not take."""
+    import ctypes
+
+    from vfm_vae_tpu_torch.ops.kernels import dwconv_stats as dws
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+
+    lib = library().lib
+    buf = (ctypes.c_int * len(dws.PLAN_KEYS))()
+    for sms in (torch.cuda.get_device_properties(cuda).multi_processor_count, 132):
+        assert lib.vfm_dwconv_plan(B, H, W, C, k, stats, sms, buf) == 0
+        want = dws.plan(B, H, W, C, k, bool(stats), sms)
+        assert list(buf) == [int(want[key]) for key in dws.PLAN_KEYS], sms
+    assert lib.vfm_dwconv_plan(B, H, W, 96, k, stats, 132, buf) != 0
+    assert lib.vfm_dwconv_plan(B, H, W, C, 3, 1, 132, buf) != 0
 
 
 def _mlp_args(dev, C, H, W, B=2):

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fused_mlp.cu", "fused_upsample.cu", "flash_attention_nullkv.cu",
            "flash_attention_nullkv_bwd.cu", "int8_matmul.cu", "group_stats.cu", "dwconv_stats.cu")
-HEADERS = ("common.cuh", "partials.cuh", "hopper.cuh", "flash.cuh", "tf32x3.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "flash.cuh", "tf32x3.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,7 +53,7 @@ _SIGNATURES = {
     "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vfm_int8_matmul_plan": [_I, _I, _I, _I, _I, _P],
     "vfm_channel_moments": [_P] * 4 + [_I] * 5 + [_P],
-    "vfm_dwconv_tiles": [_I, _I],
+    "vfm_dwconv_plan": [_I] * 7 + [_P],
     "vfm_dwconv_noise_stats": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
     "vfm_depthwise_conv2d_same": [_P] * 4 + [_I, _I, _I, _I, _I, _P],
 }
@@ -147,6 +147,22 @@ def check_all(name: str, dtype, dev, specs) -> None:
     for t, label, shape in specs:
         if t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
             check_tensor(t, label, dtype, shape, dev)  # raises with the reason
+
+
+def stream_workspace(cache: dict, dev, n_floats: int, n_counters: int):
+    """(fp32 partials, int32 counters) of a fold kernel (K5, K7) for the
+    current stream of `dev`, from `cache` keyed by (device, stream): calls on
+    one stream run in order, so no two kernels share one. Grown to twice what
+    it had when too small; the counters are zeroed once, when allocated, and
+    the kernels leave them at zero."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ws = cache.get(key)
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(n_floats, 2 * old[0]), dtype=torch.float32, device=dev),
+              torch.zeros(max(n_counters, 2 * old[1]), dtype=torch.int32, device=dev))
+        cache[key] = ws
+    return ws
 
 
 def call_on(dev, fn, *args) -> int:

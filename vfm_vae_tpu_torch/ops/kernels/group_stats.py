@@ -29,7 +29,7 @@ import os
 
 import torch
 
-from ._build import call_on, check_all, library, refuse_grad
+from ._build import call_on, check_all, library, refuse_grad, stream_workspace
 
 # CTAs the chunk count aims at (132 SMs x 4 CTAs of 256 threads, each
 # thread with four 16-byte loads in flight), and the fewest rows a chunk
@@ -65,21 +65,6 @@ def num_chunks(B: int, HW: int, C: int) -> int:
     return max(1, min(math.ceil(_TARGET_CTAS / blocks), math.ceil(HW / _MIN_ROWS)))
 
 
-def _workspace(dev: torch.device, n_part: int, n_count: int):
-    """The current stream's workspace with room for `n_part` floats and
-    `n_count` counters (zero), grown to twice what it had when too small;
-    the counters are zeroed once, when allocated, and the kernel leaves them
-    at zero."""
-    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
-    ws = _WORKSPACES.get(key)
-    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count:
-        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
-        ws = (torch.empty(max(n_part, 2 * old[0]), dtype=torch.float32, device=dev),
-              torch.zeros(max(n_count, 2 * old[1]), dtype=torch.int32, device=dev))
-        _WORKSPACES[key] = ws
-    return ws
-
-
 def _launch(x: torch.Tensor):
     refuse_grad("channel_moments", x)
     if x.dim() != 4:
@@ -94,7 +79,8 @@ def _launch(x: torch.Tensor):
     check_all("channel_moments", x.dtype, dev, [(x, "x", (B, H, W, C))])
     lib = library()
     nchunk = num_chunks(B, H * W, C)
-    part, counters = _workspace(dev, 2 * B * nchunk * C, B * math.ceil(C / 128))
+    part, counters = stream_workspace(_WORKSPACES, dev, 2 * B * nchunk * C,
+                                      B * math.ceil(C / 128))
     s = torch.empty((2, B, C), dtype=torch.float32, device=dev)
     err = call_on(dev, lib.lib.vfm_channel_moments, x.data_ptr(), part.data_ptr(),
                   counters.data_ptr(), s.data_ptr(), B, H * W, C, nchunk,
