@@ -104,6 +104,18 @@
    launches K7 and K8 at the 38 dwconvs of a decode in a window of their
    own, then times them at B=2 and B=32 beside cuDNN's chain (events, and
    device time in turns).
+8. Recipe phase: the four stage YAMLs (configs/*stage_{0..3}*.yaml) through
+   the port's CLI (vfm_vae_tpu_torch.train.cli.main, in process) at full
+   flagship width and depth, B=4, three [D, G] steps and one snapshot a
+   stage, each stage resuming the previous one's snapshot, on synthetic
+   256 px shards written here; then a sixth call that must auto-resume.
+   Gates: the handoffs bit for bit, frozen and trainable sets, PatchGAN
+   fresh in stage 3, finite logged losses (SSIM, PatchGAN and feature
+   matching present where they belong), G_ema's round trip, K1-K3 and K3's
+   backward in the active G steps where they lie on the path, and the
+   determinism gate on stages 2 and 3; per stage the median D and G step
+   ms, peak memory, snapshot bytes and save and load seconds
+   (recipe_phase).
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -1818,9 +1830,10 @@ def predicted_launches(G, buckets) -> dict:
 
 
 def named_params(tr) -> dict:
+    lpips = tr.loss.lpips.named_parameters() if tr.loss.lpips is not None else ()
     return {**{"G." + n: p for n, p in tr.G.named_parameters()},
             **{"D." + n: p for n, p in tr.D.named_parameters()},
-            **{"L." + n: p for n, p in tr.loss.lpips.named_parameters()}}
+            **{"L." + n: p for n, p in lpips}}
 
 
 def train_phase(card: str, B: int = 4):
@@ -1987,7 +2000,8 @@ def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
     return state, launches
 
 
-def determinism_phase(tr, state, real, trials: int = 1) -> None:
+def determinism_phase(tr, state, real, trials: int = 1, build_fp32=None,
+                      label: str = "determinism") -> None:
     """[D, G] steps with no random draws (posterior mode, no DiffAugment, D
     resizes instead of cropping), without the update: the kernel path, the
     plain-twin path (bf16) and an fp32 plain copy on the same weights and
@@ -2005,7 +2019,10 @@ def determinism_phase(tr, state, real, trials: int = 1) -> None:
     of one tree on the H100 and past 1.5 in another: the two medians fall on
     different quantities. The paired median read 0.98-1.00 in the same four
     runs, and 0.96-1.15 over eight batches of a later run whose unpaired
-    ratios spread over 0.59-1.70. The unpaired reading is printed beside it."""
+    ratios spread over 0.59-1.70. The unpaired reading is printed beside it.
+
+    `build_fp32` builds the fp32 trainer of the configuration `tr` runs
+    (default: the stage-0 flagship trainer); `label` names the printed lines."""
     import torch
 
     from vfm_vae_tpu_torch.entry import flagship_trainer
@@ -2032,11 +2049,15 @@ def determinism_phase(tr, state, real, trials: int = 1) -> None:
         out.update({"|grad| " + k: math.sqrt(v) for k, v in groups.items()})
         return out
 
-    tr32 = flagship_trainer(dev, real.shape[0], torch.Generator(device=dev).manual_seed(0),
-                            dtype=torch.float32, allow_random_lpips=True)
+    if build_fp32 is None:
+        tr32 = flagship_trainer(dev, real.shape[0], torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.float32, allow_random_lpips=True)
+    else:
+        tr32 = build_fp32()
     tr32.G.load_state_dict(tr.G.state_dict())
     tr32.D.load_state_dict(tr.D.state_dict())
-    tr32.loss.lpips.load_state_dict(tr.loss.lpips.state_dict())
+    if tr.loss.lpips is not None:
+        tr32.loss.lpips.load_state_dict(tr.loss.lpips.state_dict())
     tr32.G.use_plain_kernels(True)
     state32 = tr32.init_state()
     failed = []
@@ -2058,13 +2079,13 @@ def determinism_phase(tr, state, real, trials: int = 1) -> None:
         # Below 1e-6 a relative error is fp32's own rounding: equal floors
         # make two such quantities a ratio of 1.
         ratios = [max(a, 1e-6) / max(b, 1e-6) for a, b in zip(ek, ep)]
-        lines = [f"[determinism] trial {trial} eq={eq} {k}: fp32 {exact[k]:.6g} kernel "
+        lines = [f"[{label}] trial {trial} eq={eq} {k}: fp32 {exact[k]:.6g} kernel "
                  f"{kern[k]:.6g} (rel {a:.2e}) plain {plain[k]:.6g} (rel {b:.2e})"
                  for k, a, b in zip(keys, ek, ep)]
         print("\n".join(lines), flush=True)
         paired, mk, mp = (statistics.median(v) for v in (ratios, ek, ep))
         ok = paired <= TRUTH_FACTOR
-        summary = (f"[determinism] trial {trial} eq={eq}: {len(keys)} quantities (loss terms, "
+        summary = (f"[{label}] trial {trial} eq={eq}: {len(keys)} quantities (loss terms, "
                    f"per-module gradient norms): median of kernel/plain relative errors vs fp32 "
                    f"{paired:.3f} (limit {TRUTH_FACTOR}); kernel worse in "
                    f"{sum(r > 1 for r in ratios)}/{sum(r != 1 for r in ratios)}; unpaired median "
@@ -2077,8 +2098,8 @@ def determinism_phase(tr, state, real, trials: int = 1) -> None:
     del tr32, state32
     torch.cuda.empty_cache()
     if failed:
-        raise SystemExit(f"chip_smoke: the kernel training step is further from fp32 than the "
-                         f"plain bf16 step (trials {failed})")
+        raise SystemExit(f"chip_smoke: {label}: the kernel training step is further from fp32 "
+                         f"than the plain bf16 step (trials {failed})")
 
 
 # ------------------------------------------------------------------ slice 4
@@ -2894,6 +2915,336 @@ def all_switches_train(tr, state, card: str, B: int = 4):
     return state, launches
 
 
+# ------------------------------------------------------------------ slice 13
+
+
+RECIPE_YAMLS = (
+    "configs/vfm_vae_f16d32_siglip2_stage_0_strong_alignment.yaml",
+    "configs/vfm_vae_f16d32_siglip2_stage_1_weak_alignment.yaml",
+    "configs/vfm_vae_f16d32_siglip2_stage_2_ssim_ft.yaml",
+    "configs/vfm_vae_f16d32_siglip2_stage_3_patchgan_ft.yaml",
+)
+RECIPE_STEPS = 3  # [D, G] steps a stage: a warm-up and two active steps
+RECIPE_BATCH = 4
+# Each stage must move at least this share of its trainable tensors (the
+# D heads' BatchNormLocal-fed biases, zero in exact arithmetic, apart).
+RECIPE_MOVED = 0.9
+
+
+def write_recipe_shards(root: str, n_shards: int = 2, per_shard: int = 16,
+                        size: int = 256, seed: int = 0) -> None:
+    """WebDataset tar shards of seeded smooth size x size JPEGs (random 8 x 8
+    colour fields upsampled, plus noise) with class labels."""
+    import io
+    import tarfile
+
+    import numpy as np
+    import PIL.Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    idx = 0
+    for s in range(n_shards):
+        with tarfile.open(os.path.join(root, f"{s:05d}.tar"), "w") as tf:
+            for _ in range(per_shard):
+                field = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+                img = np.asarray(PIL.Image.fromarray(field).resize((size, size),
+                                                                  PIL.Image.BICUBIC))
+                img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+                for ext, data in (("jpg", None), ("cls", str(idx % 10).encode())):
+                    if data is None:
+                        buf = io.BytesIO()
+                        PIL.Image.fromarray(img).save(buf, format="JPEG", quality=90)
+                        data = buf.getvalue()
+                    info = tarfile.TarInfo(f"{idx:08d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                idx += 1
+
+
+class recipe_steps:
+    """Wraps Trainer.d_step and Trainer.g_step while the recipe's CLI calls
+    run: each step is timed between two synchronizes, each G step's kernel
+    launches are read from the wrappers' counters (differences, so the
+    phase's totals stay whole), and the stage's first D step records its
+    starting point: every G and D parameter and the EMA after the resume,
+    before any update (copied to the host, so that the stage's peak memory
+    is the training's own)."""
+
+    def __init__(self):
+        self.stage = None
+
+    def begin(self, label: str) -> dict:
+        self.stage = dict(label=label, d_ms=[], g_ms=[], g_launches=[], before=None, ema0=None)
+        return self.stage
+
+    def __enter__(self):
+        import torch
+
+        from vfm_vae_tpu_torch.ops import kernels
+        from vfm_vae_tpu_torch.train.train_step import Trainer
+
+        self.orig = (Trainer.d_step, Trainer.g_step)
+        d_step, g_step = self.orig
+        probe = self
+
+        def timed(fn, tr, args, kwargs, ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tr, *args, **kwargs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def d_wrapped(tr, state, *args, **kwargs):
+            st = probe.stage
+            if st["before"] is None:
+                st["before"] = host_copy(named_params(tr))
+                st["ema0"] = host_copy(state.ema)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            return timed(d_step, tr, (state,) + args, kwargs, st["d_ms"])
+
+        def g_wrapped(tr, *args, **kwargs):
+            c0 = kernels.launch_counts()
+            out = timed(g_step, tr, args, kwargs, probe.stage["g_ms"])
+            c1 = kernels.launch_counts()
+            probe.stage["g_launches"].append({k: c1[k] - c0[k] for k in c1})
+            return out
+
+        Trainer.d_step, Trainer.g_step = d_wrapped, g_wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from vfm_vae_tpu_torch.train.train_step import Trainer
+
+        Trainer.d_step, Trainer.g_step = self.orig
+
+
+def host_copy(tensors: dict) -> dict:
+    return {n: t.detach().to("cpu", copy=True) for n, t in tensors.items()}
+
+
+def run_recipe_cli(cfg, path: str, steps: int, counts: dict):
+    """One call of the port's CLI on `cfg` (written to `path`), on the card;
+    the launches it made are added into `counts`."""
+    import yaml
+
+    from vfm_vae_tpu_torch.core.config import to_plain
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.train import cli
+
+    with open(path, "w") as f:
+        yaml.safe_dump(to_plain(cfg), f)
+    c0 = kernels.launch_counts()
+    out = cli.main(["--config", path, "--max-steps", str(steps)])
+    c1 = kernels.launch_counts()
+    for k in c1:
+        counts[k] = counts.get(k, 0) + c1[k] - c0[k]
+    return out
+
+
+def recipe_phase(card: str) -> dict:
+    """The four-stage recipe (configs/*stage_{0..3}*.yaml) through the port's
+    CLI (vfm_vae_tpu_torch.train.cli.main, in process, on the card) at full
+    flagship width and depth: every G_kwargs, D_kwargs and loss_kwargs key
+    as the YAML has it, random seeded weights. Overrides, printed once:
+    run_dir (a temporary directory), training_set_kwargs.path (synthetic
+    256 px shards written here), batch_size, kimg_per_tick and
+    network_snapshot_ticks (one tick a stage, at its end, with a snapshot),
+    --max-steps (RECIPE_STEPS), resume_path/resume_kimg (the chain) and
+    allow_random_lpips. Stage N + 1 resumes stage N's snapshot; a sixth call
+    on stage 3's run_dir without resume_path must auto-resume its snapshot.
+
+    Gates (tests/test_stage_chain.py's, and more): (1) each stage starts
+    exactly where its predecessor ended, every G and D parameter and EMA
+    tensor present in both bit for bit (the frozen tower through the whole
+    chain), and its cur_nimg goes on; (2) within a stage no frozen parameter
+    moves and at least RECIPE_MOVED of the trainable ones do; (3) stage 3's
+    resume reports exactly the PatchGAN parameters (and their Adam state)
+    fresh, while DINO and the heads load (gate 1); (4) every loss in
+    stats.jsonl is finite, with ssim_loss in stage 2 and the PatchGAN and
+    feature-matching terms in stage 3 non-zero; (5) stage 3's G_ema
+    round-trips a batch to finite pixels; (6) the auto-resume; (7) K1, K2
+    and K3 launch in every active G step (after the first) of each stage,
+    and K3's two backward kernels exactly where a trainable parameter lies
+    upstream of a decoder attention (stages 0-2, not 3); (8) stages 2 and 3
+    pass determinism_phase on their own configuration. Only the newest
+    snapshot stays on disk; the directory is removed at the end. Returns
+    the launches of the six CLI calls."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vfm_vae_tpu_torch.core.config import derive_config, load_config
+    from vfm_vae_tpu_torch.train.loop import build_trainer, ema_weights
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vfm_recipe_")
+    counts: dict = {}
+    try:
+        shards = os.path.join(tmp, "shards")
+        write_recipe_shards(shards)
+        overrides = dict(batch_size=RECIPE_BATCH, kimg_per_tick=1000, network_snapshot_ticks=1,
+                         allow_random_lpips=True)
+        print(f"[recipe] overrides of every stage YAML: run_dir {tmp}/stage<N>, "
+              f"training_set_kwargs.path {shards} (2 shards x 16 seeded 256 px JPEGs), "
+              f"{overrides}, --max-steps {RECIPE_STEPS}, resume_path/resume_kimg: the previous "
+              f"stage's snapshot, 0", flush=True)
+        prev = None  # the previous stage's end: params, EMA, snapshot path, cur_nimg
+        probe = recipe_steps()
+        with probe:
+            for i, rel in enumerate(RECIPE_YAMLS):
+                t_stage = time.perf_counter()
+                c = derive_config(load_config(os.path.join(HERE, rel)))
+                c.run_dir = os.path.join(tmp, f"stage{i}")
+                c.training_set_kwargs.path = shards
+                c.update(overrides, resume_path=prev and prev["snapshot"], resume_kimg=0)
+                st = probe.begin(f"stage{i}")
+                res = run_recipe_cli(c, os.path.join(tmp, f"stage{i}.yaml"), RECIPE_STEPS, counts)
+                peak = torch.cuda.max_memory_allocated()
+                tr, state = res.trainer, res.state
+                params = host_copy(named_params(tr))
+                trainable = {"G." + n for n in tr.g_params} | {"D." + n for n in tr.d_params}
+                fails = []
+                # (1) the handoff.
+                if prev is not None:
+                    if res.resume is None or res.resume["path"] != prev["snapshot"]:
+                        fails.append(f"resumed {res.resume and res.resume['path']}, not "
+                                     f"{prev['snapshot']}")
+                    off = [n for n, v in st["before"].items()
+                           if n in prev["params"] and not torch.equal(v, prev["params"][n])]
+                    off += [n for n, v in st["ema0"].items()
+                            if n in prev["ema"] and not torch.equal(v, prev["ema"][n])]
+                    if off:
+                        fails.append(f"{len(off)} tensors differ from the previous stage's end: "
+                                     f"{off[:4]}")
+                    tower = [n for n in params if n.startswith("G.vfm_encoder.")]
+                    if not tower or any(n not in prev["params"] for n in tower):
+                        fails.append("the tower is missing from the handoff")
+                    if state.cur_nimg != prev["cur_nimg"] + RECIPE_BATCH * RECIPE_STEPS:
+                        fails.append(f"cur_nimg {state.cur_nimg} after {prev['cur_nimg']}")
+                # (2) freezing.
+                moved_frozen = [n for n in params if n not in trainable
+                                and not torch.equal(st["before"][n], params[n])]
+                gated = [n for n in trainable if not bn_fed_bias(n)]
+                still = [n for n in gated if torch.equal(st["before"][n], params[n])]
+                if moved_frozen:
+                    fails.append(f"frozen tensors moved: {moved_frozen[:4]}")
+                if len(still) > (1 - RECIPE_MOVED) * len(gated):
+                    fails.append(f"{len(still)}/{len(gated)} trainable tensors did not move")
+                # (3) PatchGAN fresh in stage 3, nothing else fresh anywhere.
+                fresh = set(res.resume["fresh"]) if res.resume else set()
+                pg = {n[2:] for n in params if n.startswith("D.patchgan.")}
+                want_fresh = ({f"D/{n}" for n in pg}
+                              | {f"d_opt/{n}/{k}" for n in pg
+                                 for k in ("step", "exp_avg", "exp_avg_sq")})
+                if fresh != want_fresh:
+                    fails.append(f"fresh after resume {sorted(fresh)[:4]} ({len(fresh)}), want "
+                                 f"{len(want_fresh)} PatchGAN entries")
+                if i == 3 and not pg:
+                    fails.append("stage 3's D has no PatchGAN branch")
+                # (4) the logged losses.
+                with open(os.path.join(c.run_dir, "stats.jsonl")) as f:
+                    entry = json.loads(f.read().splitlines()[-1])
+                losses = {k: v for k, v in entry.items() if k.startswith("Loss/")}
+                bad = [k for k, v in losses.items() if not math.isfinite(v)]
+                need = {2: ["Loss/G/ssim_loss"],
+                        3: ["Loss/G/patchgan/loss", "Loss/G/patchgan/feature_matching_loss",
+                            "Loss/D/patchgan/loss"]}.get(i, [])
+                zero = [k for k in need if not losses.get(k)]
+                if bad or zero:
+                    fails.append(f"losses not finite {bad[:4]} or missing/zero {zero}")
+                # (7) kernels in the active G steps.
+                attn = list(c.G_kwargs.attn_block_indices)
+                late = tuple(f"synthesis.{p}.{b}." for p in ("blocks", "z_convs")
+                             for b in range(max(attn) + 1, c.G_kwargs.num_blocks))
+                bwd = any(not n.startswith(late) for n in tr.g_params)
+                for j, lc in enumerate(st["g_launches"][1:], start=1):
+                    fwd0 = [k for k in ("fused_convnext_mlp", "fused_upsample_blur",
+                                        "flash_attention_nullkv") if lc[k] == 0]
+                    bwd_n = (lc["flash_attention_nullkv_bwd_dkv"], lc["flash_attention_nullkv_bwd_dq"])
+                    if fwd0 or (min(bwd_n) > 0) != bwd or (max(bwd_n) > 0) != bwd:
+                        fails.append(f"G step {j}: kernels {fwd0} not launched, K3 backward "
+                                     f"{bwd_n} (expected {'some' if bwd else 'none'})")
+                snap = res.snapshot
+                print(f"[recipe] stage {i} ({os.path.basename(rel)}) on {card}: "
+                      f"{len(tr.g_params)} G and {len(tr.d_params)} D tensors trainable, "
+                      f"{len(gated) - len(still)}/{len(gated)} moved (not: {sorted(still)}), "
+                      f"frozen unchanged; D step "
+                      f"{statistics.median(st['d_ms'][1:]):.1f} ms, G step "
+                      f"{statistics.median(st['g_ms'][1:]):.1f} ms (median of steps 1-"
+                      f"{RECIPE_STEPS - 1}; D {', '.join(f'{x:.1f}' for x in st['d_ms'])}, G "
+                      f"{', '.join(f'{x:.1f}' for x in st['g_ms'])}); peak memory "
+                      f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); snapshot "
+                      f"{snap['bytes']} bytes saved in {snap['seconds']:.2f} s"
+                      + (f", resume {'strict' if res.resume['strict'] else 'loose'} load "
+                         f"{res.resume['seconds']:.2f} s, {len(fresh)} entries fresh"
+                         if res.resume else "")
+                      + f"; active G-step launches "
+                      f"{[{k: v for k, v in lc.items() if v} for lc in st['g_launches'][1:]]}; "
+                      f"stage {time.perf_counter() - t_stage:.1f} s", flush=True)
+                print(f"[recipe] stage {i} losses: " + ", ".join(
+                    f"{k[5:]}={v:.4g}" for k, v in sorted(losses.items())
+                    if "/is_safe/" not in k and "skipped" not in k), flush=True)
+                if fails:
+                    raise SystemExit(f"chip_smoke: recipe stage {i}: " + "; ".join(fails))
+                res_px = c.training_set_kwargs.resolution
+                if i >= 2:  # (8) on this stage's configuration
+                    kw = {k: c[k] for k in ("G_kwargs", "D_kwargs", "loss_kwargs",
+                                            "G_opt_kwargs", "D_opt_kwargs")}
+                    gen = torch.Generator(device="cuda").manual_seed(100 + i)
+                    real = torch.rand((RECIPE_BATCH, res_px, res_px, 3), generator=gen,
+                                      device="cuda")
+                    determinism_phase(tr, state, real, build_fp32=lambda: build_trainer(
+                        **kw, device="cuda", compute_dtype="float32", batch_size=RECIPE_BATCH,
+                        allow_random_lpips=True), label=f"recipe-determinism-stage{i}")
+                if i == 3:  # (5) the final G_ema
+                    real = torch.rand((RECIPE_BATCH, res_px, res_px, 3),
+                                      generator=torch.Generator(device="cuda").manual_seed(5),
+                                      device="cuda")
+                    with ema_weights(tr.G, state.ema):
+                        out = tr.G.decode(tr.G.encode(real))
+                    if out.shape != real.shape or not bool(torch.isfinite(out).all()):
+                        raise SystemExit(f"chip_smoke: recipe: G_ema's round trip {out.shape} "
+                                         "is not finite")
+                    print(f"[recipe] stage 3 G_ema round trip {tuple(out.shape)}: finite, "
+                          f"|x| mean {float(out.abs().mean()):.4f}", flush=True)
+                if prev is not None:  # only the newest snapshot stays on disk
+                    shutil.rmtree(prev["snapshot"])
+                prev = dict(snapshot=snap["path"], cur_nimg=state.cur_nimg, params=params,
+                            ema=host_copy(state.ema))
+                del res, tr, state, params, st
+                gc.collect()
+                torch.cuda.empty_cache()
+
+            # (6) the CLI again on stage 3's run_dir, no resume_path.
+            c.resume_path = None
+            probe.begin("stage3-again")
+            res = run_recipe_cli(c, os.path.join(tmp, "stage3_again.yaml"), 1, counts)
+            with open(os.path.join(c.run_dir, "log.txt")) as f:
+                logged = f"[auto-resume] found {prev['snapshot']}" in f.read()
+            if res.resume is None or res.resume["path"] != prev["snapshot"] or not logged:
+                raise SystemExit(f"chip_smoke: recipe: the second stage-3 call did not "
+                                 f"auto-resume {prev['snapshot']} ({res.resume and res.resume['path']}, "
+                                 f"logged {logged})")
+            print(f"[recipe] stage 3 again without resume_path: auto-resumed {res.resume['path']} "
+                  f"({'strict' if res.resume['strict'] else 'loose'}, "
+                  f"{res.resume['seconds']:.2f} s), cur_nimg {res.state.cur_nimg}", flush=True)
+            del res, prev
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[recipe] launches over the six CLI calls: "
+          f"{ {k: v for k, v in counts.items() if v} }; phase {time.perf_counter() - t_phase:.1f} "
+          f"s on {card}", flush=True)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--determinism-trials", type=int, default=1,
@@ -3019,6 +3370,7 @@ def main() -> int:
     state, launches["all_switches_train_step"] = all_switches_train(tr, state, card)
     del tr, state, real
     torch.cuda.empty_cache()
+    launches["recipe"] = recipe_phase(card)
 
     entries = []
     for name, s in summary.items():

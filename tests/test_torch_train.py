@@ -323,17 +323,19 @@ def test_skip_gate_zeroes_gradients_and_still_steps_adam(port_rig):
 def test_unported_configurations_raise(port_rig):
     G, D, L, tr = port_rig
     with pytest.raises(NotImplementedError):
-        TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
-                  **dict(LOSS_KW, patchgan_discriminator_loss_weight=1.0))
-    with pytest.raises(NotImplementedError):
-        TotalLoss(G, D, vfm_name="siglip2", lpips_module=L, **dict(LOSS_KW, ssim_loss_weight=0.5))
+        TotalLoss(G, D, vfm_name="siglip2", lpips_module=L, **dict(LOSS_KW, clip_loss_weight=0.5))
     with pytest.raises(NotImplementedError):
         TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
                   **dict(LOSS_KW, use_stylegan_t_disc_warmup=True))
     with pytest.raises(NotImplementedError):
+        TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
+                  **dict(LOSS_KW, use_patchgan_disc_warmup=True))
+    with pytest.raises(NotImplementedError):
         Trainer(tr.loss, set(), set(), num_accumulation=2)
     with pytest.raises(NotImplementedError):
-        ProjectedDiscriminator(use_patchgan_discriminator=True, dino_kwargs=TINY_DINO)
+        ProjectedDiscriminator(c_dim=10, dino_kwargs=TINY_DINO)
+    with pytest.raises(NotImplementedError):
+        trainable_path_predicates("train_text_encoder")
     with pytest.raises(NotImplementedError):
         tr.loss.d_loss(torch.zeros(2, RES, RES, 3), BUCKETS[0], 0, blur_sigma=1.0)
     with pytest.raises(RuntimeError):

@@ -282,8 +282,10 @@ def _vit_block(sd: SD, q: Mapping[str, Any], prefix: str) -> None:
 
 
 def d_state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any]) -> SD:
-    """JAX ProjectedDiscriminator (StyleGAN-T branch) variables -> the port's
-    state_dict (numpy): dino.*, heads.N.{main0,main1}.{conv,bn}.*, heads.N.cls.*."""
+    """JAX ProjectedDiscriminator variables -> the port's state_dict (numpy):
+    dino.*, heads.N.{main0,main1}.{conv,bn}.*, heads.N.cls.* and, with the
+    PatchGAN branch, patchgan.scaleS.convN.* (HWIO -> OIHW) and
+    patchgan.scaleS.bnN.*."""
     sd: SD = {}
     dino = params["dino"]
     sd["dino.patch_embed.weight"] = _conv(dino["patch_weight"])
@@ -309,6 +311,23 @@ def d_state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any])
         for blk in ("main0", "main1"):
             _norm(sd, hp[blk]["bn"], f"heads.{i}.{blk}.bn.")
         i += 1
+    if "patchgan" in params:
+        sd.update(patchgan_state_dict_from_jax(params["patchgan"], "patchgan."))
+    return sd
+
+
+def patchgan_state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> SD:
+    """JAX MultiscaleDiscriminator params -> the port's state_dict (numpy):
+    scaleS.convN.{weight (HWIO -> OIHW), bias}, scaleS.bnN.{weight, bias}."""
+    sd: SD = {}
+    for scale, sp in sorted(params.items()):
+        for name, q in sorted(sp.items()):
+            p = f"{prefix}{scale}.{name}."
+            if name.startswith("conv"):
+                sd[p + "weight"] = _conv(q["weight"])
+                sd[p + "bias"] = _arr(q["bias"])
+            else:
+                _norm(sd, q, p)
     return sd
 
 

@@ -23,3 +23,7 @@ class GeneratorForwardOutput:
 @dataclass
 class DiscriminatorForwardOutput:
     stylegan_t_logits: Optional[torch.Tensor] = None
+    # The PatchGAN branch: each scale's last map (largest scale first) and,
+    # with get_interm_feat, each scale's maps after every layer.
+    patchgan_logits: Optional[List[torch.Tensor]] = None
+    patchgan_features: Optional[List[List[torch.Tensor]]] = None

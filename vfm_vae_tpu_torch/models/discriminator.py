@@ -1,14 +1,18 @@
-"""Projected discriminator, StyleGAN-T branch (port of
-vfm_vae_tpu/models/discriminator.py: DINOBackbone, SpectralConv1d,
-BatchNormLocal, DiscBlock, DiscHead, ProjectedDiscriminator; reference
+"""Projected discriminator (port of vfm_vae_tpu/models/discriminator.py:
+DINOBackbone, SpectralConv1d, BatchNormLocal, DiscBlock, DiscHead, the
+PatchGAN branch's BatchNormLocal2d, NLayerDiscriminator and
+MultiscaleDiscriminator, and ProjectedDiscriminator; reference
 networks/discriminator.py).
 
-DiffAugment -> random crop (probability p_crop) or antialiased resize to the
-DINO input size -> ImageNet normalisation -> frozen DINO ViT-S/16 with DPT
-taps -> one spectral-norm conv1d head per tap. DINO's parameters never
-train, but the gradient flows through it to the image. Token-major (B, N, C)
-activations throughout. The PatchGAN branch (stage 3) and class
-conditioning are not ported and raise.
+StyleGAN-T branch: DiffAugment -> random crop (probability p_crop) or
+antialiased resize to the DINO input size -> ImageNet normalisation ->
+frozen DINO ViT-S/16 with DPT taps -> one spectral-norm conv1d head per
+tap. DINO's parameters never train, but the gradient flows through it to
+the image. Token-major (B, N, C) activations. PatchGAN branch (stage 3):
+the pix2pixHD three-scale N-layer discriminator on the unaugmented image,
+NHWC, with every layer's output as features (get_interm_feat). Class
+conditioning (c_dim > 0) and a D without the StyleGAN-T branch are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch.nn.functional as F
 from ..ops.resize import resize_bicubic, resize_bilinear
 from ..train.diffaug import diff_augment, sample_draws
 from .dataclasses import DiscriminatorForwardOutput
-from .layers import Module, init_parameters, l2_normalize, param, randn_, uniform_
+from .layers import Conv2d, Module, init_parameters, l2_normalize, param, randn_, uniform_
 from .vit import ViTBlock, _PatchEmbedding, interpolate_pos_embed
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -168,8 +172,101 @@ class DiscHead(Module):
         return out.reshape(out.shape[0], -1)
 
 
+class BatchNormLocal2d(Module):
+    """Virtual-batch norm over (group batch, H, W) per channel, NHWC
+    (discriminator.py:231-254)."""
+
+    def __init__(self, num_features: int, virtual_bs: int = 8, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.virtual_bs, self.eps = virtual_bs, eps
+        self.weight = param(num_features, device=device)
+        self.bias = param(num_features, device=device)
+
+    def reset_parameters(self, g):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        groups = -(-B // self.virtual_bs)
+        xf = x.float().reshape(groups, -1, H, W, C)
+        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+        xf = ((xf - mean) / torch.sqrt(var + self.eps)).reshape(B, H, W, C)
+        return (xf * self.weight + self.bias).to(x.dtype)
+
+
+# pix2pixHD weights_init: normal(0, 0.02) (discriminator.py:257).
+PATCHGAN_CONV_INIT = ("normal", 0.02)
+
+
+class NLayerDiscriminator(Module):
+    """pix2pixHD N-layer conv discriminator (discriminator.py:262-303):
+    4x4 convolutions padded by 2, strides 2 then 1, leaky ReLU 0.2 and
+    BatchNormLocal2d after every convolution but the first and the last."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3,
+                 get_interm_feat: bool = False, device=None):
+        super().__init__()
+        self.n_layers, self.get_interm_feat = n_layers, get_interm_feat
+
+        def conv(name, cin, cout, stride):
+            self.add_module(name, Conv2d(cin, cout, 4, padding=2, stride=stride,
+                                         weight_init=PATCHGAN_CONV_INIT, device=device))
+
+        conv("conv0", input_nc, ndf, 2)
+        nf = ndf
+        for n in range(1, n_layers):
+            nf_prev, nf = nf, min(nf * 2, 512)
+            conv(f"conv{n}", nf_prev, nf, 2)
+            self.add_module(f"bn{n}", BatchNormLocal2d(nf, device=device))
+        nf_prev, nf = nf, min(nf * 2, 512)
+        conv(f"conv{n_layers}", nf_prev, nf, 1)
+        self.add_module(f"bn{n_layers}", BatchNormLocal2d(nf, device=device))
+        conv(f"conv{n_layers + 1}", nf, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        feats = [F.leaky_relu(self.conv0(x), 0.2)]
+        for n in range(1, self.n_layers + 1):
+            h = getattr(self, f"conv{n}")(feats[-1])
+            feats.append(F.leaky_relu(getattr(self, f"bn{n}")(h), 0.2))
+        feats.append(getattr(self, f"conv{self.n_layers + 1}")(feats[-1]))
+        return feats if self.get_interm_feat else [feats[-1]]
+
+
+def avg_pool_no_pad_count(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) on NHWC
+    (discriminator.py:306)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1, count_include_pad=False)
+    return y.permute(0, 2, 3, 1)
+
+
+class MultiscaleDiscriminator(Module):
+    """Three-scale PatchGAN (discriminator.py:318-341): scale{num_D - 1}
+    sees the full image, each next one the image average-pooled once more."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3, num_D: int = 3,
+                 get_interm_feat: bool = True, device=None):
+        super().__init__()
+        self.num_D = num_D
+        for i in range(num_D):
+            self.add_module(f"scale{num_D - 1 - i}",
+                            NLayerDiscriminator(input_nc, ndf, n_layers, get_interm_feat,
+                                                device=device))
+
+    def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        results = []
+        for i in range(self.num_D):
+            results.append(getattr(self, f"scale{self.num_D - 1 - i}")(x))
+            if i != self.num_D - 1:
+                x = avg_pool_no_pad_count(x)
+        return results
+
+
 class ProjectedDiscriminator(Module):
-    """DiffAug -> crop/resize -> frozen DINO -> DiscHeads (discriminator.py:344-433)."""
+    """DiffAug -> crop/resize -> frozen DINO -> DiscHeads, and the PatchGAN
+    branch on the raw image when use_patchgan_discriminator is set
+    (discriminator.py:344-433)."""
 
     def __init__(self, c_dim: int = 0, vfm_name: str = "siglip2",
                  use_stylegan_t_discriminator: bool = True, diffaug: bool = True,
@@ -179,9 +276,8 @@ class ProjectedDiscriminator(Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         bad = [k for k, v in {"c_dim": c_dim > 0,
-                              "use_stylegan_t_discriminator": not use_stylegan_t_discriminator,
-                              "use_patchgan_discriminator": use_patchgan_discriminator,
-                              "get_interm_feat": get_interm_feat}.items() if v]
+                              "use_stylegan_t_discriminator": not use_stylegan_t_discriminator}
+               .items() if v]
         if bad:
             raise NotImplementedError(f"ProjectedDiscriminator: not ported for {bad}")
         self.diffaug, self.p_crop, self.compute_dtype = diffaug, p_crop, compute_dtype
@@ -190,6 +286,9 @@ class ProjectedDiscriminator(Module):
         self.dino.requires_grad_(False)
         self.heads = nn.ModuleList(DiscHead(self.dino.hidden_size, device=device)
                                    for _ in range(self.dino.n_hooks))
+        self.get_interm_feat = get_interm_feat
+        self.patchgan = (MultiscaleDiscriminator(get_interm_feat=get_interm_feat, device=device)
+                         if use_patchgan_discriminator else None)
         if generator is None:
             generator = torch.Generator(device=torch.device(device or "cpu")).manual_seed(0)
         init_parameters(self, generator)
@@ -201,7 +300,8 @@ class ProjectedDiscriminator(Module):
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 train: bool = True) -> DiscriminatorForwardOutput:
         """x (B, H, W, 3) in [-1, 1]. `generator` draws the augmentation and
-        the crop; None runs neither (the deterministic path: resize only)."""
+        the crop; None runs neither (the deterministic path: resize only).
+        The PatchGAN branch sees x itself."""
         h = x
         if self.diffaug and generator is not None:
             h = diff_augment(h, sample_draws(h, generator))
@@ -225,4 +325,9 @@ class ProjectedDiscriminator(Module):
         std = torch.tensor(IMAGENET_STD, device=h.device)
         feats = self.dino(((h - mean) / std).to(self.compute_dtype))
         logits = [head(f.float(), train) for head, f in zip(self.heads, feats)]
-        return DiscriminatorForwardOutput(stylegan_t_logits=torch.cat(logits, dim=1))
+        out = DiscriminatorForwardOutput(stylegan_t_logits=torch.cat(logits, dim=1))
+        if self.patchgan is not None:
+            pg = self.patchgan(x)
+            out.patchgan_logits = [r[-1] for r in pg]
+            out.patchgan_features = pg if self.get_interm_feat else None
+        return out

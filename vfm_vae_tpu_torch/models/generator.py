@@ -7,9 +7,10 @@ adapter's VF and KL losses, and the train_mode freezing rules
 
 Constructor keywords are the JAX Generator's. The slice ports the
 unconditional, continuous, attnproj, ConvNeXt, multiscale configuration;
-other values raise. Keywords that no computation of the port reads
-(num_fp16_res, conv_clamp, label_dim; use_adaptive_vf_loss, which the loss
-reads) are accepted.
+other values raise. Keywords that no computation of the port's Generator
+reads (num_fp16_res, conv_clamp, label_dim; use_adaptive_vf_loss, which the
+loss reads; train_mode and the equivariance settings, which the training
+loop reads) are accepted.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ from .synthesis import MappingNetwork, SynthesisNetwork, pooled_z
 from .vfm import VFMEncoder
 
 # Keywords of the flagship and tiny configurations that no port computation reads.
-_TRAINING_ONLY = {"num_fp16_res", "conv_clamp", "label_dim", "use_adaptive_vf_loss"}
+_TRAINING_ONLY = {"num_fp16_res", "conv_clamp", "label_dim", "use_adaptive_vf_loss",
+                  "train_mode", "use_equivariance_regularization",
+                  "equivariance_regularization_p_prior",
+                  "equivariance_regularization_p_prior_scale"}
 
 
 class Generator(Module):
@@ -181,15 +185,28 @@ class Generator(Module):
                 m.plain = plain
 
 
-def trainable_path_predicates(train_mode: str) -> List[str]:
+def trainable_path_predicates(train_mode: str, block_resolutions: Sequence[int] = (),
+                              concat_z_block_indices: Sequence[int] = ()) -> List[str]:
     """Parameter-name prefixes that train under `train_mode`
     (generator.py:338-372) for the unconditional configuration; the VFM
-    tower never trains."""
+    tower never trains. train_the_second_half_decoder trains the synthesis
+    blocks whose output is above 32 px and their z injectors (the JAX
+    package's reading of the reference's intent, generator.py:363-369)."""
     if train_mode == "train_all":
         return ["synthesis", "mapping.mlp", "ldm_adapter"]
     if train_mode == "train_decoder":
         return ["synthesis", "mapping.mlp", "ldm_adapter.post_quant"]
-    raise NotImplementedError(f"train_mode {train_mode!r} is not ported")
+    if train_mode == "train_the_second_half_decoder":
+        layers = []
+        for idx, res in enumerate(block_resolutions):
+            if res > 32:
+                layers.append(f"synthesis.blocks.{idx}")
+                if idx in concat_z_block_indices:
+                    layers.append(f"synthesis.z_convs.{idx}")
+        return layers
+    if train_mode == "train_text_encoder":
+        raise NotImplementedError("train_mode 'train_text_encoder' is not ported")
+    raise ValueError(f"Unknown train_mode {train_mode}")
 
 
 def trainable_names(module: torch.nn.Module, predicates: Sequence[str]) -> Set[str]:

@@ -217,13 +217,14 @@ class RMSNorm(Module):
 
 class Conv2d(Module):
     """nn.Conv2d on NHWC maps with torch default init (U(+-1/sqrt(fan_in)))
-    unless `weight_init` names another: 'zeros' or ('trunc_normal', std)."""
+    unless `weight_init` names another: 'zeros', ('trunc_normal', std) or
+    ('normal', std)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, groups: int = 1, bias: bool = True,
-                 weight_init=None, bias_init=None, device=None):
+                 weight_init=None, bias_init=None, stride: int = 1, device=None):
         super().__init__()
-        self.padding, self.groups = padding, groups
+        self.padding, self.groups, self.stride = padding, groups, stride
         self.weight_init, self.bias_init = weight_init, bias_init
         self.fan_in = (in_channels // groups) * kernel_size * kernel_size
         self.weight = param(out_channels, in_channels // groups, kernel_size, kernel_size,
@@ -238,10 +239,11 @@ class Conv2d(Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
-        if w.shape[2] == 1 and self.groups == 1:
+        if w.shape[2] == 1 and self.groups == 1 and self.stride == 1:
             y = x @ w[:, :, 0, 0].t()
         else:
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=self.padding, groups=self.groups)
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride, padding=self.padding,
+                         groups=self.groups)
             y = y.permute(0, 2, 3, 1).contiguous()
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
@@ -336,6 +338,8 @@ def _init(p: torch.Tensor, g: torch.Generator, how, bound: float) -> None:
         p.zero_()
     elif how[0] == "trunc_normal":
         trunc_normal_(p, g, how[1])
+    elif how[0] == "normal":
+        randn_(p, g, how[1])
     elif how[0] == "xavier_normal":
         xavier_normal_(p, g, how[1])
     else:

@@ -1,1 +1,2 @@
-"""Training of the port: the stage-0 [D, G] step (losses, optimisers, EMA)."""
+"""Training of the port: the [D, G] step (losses, optimisers, EMA), the
+training loop, snapshots and the CLI of the four-stage recipe."""

@@ -1,4 +1,4 @@
-"""GAN + reconstruction losses, the stage-0 subset (port of
+"""GAN + reconstruction losses of the four training stages (port of
 vfm_vae_tpu/train/loss.py; reference training/loss.py).
 
 `g_terms` returns the vector of raw G loss terms in G_TERMS order (zero for
@@ -8,10 +8,10 @@ gradients of the rec-weighted sum and of the VF term at the adapter anchor.
 The safe-loss checks are tensor operations, as in the JAX package. Value
 ranges: real images in [0, 1], generated in [-1, 1].
 
-Not ported, and refused at construction: PatchGAN and feature matching
-(stage 3), SSIM (stage 2), CLIP and matching-aware losses, the
-discriminator warm-up state machine, the discrete (VQ) mode and the blur
-schedule (a blur sigma above 0).
+Stage 2 adds SSIM, stage 3 the PatchGAN terms and feature matching. Not
+ported, and refused at construction: the CLIP and matching-aware losses,
+the discriminator warm-up state machine, the discrete (VQ) mode and the
+blur schedule (a blur sigma above 0).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from ..core import stats as tstats
 from ..ops.resize import resize_bicubic, resize_bilinear, rot90
+from .ssim import ssim as ssim_fn
 
 G_TERMS = (
     "l1_pixel_loss",
@@ -82,6 +83,53 @@ def hinge_d_loss(logits: torch.Tensor, kind: str) -> torch.Tensor:
     return torch.relu(1.0 + logits).mean()
 
 
+def _bce_with_logits(pred: torch.Tensor, target: float) -> torch.Tensor:
+    return (torch.relu(pred) - pred * target + torch.log1p(torch.exp(-pred.abs()))).mean()
+
+
+def patchgan_d_loss(preds: Sequence[torch.Tensor], kind: str, loss_type: str) -> torch.Tensor:
+    """(loss.py:107): the mean over scales of each scale's last-layer loss."""
+    target = 1.0 if kind == "real" else 0.0
+    total = 0.0
+    for pred in preds:
+        if loss_type == "bce":
+            total = total + _bce_with_logits(pred, target)
+        elif loss_type == "mse":
+            total = total + (pred - target).square().mean()
+        elif loss_type == "hinge":
+            total = total + hinge_d_loss(pred, kind)
+        else:
+            raise ValueError(loss_type)
+    return total / len(preds)
+
+
+def patchgan_g_loss(preds: Sequence[torch.Tensor], loss_type: str) -> torch.Tensor:
+    """(loss.py:129)."""
+    total = 0.0
+    for pred in preds:
+        if loss_type == "bce":
+            total = total + _bce_with_logits(pred, 1.0)
+        elif loss_type == "mse":
+            total = total + (pred - 1.0).square().mean()
+        elif loss_type == "hinge":
+            total = total + (-pred).mean()
+        else:
+            raise ValueError(loss_type)
+    return total / len(preds)
+
+
+def feature_matching_loss(real_feats, fake_feats) -> torch.Tensor:
+    """pix2pixHD weighting (loss.py:149): every scale's layers but the last,
+    the real features held constant."""
+    total = 0.0
+    d_w = 1.0 / len(real_feats)
+    for rf, ff in zip(real_feats, fake_feats):
+        feat_w = 4.0 / max(len(rf) - 1, 1)
+        for r, f in zip(rf[:-1], ff[:-1]):
+            total = total + d_w * feat_w * (f - r.detach()).abs().mean()
+    return total
+
+
 class ImageTransform:
     """EQ alignment of real images and multiscale target resizing
     (loss.py:167-192); the angle is a host integer."""
@@ -108,7 +156,7 @@ class ImageTransform:
 
 
 class TotalLoss:
-    """Stage-0 loss configuration bound to the port's G, D and LPIPS modules.
+    """The loss configuration bound to the port's G, D and LPIPS modules.
     Keywords are the JAX TotalLoss's (training/loss.py:77-112)."""
 
     def __init__(
@@ -137,14 +185,13 @@ class TotalLoss:
         kl_loss_weight: float = 1e-6,
         stylegan_t_discriminator_loss_weight: float = 1.0,
         patchgan_discriminator_loss_weight: float = 0.0,
+        patchgan_discriminator_loss_type: str = "mse",
         feature_matching_loss_weight: float = 1.0,
         use_stylegan_t_disc_warmup: bool = False,
         use_patchgan_disc_warmup: bool = False,
         total_kimg: int = 0,
     ):
         unsupported = {
-            "patchgan_discriminator_loss_weight": patchgan_discriminator_loss_weight > 0,
-            "ssim_loss_weight": ssim_loss_weight > 0,
             "clip_loss_weight": clip_loss_weight > 0,
             "matching_aware_loss_weight": matching_aware_loss_weight > 0,
             "use_stylegan_t_disc_warmup": use_stylegan_t_disc_warmup,
@@ -163,6 +210,7 @@ class TotalLoss:
         self.l1_pixel_loss_weight = l1_pixel_loss_weight
         self.l2_pixel_loss_weight = l2_pixel_loss_weight
         self.perceptual_loss_weight = perceptual_loss_weight
+        self.ssim_loss_weight = ssim_loss_weight
         self.multiscale_pixel_loss_weights = list(multiscale_pixel_loss_weights)
         self.multiscale_block_indices = list(multiscale_block_indices)
         self.multiscale_pixel_loss_start_kimg = multiscale_pixel_loss_start_kimg
@@ -171,9 +219,15 @@ class TotalLoss:
         self.use_adaptive_vf_loss = use_adaptive_vf_loss
         self.kl_loss_weight = kl_loss_weight
         self.stylegan_t_discriminator_loss_weight = stylegan_t_discriminator_loss_weight
+        self.patchgan_discriminator_loss_weight = patchgan_discriminator_loss_weight
+        self.patchgan_discriminator_loss_type = patchgan_discriminator_loss_type
+        self.feature_matching_loss_weight = feature_matching_loss_weight
         self.stylegan_t_on = stylegan_t_discriminator_loss_weight > 0
+        self.patchgan_on = patchgan_discriminator_loss_weight > 0
+        self.feature_matching_on = self.patchgan_on and feature_matching_loss_weight > 0
         self.pixel_loss_on = l1_pixel_loss_weight > 0 or l2_pixel_loss_weight > 0
         self.perceptual_loss_on = perceptual_loss_weight > 0
+        self.ssim_loss_on = ssim_loss_weight > 0
         self.multiscale_pixel_loss_on = sum(self.multiscale_pixel_loss_weights) > 0
 
     # ------------------------------------------------------------ G terms
@@ -191,15 +245,29 @@ class TotalLoss:
         zero = gen_img.new_zeros(())
         terms = {name: zero for name in G_TERMS}
 
+        d_out = None
+        if self.stylegan_t_on or self.patchgan_on:
+            d_out = self.D(blur_image(gen_img, blur_sigma), generator)
         if self.stylegan_t_on:
-            logits = self.D(blur_image(gen_img, blur_sigma), generator).stylegan_t_logits
+            logits = d_out.stylegan_t_logits
             terms["stylegan_t_gen_loss"] = (-logits).mean()
             tstats.report(stats, "Loss/G/stylegan_t/fake_scores", logits)
             tstats.report(stats, "Loss/G/stylegan_t/fake_signs", torch.sign(logits))
+        if self.patchgan_on and d_out.patchgan_logits:
+            terms["patchgan_gen_loss"] = patchgan_g_loss(d_out.patchgan_logits,
+                                                         self.patchgan_discriminator_loss_type)
 
         eq_scale, eq_angle, _ = eq
         real_t = self.img_transform(real_img, eq_scale, eq_angle)
         real_pm1 = real_t * 2.0 - 1.0
+
+        if self.feature_matching_on and d_out.patchgan_features:
+            # D's pass over the real image advances its spectral-norm state as
+            # the JAX step's does; its features enter as constants.
+            with torch.no_grad():
+                real_feats = self.D(blur_image(real_pm1, blur_sigma), generator).patchgan_features
+            terms["feature_matching_loss"] = feature_matching_loss(real_feats,
+                                                                   d_out.patchgan_features)
 
         if self.pixel_loss_on and self.l1_pixel_loss_weight > 0:
             terms["l1_pixel_loss"] = (real_pm1 - gen_img).abs().mean()
@@ -207,6 +275,9 @@ class TotalLoss:
             terms["l2_pixel_loss"] = (real_pm1 - gen_img).square().mean()
         if self.perceptual_loss_on:
             terms["perceptual_loss"] = self.lpips(real_pm1, gen_img).mean()
+        if self.ssim_loss_on:
+            terms["ssim_loss"] = 1.0 - ssim_fn(gen_img.clamp(-1, 1), real_pm1.clamp(-1, 1),
+                                               data_range=2.0)
 
         if self.multiscale_pixel_loss_on:
             real_ms = self.img_transform.multiscale(real_t, gen_out.gen_multiscale_imgs)
@@ -233,6 +304,9 @@ class TotalLoss:
         w = self.rec_weights().to(vf.device)
         if self.stylegan_t_on:
             w[G_TERMS.index("stylegan_t_gen_loss")] = self.stylegan_t_discriminator_loss_weight
+        if self.patchgan_on:
+            w[G_TERMS.index("patchgan_gen_loss")] = self.patchgan_discriminator_loss_weight
+            w[G_TERMS.index("feature_matching_loss")] = self.feature_matching_loss_weight
         w[G_TERMS.index("kl_loss")] = self.kl_loss_weight
         w[G_TERMS.index("vf_loss")] = vf
         return w
@@ -246,6 +320,8 @@ class TotalLoss:
             w[idx["l2_pixel_loss"]] = self.l2_pixel_loss_weight
         if self.perceptual_loss_on:
             w[idx["perceptual_loss"]] = self.perceptual_loss_weight
+        if self.ssim_loss_on:
+            w[idx["ssim_loss"]] = self.ssim_loss_weight
         if self.multiscale_pixel_loss_on:
             w[idx["multiscale_pixel_loss"]] = 1.0
         return w
@@ -280,10 +356,11 @@ class TotalLoss:
         """D loss given a generated image (loss.py:548-654), with the safe
         check and nan_to_num of the total."""
         stats: Dict[str, torch.Tensor] = {}
-        gen_d = self.D(blur_image(gen_img.detach(), blur_sigma), generator).stylegan_t_logits
+        gen_out = self.D(blur_image(gen_img.detach(), blur_sigma), generator)
         eq_scale, eq_angle, _ = eq
         real_t = self.img_transform(real_img, eq_scale, eq_angle) * 2.0 - 1.0
-        real_d = self.D(blur_image(real_t, blur_sigma), generator).stylegan_t_logits
+        real_out = self.D(blur_image(real_t, blur_sigma), generator)
+        gen_d, real_d = gen_out.stylegan_t_logits, real_out.stylegan_t_logits
         zero = gen_d.new_zeros(())
         terms = {name: zero for name in D_TERMS}
         if self.stylegan_t_on:
@@ -293,8 +370,21 @@ class TotalLoss:
             tstats.report(stats, "Loss/D/stylegan_t/fake_signs", torch.sign(gen_d))
             tstats.report(stats, "Loss/D/stylegan_t/real_scores", real_d)
             tstats.report(stats, "Loss/D/stylegan_t/real_signs", torch.sign(real_d))
+        if self.patchgan_on and gen_out.patchgan_logits:
+            kind = self.patchgan_discriminator_loss_type
+            terms["patchgan_gen_loss"] = patchgan_d_loss(gen_out.patchgan_logits, "fake", kind)
+            terms["patchgan_real_loss"] = patchgan_d_loss(real_out.patchgan_logits, "real", kind)
+            for side, out in (("fake", gen_out), ("real", real_out)):
+                for i, pred in enumerate(out.patchgan_logits):
+                    scores = pred.reshape(pred.shape[0], -1).mean(dim=1)
+                    tstats.report(stats, f"Loss/D/patchgan/{side}/scale{i}/{side}_scores",
+                                  scores.mean())
+                    tstats.report(stats, f"Loss/D/patchgan/{side}/scale{i}/{side}_signs",
+                                  torch.sign(scores).mean())
         st = terms["stylegan_t_gen_loss"] + terms["stylegan_t_real_loss"]
-        d_total = self.stylegan_t_discriminator_loss_weight * st
+        pg = terms["patchgan_gen_loss"] + terms["patchgan_real_loss"]
+        d_total = (self.stylegan_t_discriminator_loss_weight * st
+                   + self.patchgan_discriminator_loss_weight * pg)
 
         vals = torch.stack([terms[n].detach() for n in D_TERMS])
         active = cur_nimg > self.resume_kimg * 1e3 + SAFE_LOSS_CHECKING_START_NIMG
@@ -303,6 +393,10 @@ class TotalLoss:
         tstats.report(stats, "Loss/D/stylegan_t/gen_loss", terms["stylegan_t_gen_loss"])
         tstats.report(stats, "Loss/D/stylegan_t/real_loss", terms["stylegan_t_real_loss"])
         tstats.report(stats, "Loss/D/stylegan_t/loss", st)
+        if self.patchgan_on:
+            tstats.report(stats, "Loss/D/patchgan/gen_loss", terms["patchgan_gen_loss"])
+            tstats.report(stats, "Loss/D/patchgan/real_loss", terms["patchgan_real_loss"])
+            tstats.report(stats, "Loss/D/patchgan/loss", pg)
         tstats.report(stats, "Loss/D/skipped", skip.float())
         for i, n in enumerate(D_TERMS):
             tstats.report(stats, f"Loss/D/is_safe/{n}", (~unsafe[i]).float())
