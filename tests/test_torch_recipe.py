@@ -78,6 +78,18 @@ def stage_config(root, stage: int, resume_path=None):
     return derive_config(c)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the tiny rig: its ops are too small to share,
+    and under pytest-xdist's workers torch's default of a thread per core
+    oversubscribes the host (the chain ran 10x slower beside six busy
+    processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def run_cli(root, c, name: str, steps: int = STEPS):
     path = root / f"{name}.yaml"
     with open(path, "w") as f:

@@ -60,6 +60,18 @@ def fast_jit(fn, *example):
     return jax.jit(fn).lower(*example).compile(FAST_COMPILE)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the tiny rig: its ops are too small to share,
+    and under pytest-xdist's workers torch's default of a thread per core
+    oversubscribes the host (the chain ran 10x slower beside six busy
+    processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     r = tmp_path_factory.mktemp("recipe_parity")
