@@ -116,6 +116,22 @@
    determinism gate on stages 2 and 3; per stage the median D and G step
    ms, peak memory, snapshot bytes and save and load seconds
    (recipe_phase).
+9. Tools phase: on the recipe's last snapshot, the offline tools through
+   each CLI's main(argv) at flagship width and depth on 72 seeded 256 px
+   JPEGs in tar shards (two B=32 batches and a B=8 tail): prefetch (bf16
+   tower, features and images stored), prefetch --int8 under the flash
+   switches, prefetch_reg, decode_latents_to_images, reconstruct, then
+   evaluate, fidelity --fid --isc, save_images_as_npz and evaluate_npz with
+   random-weight InceptionV3 and LPIPS. Gates: the shards' file contract,
+   the moments and the int8 latents against in-process replays bit for
+   bit (the tail included), the PNGs against G.decode, the tail decode
+   against the plain twins and fp32, the int8 tail's K6 and K4 sites
+   against their twins and its moments against fp32, the launches of every tower, adapter
+   and decoder call (K6, K4; K1-K3 at 38/10/6 a decode), InceptionV3 on
+   the card against the CPU, FID(x, x) and precision = recall = 1 of a set
+   against itself (evaluate_npz), finite figures, the PSNR clamp;
+   each tool's img/s with its setup, model (CUDA events) and host split
+   (tools_phase).
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -128,9 +144,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3044,7 +3062,7 @@ def run_recipe_cli(cfg, path: str, steps: int, counts: dict):
     return out
 
 
-def recipe_phase(card: str) -> dict:
+def recipe_phase(card: str, tmp: str) -> tuple:
     """The four-stage recipe (configs/*stage_{0..3}*.yaml) through the port's
     CLI (vfm_vae_tpu_torch.train.cli.main, in process, on the card) at full
     flagship width and depth: every G_kwargs, D_kwargs and loss_kwargs key
@@ -3069,21 +3087,18 @@ def recipe_phase(card: str) -> dict:
     and K3 launch in every active G step (after the first) of each stage,
     and K3's two backward kernels exactly where a trainable parameter lies
     upstream of a decoder attention (stages 0-2, not 3); (8) stages 2 and 3
-    pass determinism_phase on their own configuration. Only the newest
-    snapshot stays on disk; the directory is removed at the end. Returns
-    the launches of the six CLI calls."""
+    pass determinism_phase on their own configuration. Everything is
+    written under `tmp` (the caller removes it); only the newest snapshot
+    stays on disk. Returns the launches of the six CLI calls, the last
+    snapshot's path and stage 3's YAML, which the tools phase reads."""
     import gc
-    import shutil
-    import tempfile
 
-    import numpy as np
     import torch
 
     from vfm_vae_tpu_torch.core.config import derive_config, load_config
     from vfm_vae_tpu_torch.train.loop import build_trainer, ema_weights
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="vfm_recipe_")
     counts: dict = {}
     try:
         shards = os.path.join(tmp, "shards")
@@ -3234,15 +3249,421 @@ def recipe_phase(card: str) -> dict:
             print(f"[recipe] stage 3 again without resume_path: auto-resumed {res.resume['path']} "
                   f"({'strict' if res.resume['strict'] else 'loose'}, "
                   f"{res.resume['seconds']:.2f} s), cur_nimg {res.state.cur_nimg}", flush=True)
+            snapshot = prev["snapshot"]
             del res, prev
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[recipe] launches over the six CLI calls: "
           f"{ {k: v for k, v in counts.items() if v} }; phase {time.perf_counter() - t_phase:.1f} "
           f"s on {card}", flush=True)
-    return counts
+    return counts, snapshot, os.path.join(tmp, "stage3.yaml")
+
+
+TOOLS_IMAGES = 72  # two B=32 batches and a B=8 tail
+TOOLS_BATCH = 32
+# InceptionV3 on the card (cuDNN fp32, TF32 off) against the same module on
+# the CPU: rel-L1 of the pool features, the logits and the sFID tap (about 95
+# fp32 convolutions, each summed in another order).
+INCEPTION_CARD_REL = 1e-4
+# |FID(x, x)| <= FID_SELF_REL * tr(Sigma): with 72 images the 2048 x 2048
+# covariance is singular and scipy's sqrtm of Sigma^2 is accurate to about
+# 2e-7 of the trace (1.5e-5 of 66 on random features, on the CPU).
+FID_SELF_REL = 1e-5
+# The bf16 prefetch and reconstruct encode on PyTorch's path (no kernel); the
+# int8 prefetch runs K6 and K4 in the tower and K4 at the adapter; every
+# decode K1, K2 and K3.
+TOOL_PATHS = ("prefetch", "prefetch_int8", "decode_latents", "reconstruct")
+
+
+class call_launches:
+    """For the length of a `with`: the kernel launches of every call of the
+    tower (VFMEncoder.encode_image), the adapter's encode (LDMAdapter.encode)
+    and Generator.decode, in call order, as (name, {kernel: launches})."""
+
+    TARGETS = (("vfm_vae_tpu_torch.models.vfm", "VFMEncoder", "encode_image"),
+               ("vfm_vae_tpu_torch.models.adapter", "LDMAdapter", "encode"),
+               ("vfm_vae_tpu_torch.models.generator", "Generator", "decode"))
+
+    def __enter__(self):
+        import importlib
+
+        from vfm_vae_tpu_torch.ops import kernels
+
+        self.calls, self.orig = [], []
+        for mod, cls, meth in self.TARGETS:
+            klass = getattr(importlib.import_module(mod), cls)
+            fn = getattr(klass, meth)
+            self.orig.append((klass, meth, fn))
+
+            def wrapped(*args, _fn=fn, _name=f"{cls}.{meth}", **kwargs):
+                c0 = kernels.launch_counts()
+                out = _fn(*args, **kwargs)
+                c1 = kernels.launch_counts()
+                self.calls.append((_name, {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}))
+                return out
+
+            setattr(klass, meth, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for klass, meth, fn in self.orig:
+            setattr(klass, meth, fn)
+
+    def of(self, name: str) -> list:
+        return [c for n, c in self.calls if n == name]
+
+
+def run_tool(tool, argv, path, launches, card):
+    """tool.main(argv) on the card; its launches are added to launches[path]
+    and its calls recorded. Prints its throughput with the split of its time."""
+    from vfm_vae_tpu_torch.ops import kernels
+
+    name = tool.__name__.rsplit(".", 1)[-1]
+    c0 = kernels.launch_counts()
+    with call_launches() as calls:
+        out = tool.main(argv)
+    c1 = kernels.launch_counts()
+    if path is not None:
+        acc = launches.setdefault(path, {})
+        for k in c1:
+            acc[k] = acc.get(k, 0) + c1[k] - c0[k]
+    n, wall = out["images"], out["seconds"]
+    other = wall - out["setup_s"] - out["model_s"] - out["host_s"]
+    print(f"[tools] {name} on {card}: {n} images in {wall:.2f} s end to end "
+          f"({n / wall:.2f} img/s); setup (build, weights) {out['setup_s']:.2f} s, then "
+          f"{out['images_per_s']:.2f} img/s: model {out['model_s']:.3f} s by CUDA events "
+          f"({out['model_s'] * 1e3 / max(n, 1):.3f} ms an image), host image and file work "
+          f"{out['host_s']:.3f} s (host clock), other {other:.3f} s", flush=True)
+    return out, calls
+
+
+def tool_crops(shards: str, resolution: int):
+    """(crops uint8 (N, H, W, 3), labels) of the tars as prefetch reads them."""
+    import io
+    from glob import glob
+
+    import numpy as np
+    import PIL.Image
+
+    from vfm_vae_tpu_torch.data.wds import iter_tar_samples
+    from vfm_vae_tpu_torch.tools.prefetch import adm_center_crop
+
+    crops, labels = [], []
+    for tar in sorted(glob(os.path.join(shards, "**", "*.tar"), recursive=True)):
+        for raw in iter_tar_samples(tar):
+            crops.append(adm_center_crop(PIL.Image.open(io.BytesIO(raw["jpg"])), resolution))
+            labels.append(int(raw["cls"].decode()))
+    return np.stack(crops), np.asarray(labels, np.int64)
+
+
+def tools_phase(card: str, snapshot: str, config: str, root: str) -> dict:
+    """The offline tools through each CLI's main(argv), on the card, at the
+    flagship width and depth, on the recipe phase's last snapshot (`config`:
+    stage 3's YAML as the recipe ran it; bf16) and TOOLS_IMAGES seeded 256 px
+    JPEGs in tar shards: prefetch (bf16 tower, features and images stored),
+    prefetch --int8 under the flash switches, prefetch_reg,
+    decode_latents_to_images of the first prefetch's shards, reconstruct of
+    its stored images, then evaluate and fidelity --fid --isc of the
+    outputs against the inputs, save_images_as_npz of the inputs and
+    evaluate_npz of them against themselves, with random-weight
+    InceptionV3 and LPIPS, all at --batch TOOLS_BATCH (a tail batch of 8).
+
+    Gates: (1) the file contract (keys, dtypes, NCHW shapes, every sample
+    with its label, latents_stats (1, 32, 1, 1), fp16 features of 256
+    tokens, the dataset json, the port's reader on every file); (2)
+    prefetch_reg's moments equal G.encode(..., return_z_before_quantize=True)
+    -> mean_logvar_to_mean_std of the same crops at the same batch split, bit
+    for bit, and that encode repeats bit for bit; (3) the PNGs of
+    decode_latents_to_images equal G.decode of the stored latents at the
+    same split within one uint8 step; the kernel decode of the tail batch is
+    held to DECODE_REL_L1 against the plain twins and to TRUTH_FACTOR
+    against fp32; (4) the int8 prefetch's latents (the B=8 tail included)
+    equal an int8 replay outside the tool bit for bit (the same calibration
+    batch, the same draws), and the B=8 tail's encode holds the int8 serving
+    phase's gates: every K6 and K4 site against its twin on its own inputs,
+    and the moments no further from the fp32 tower than the all-plain int8
+    path's (TRUTH_FACTOR); (5) every tower call of the int8 prefetch
+    launches K6 at every Linear and K4 at every tower attention, every
+    adapter encode K4 at its sites, every decode K1, K2 and K3 at 38, 10 and
+    6, and the bf16 encodes launch nothing; (6) the metrics: InceptionV3 on
+    the card against the CPU (INCEPTION_CARD_REL), evaluate_npz's FID(x, x)
+    (FID_SELF_REL of tr(Sigma), Sigma from the detector's features of the
+    crops) and its precision and recall of a set against itself (1, 1),
+    every figure finite, PSNR of identical folders 120 dB (the MSE clamp).
+    Returns the launches by path (TOOL_PATHS)."""
+    import numpy as np
+    import PIL.Image
+    import scipy
+    import torch
+
+    from vfm_vae_tpu_torch.data.safetensors_io import load_file
+    from vfm_vae_tpu_torch.entry import kernel_sites
+    from vfm_vae_tpu_torch.metrics.feature_stats import FeatureStats
+    from vfm_vae_tpu_torch.metrics.inception import InceptionV3Features, make_detector
+    from vfm_vae_tpu_torch.models.distributions import mean_logvar_to_mean_std
+    from vfm_vae_tpu_torch.ops.quantized import enable_int8_tower
+    from vfm_vae_tpu_torch.tools import (
+        decode_latents_to_images, evaluate, evaluate_npz, fidelity, prefetch, prefetch_reg,
+        reconstruct, save_images_as_npz)
+    from vfm_vae_tpu_torch.tools._generator import build_generator
+    from vfm_vae_tpu_torch.tools.decode_latents_to_images import to_uint8
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches = {p: {} for p in TOOL_PATHS}
+    shards = os.path.join(root, "shards")
+    write_recipe_shards(shards, n_shards=2, per_shard=TOOLS_IMAGES // 2, seed=14)
+    out = {k: os.path.join(root, k) for k in ("lat", "lat8", "reg", "dec", "rec")}
+    base = ["--config", config, "--snapshot", snapshot, "--batch", str(TOOLS_BATCH)]
+    pre = base + ["--data", shards]
+    fails = []
+
+    def gate(ok: bool, why: str):
+        if not ok:
+            fails.append(why)
+
+    # ---- the tools
+    _, calls_lat = run_tool(prefetch, pre + ["--out", out["lat"], "--store-vfm-features",
+                                             "--store-images"], "prefetch", launches, card)
+    with serving_env(True):
+        _, calls_8 = run_tool(prefetch, pre + ["--out", out["lat8"], "--int8"], "prefetch_int8",
+                              launches, card)
+    _, calls_reg = run_tool(prefetch_reg, pre + ["--out", out["reg"]], "prefetch", launches, card)
+    _, calls_dec = run_tool(decode_latents_to_images, base + [
+        "--latents", out["lat"], "--out", out["dec"]], "decode_latents", launches, card)
+    _, calls_rec = run_tool(reconstruct, base + [
+        "--data", os.path.join(out["lat"], "images"), "--out", out["rec"]], "reconstruct",
+        launches, card)
+    inputs, outputs = os.path.join(out["rec"], "inputs"), os.path.join(out["rec"], "outputs")
+    ev, _ = run_tool(evaluate, ["--inputs", inputs, "--outputs", outputs, "--allow-random-lpips"],
+                     None, launches, card)
+    ev_same, _ = run_tool(evaluate, ["--inputs", inputs, "--outputs", inputs], None, launches, card)
+    fi, _ = run_tool(fidelity, ["--input1", outputs, "--input2", inputs, "--fid", "--isc"], None,
+                     launches, card)
+    # evaluate_npz of the inputs against themselves: FID(x, x) near 0 and
+    # precision = recall = 1; fidelity above scores the outputs against
+    # them. (Each Frechet distance costs a 2048 x 2048 sqrtm, 9-26 s of host.)
+    npz = os.path.join(root, "inputs.npz")
+    save_images_as_npz.main(["--images", inputs, "--out", npz])
+    en, _ = run_tool(evaluate_npz, ["--sample-batch", npz, "--ref-batch", npz], None, launches,
+                     card)
+    t_tools = time.perf_counter() - t_phase
+
+    # ---- (1) the file contract
+    crops, labels = tool_crops(shards, 256)
+    splits = [(i, min(i + TOOLS_BATCH, TOOLS_IMAGES)) for i in range(0, TOOLS_IMAGES, TOOLS_BATCH)]
+    shard = {k: load_file(os.path.join(out[k], "latents_rank00_shard000.safetensors"))
+             for k in ("lat", "lat8", "reg")}
+    for k, ch in (("lat", 32), ("lat8", 32), ("reg", 64)):
+        d = shard[k]
+        want = {"latents", "latents_flip", "labels"} | ({"vfm_features"} if k == "lat" else set())
+        gate(set(d) == want, f"{k}: keys {sorted(d)}")
+        gate(d["latents"].dtype == np.float32 and d["latents_flip"].dtype == np.float32
+             and d["labels"].dtype == np.int64, f"{k}: dtypes")
+        gate(d["latents"].shape == d["latents_flip"].shape == (TOOLS_IMAGES, ch, 16, 16),
+             f"{k}: shape {d['latents'].shape} (the tail encoded?)")
+        gate(np.array_equal(d["labels"], labels), f"{k}: labels differ from the shards'")
+        gate(bool(np.isfinite(d["latents"]).all() and np.isfinite(d["latents_flip"]).all()),
+             f"{k}: non-finite latents")
+        lstats = load_file(os.path.join(out[k], "latents_stats.safetensors"))
+        gate(all(lstats[s].shape == (1, ch, 1, 1) for s in ("mean", "std")),
+             f"{k}: latents_stats shapes")
+    feats = shard["lat"].get("vfm_features")
+    gate(feats is not None and feats.dtype == np.float16 and feats.shape == (TOOLS_IMAGES, 256, 1024),
+         "vfm_features: not fp16 (72, 256, 1024)")
+    with open(os.path.join(out["lat"], "images", "dataset_rank0.json")) as f:
+        records = json.load(f)["labels"]
+    gate(len(records) == TOOLS_IMAGES, f"dataset_rank0.json lists {len(records)} images")
+    written = [os.path.join(d, n) for d in out.values() if os.path.isdir(d)
+               for n in os.listdir(d) if n.endswith(".safetensors")]
+    read = sum(len(load_file(p)) > 0 for p in written)
+    gate(read == len(written) == 6, f"the reader read {read} of {len(written)} files")
+    print(f"[tools] file contract: {sorted(shard['lat'])} {shard['lat']['latents'].shape} "
+          f"{shard['lat']['latents'].dtype}, vfm_features {feats.shape} {feats.dtype}, reg "
+          f"{shard['reg']['latents'].shape}; {len(records)} images stored; {read} safetensors "
+          f"files read back", flush=True)
+
+    # ---- (2) the moments, (3) the decode: one bf16 G in process
+    G, _ = build_generator(config, snapshot, dev)
+    x_all = torch.from_numpy(crops).to(dev).float().div_(255.0)
+    with torch.no_grad():
+        runs = []
+        for _ in range(2):
+            m = [torch.cat([mean_logvar_to_mean_std(G.encode(x, return_z_before_quantize=True)),
+                            mean_logvar_to_mean_std(G.encode(torch.flip(x, [2]),
+                                                             return_z_before_quantize=True))], 0)
+                 for x in (x_all[a:b] for a, b in splits)]
+            runs.append(m)
+        repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+        mine = np.concatenate([r.float().cpu().numpy()[: r.shape[0] // 2] for r in runs[0]])
+        mine_f = np.concatenate([r.float().cpu().numpy()[r.shape[0] // 2:] for r in runs[0]])
+    tool_m = shard["reg"]["latents"].transpose(0, 2, 3, 1)
+    tool_mf = shard["reg"]["latents_flip"].transpose(0, 2, 3, 1)
+    diff = max(float(np.abs(tool_m - mine).max()), float(np.abs(tool_mf - mine_f).max()))
+    gate(repeat and diff == 0.0, f"prefetch_reg moments: max |tool - G.encode| {diff:.3e}, "
+                                 f"repeat bit-identical {repeat}")
+    print(f"[tools] prefetch_reg moments vs G.encode at the same split: max |diff| {diff:.3e} "
+          f"(gate: 0); in-process repeat bit-identical {repeat}; mean||std channels "
+          f"{tool_m.shape[-1]}, std min {float(tool_m[..., 32:].min()):.3e}", flush=True)
+
+    z_all = shard["lat"]["latents"].transpose(0, 2, 3, 1)
+    with torch.no_grad():
+        dec = [G.decode(torch.from_numpy(np.ascontiguousarray(z_all[a:b])).to(dev))
+               for a, b in splits]
+    names = sorted(os.listdir(out["dec"]))
+    gate(names == [f"00_{i:08d}.png" for i in range(TOOLS_IMAGES)],
+         f"decode wrote {len(names)} files (latents_stats skipped?)")
+    pngs = np.stack([np.array(PIL.Image.open(os.path.join(out["dec"], n))) for n in names])
+    mine_u8 = np.concatenate([to_uint8(x.float().cpu().numpy()) for x in dec])
+    step = int(np.abs(pngs.astype(int) - mine_u8.astype(int)).max())
+    tail_step = int(np.abs(pngs[-8:].astype(int) - mine_u8[-8:].astype(int)).max())
+    gate(step <= 1, f"decode PNGs vs G.decode: {step} uint8 steps")
+    z_tail = torch.from_numpy(np.ascontiguousarray(z_all[-8:])).to(dev)
+    x_k = dec[-1]
+    G.use_plain_kernels(True)
+    x_p = G.decode(z_tail)
+    G.use_plain_kernels(False)
+    G32, _ = build_generator(config, snapshot, dev, "float32")
+    G32.use_plain_kernels(True)
+    x_32 = G32.decode(z_tail)
+    # The fp32 tower's moments of the tail's crops: (4)'s reference for the
+    # int8 tail.
+    with torch.no_grad():
+        m_32_tail = G32.encode(x_all[-8:], return_z_before_quantize=True)
+    del G32
+    torch.cuda.empty_cache()
+    dec_kp, dec_k32, dec_p32 = rel_l1(x_k, x_p), rel_l1(x_k, x_32), rel_l1(x_p, x_32)
+    gate(dec_kp <= DECODE_REL_L1 and dec_k32 <= TRUTH_FACTOR * dec_p32 + 1e-6,
+         f"tail decode: kernel vs plain {dec_kp:.3e}, vs fp32 {dec_k32:.3e} (plain {dec_p32:.3e})")
+    print(f"[tools] decode_latents PNGs vs G.decode at the same split: max {step} uint8 steps "
+          f"(B=8 tail {tail_step}; gate 1); B=8 tail kernel vs plain rel-L1 {dec_kp:.3e} (tol "
+          f"{DECODE_REL_L1:g}), vs fp32 kernel {dec_k32:.3e} plain {dec_p32:.3e} (kernel <= "
+          f"{TRUTH_FACTOR} x plain)", flush=True)
+
+    # ---- (4) the int8 prefetch replayed outside the tool, (5) its launches
+    with serving_env(True), torch.no_grad():
+        enable_int8_tower(G, x_all[: TOOLS_BATCH])
+        sites = kernel_sites(G, 256)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        z8, z8f = [], []
+        for a, b in splits:
+            x = x_all[a:b]
+            z8.append(G.ldm_adapter.encode(G.vfm_encoder.encode_image(x), gen).float().cpu().numpy())
+            z8f.append(G.encode(torch.flip(x, [2]), gen).float().cpu().numpy())
+        # The B=8 tail at the int8 serving phase's tolerance: every K6 and
+        # K4 site against its twin on that site's own inputs, and the kernel
+        # path no further from the fp32 tower than the all-plain int8 path.
+        x_tail = x_all[-8:]
+        with site_checks() as chk:
+            m8_k = G.encode(x_tail, return_z_before_quantize=True)
+        G.use_plain_kernels(True)
+        m8_p = G.encode(x_tail, return_z_before_quantize=True)
+        G.use_plain_kernels(False)
+        torch.cuda.synchronize()
+    n6 = sum(s["count"] for s in sites["int8_matmul"])
+    n4 = sum(s["count"] for s in sites["flash_attention_nonull"]
+             if s["at"] in ("tower", "adapter"))
+    bad = chk.failures()
+    gate(not bad and len(chk.k6) == n6 and len(chk.k4) == n4,
+         f"int8 B=8 tail sites vs twins: {len(chk.k6)} K6 of {n6}, {len(chk.k4)} K4 of {n4}, "
+         f"failures {bad}")
+    tail_k32, tail_p32 = rel_l1(m8_k, m_32_tail), rel_l1(m8_p, m_32_tail)
+    gate(tail_k32 <= TRUTH_FACTOR * tail_p32 + 1e-6,
+         f"int8 B=8 tail moments vs fp32: kernel {tail_k32:.3e}, plain {tail_p32:.3e}")
+    k4_bf = [r for r in chk.k4 if r[0] == torch.bfloat16]
+    k4_32 = [r for r in chk.k4 if r[0] != torch.bfloat16]
+    print(f"[tools] int8 B=8 tail, every site vs its twin on the same inputs: {len(chk.k6)} K6, "
+          f"max {max((r[2] for r in chk.k6), default=0):g} ulps (gate: bit for bit); "
+          f"{len(k4_bf)} K4 bf16 max_rel {max((r[2] for r in k4_bf), default=0):.3e} mean_rel "
+          f"{max((r[3] for r in k4_bf), default=0):.3e} (tol "
+          f"{TOLERANCES['flash_attention_nullkv']}); {len(k4_32)} K4 fp32 max_rel "
+          f"{max((r[2] for r in k4_32), default=0):.3e} (tol {FLASH_FP32_MAX_REL:g}); moments "
+          f"rel-L1 vs the fp32 tower: kernel {tail_k32:.3e}, plain int8 {tail_p32:.3e} (limit "
+          f"{TRUTH_FACTOR} x plain); kernel vs plain {rel_l1(m8_k, m8_p):.3e} (reported)",
+          flush=True)
+    z8, z8f = np.concatenate(z8), np.concatenate(z8f)
+    t8 = shard["lat8"]["latents"].transpose(0, 2, 3, 1)
+    t8f = shard["lat8"]["latents_flip"].transpose(0, 2, 3, 1)
+    d8 = max(float(np.abs(t8 - z8).max()), float(np.abs(t8f - z8f).max()))
+    d8_tail = max(float(np.abs(t8[-8:] - z8[-8:]).max()), float(np.abs(t8f[-8:] - z8f[-8:]).max()))
+    gate(d8 == 0.0, f"int8 prefetch vs the replay: max |diff| {d8:.3e} (tail {d8_tail:.3e})")
+    print(f"[tools] int8 prefetch vs a replay outside the tool (same calibration batch, same "
+          f"draws; B=32, 32 and the B=8 tail): max |diff| {d8:.3e}, tail {d8_tail:.3e} (gate: 0); "
+          f"int8 vs bf16 latents rel-L1 {np.abs(t8 - z_all).mean() / np.abs(z_all).mean():.3e}",
+          flush=True)
+    del G
+    torch.cuda.empty_cache()
+
+    k6 = n6
+    k4 = {at: sum(s["count"] for s in sites["flash_attention_nonull"] if s["at"] == at)
+          for at in ("tower", "adapter")}
+    tower_8 = calls_8.of("VFMEncoder.encode_image")
+    adapter_8 = calls_8.of("LDMAdapter.encode")
+    gate(k6 == 144 and k4["tower"] > 0 and k4["adapter"] > 0, f"int8 sites: K6 {k6}, K4 {k4}")
+    gate(len(tower_8) == 1 + 2 * len(splits) and len(adapter_8) == 2 * len(splits),
+         f"int8 prefetch: {len(tower_8)} tower and {len(adapter_8)} adapter calls")
+    gate(all(c == {"int8_matmul": k6, "flash_attention_nonull": k4["tower"]} for c in tower_8),
+         f"int8 prefetch tower calls: {tower_8}")
+    gate(all(c == {"flash_attention_nonull": k4["adapter"]} for c in adapter_8),
+         f"int8 prefetch adapter calls: {adapter_8}")
+    per_decode = {k: v for k, v in PER_DECODE.items()}
+    for label, calls in (("decode_latents", calls_dec), ("reconstruct", calls_rec)):
+        decs = calls.of("Generator.decode")
+        gate(len(decs) == len(splits) and all(c == per_decode for c in decs),
+             f"{label}: decode calls {decs}")
+    for label, calls in (("prefetch", calls_lat), ("prefetch_reg", calls_reg),
+                         ("reconstruct", calls_rec)):
+        enc = [c for n, c in calls.calls if n != "Generator.decode"]
+        gate(not any(enc), f"{label}: the bf16 encode launched {enc}")
+    print(f"[tools] launches: int8 prefetch per tower call {tower_8[2]} (calibration call "
+          f"{tower_8[0]}), per adapter encode {adapter_8[1]}, active batch (the second) "
+          f"{tower_8[3:5] + adapter_8[2:4]}; per decode {calls_dec.of('Generator.decode')[1]} "
+          f"(decode_latents), {calls_rec.of('Generator.decode')[1]} (reconstruct); totals "
+          f"{ {p: {k: v for k, v in c.items() if v} for p, c in launches.items()} }", flush=True)
+
+    # ---- (6) the metrics
+    results = {"evaluate": ev["results"], "fidelity": fi["results"], "evaluate_npz": en["results"]}
+    flat = {f"{t}.{k}": v for t, r in results.items() for k, v in r.items()}
+    gate(all(math.isfinite(v) for v in flat.values()), f"metrics not finite: {flat}")
+    gate(set(ev["results"]) == {"psnr", "ssim", "lpips"}, f"evaluate keys {sorted(ev['results'])}")
+    gate(set(fi["results"]) == {"rfid", "is_mean", "is_std"}, f"fidelity keys {sorted(fi['results'])}")
+    gate(abs(ev_same["results"]["psnr"] - 120.0) < 1e-3, f"PSNR of identical folders "
+                                                         f"{ev_same['results']['psnr']}")
+    gate(en["results"]["n_samples"] == en["results"]["n_ref"] == TOOLS_IMAGES,
+         f"evaluate_npz counted {en['results']['n_samples']}, {en['results']['n_ref']}")
+    card_model, detect = make_detector(None, dev, "chip_smoke")
+    cpu_model = InceptionV3Features()
+    probe = crops[:8]
+    with torch.no_grad():
+        got = detect(probe)
+        want = cpu_model(torch.from_numpy(probe).float() / 255.0)
+    inc = {n: rel_l1(g.cpu(), w) for n, g, w in zip(("pool", "logits", "sfid"), got, want)}
+    gate(all(v <= INCEPTION_CARD_REL for v in inc.values()), f"InceptionV3 card vs CPU {inc}")
+    stats = FeatureStats(capture_mean_cov=True)
+    for a, b in splits:
+        stats.append(detect(crops[a:b])[0].cpu().numpy())
+    sigma = stats.get_mean_cov()[1]
+    self_fid = en["results"]["fid"]
+    gate(abs(self_fid) <= FID_SELF_REL * np.trace(sigma),
+         f"FID(x, x) {self_fid:.3e} with tr(Sigma) {np.trace(sigma):.3e}")
+    gate(en["results"]["precision"] == en["results"]["recall"] == 1.0,
+         f"precision and recall of a set against itself: {en['results']}")
+    del card_model, detect
+    torch.cuda.empty_cache()
+    print(f"[tools] metrics (random-weight InceptionV3 and LPIPS: plumbing, not published "
+          f"figures): {', '.join(f'{k} {v:.6g}' for k, v in flat.items())}; PSNR of identical "
+          f"folders {ev_same['results']['psnr']:.4f} dB; InceptionV3 card vs CPU rel-L1 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in inc.items())
+          + f" (tol {INCEPTION_CARD_REL:g}); evaluate_npz's FID(x, x) {self_fid:.3e}, "
+          f"tr(Sigma) {np.trace(sigma):.4g} (tol {FID_SELF_REL:g} of it), precision and recall "
+          f"of the set against itself {en['results']['precision']:g}, "
+          f"{en['results']['recall']:g}; scipy {scipy.__version__}", flush=True)
+    if fails:
+        raise SystemExit("chip_smoke: tools: " + "; ".join(fails))
+    print(f"[tools] phase {time.perf_counter() - t_phase:.1f} s on {card} (the tools "
+          f"{t_tools:.1f} s, the gates the rest)", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -3370,7 +3791,12 @@ def main() -> int:
     state, launches["all_switches_train_step"] = all_switches_train(tr, state, card)
     del tr, state, real
     torch.cuda.empty_cache()
-    launches["recipe"] = recipe_phase(card)
+    tmp = tempfile.mkdtemp(prefix="vfm_recipe_")
+    try:
+        launches["recipe"], snapshot, stage3_yaml = recipe_phase(card, tmp)
+        launches.update(tools_phase(card, snapshot, stage3_yaml, os.path.join(tmp, "tools")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     entries = []
     for name, s in summary.items():

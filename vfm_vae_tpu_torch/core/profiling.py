@@ -36,14 +36,21 @@ class PhaseTimer:
             yield
             self._spans.setdefault(name, []).append(time.perf_counter() - t0)
 
-    def mean(self, name: str) -> float:
+    def times(self, name: str) -> List[float]:
         t = []
         for s in self._spans.get(name, []):
             if isinstance(s, tuple):
                 s[1].synchronize()
                 s = s[0].elapsed_time(s[1]) / 1e3
             t.append(s)
+        return t
+
+    def mean(self, name: str) -> float:
+        t = self.times(name)
         return sum(t) / max(len(t), 1)
+
+    def total(self, name: str) -> float:
+        return sum(self.times(name))
 
     def reset(self):
         self._spans.clear()

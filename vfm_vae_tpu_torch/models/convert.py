@@ -11,9 +11,11 @@ synthesis). Numpy only. Layout rules, inverted from that file:
   ours (in, out) 1x1 conv     -> torch (out, in, 1, 1)
   norms, biases, embeddings   -> unchanged
 
-`d_state_dict_from_jax` and `lpips_state_dict_from_jax` do the same for the
-JAX ProjectedDiscriminator (DINO, heads and the heads' spectral-norm u/v
-buffers) and LPIPS, into the port's own key layout.
+`d_state_dict_from_jax`, `lpips_state_dict_from_jax` and
+`inception_state_dict_from_jax` do the same for the JAX
+ProjectedDiscriminator (DINO, heads and the heads' spectral-norm u/v
+buffers), LPIPS and the InceptionV3 detector, into the port's own key
+layout (pytorch-fid's for InceptionV3).
 
 `load_state_dict_numpy` puts such a dict on a port module; arrays whose
 element count matches a parameter are reshaped to it, so reference
@@ -344,6 +346,28 @@ def lpips_state_dict_from_jax(params: Mapping[str, Any]) -> SD:
     while f"lin{k}_weight" in params:
         sd[f"lin{k}.weight"] = _t(params[f"lin{k}_weight"])[:, :, None, None]
         k += 1
+    return sd
+
+
+def inception_state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any]) -> SD:
+    """JAX InceptionV3Features (params, buffers) -> the port's state_dict
+    (numpy), which is pytorch-fid's layout: <path>.conv.weight (OIHW),
+    <path>.bn.{weight,bias,running_mean,running_var}, fc.weight, fc.bias."""
+    sd: SD = {}
+    for path, w in _leaves(params):
+        prefix = ".".join(path[:-1])
+        if path[-1] == "conv":
+            node = buffers
+            for k in path[:-1]:
+                node = node[k]
+            sd[prefix + ".conv.weight"] = _conv(w)
+            sd[prefix + ".bn.running_mean"] = _arr(node["bn_mean"])
+            sd[prefix + ".bn.running_var"] = _arr(node["bn_var"])
+        elif path[-1] in ("bn_weight", "bn_bias"):
+            sd[prefix + ".bn." + path[-1][3:]] = _arr(w)
+    if "fc_weight" in params:
+        sd["fc.weight"] = _t(params["fc_weight"])
+        sd["fc.bias"] = _arr(params["fc_bias"])
     return sd
 
 

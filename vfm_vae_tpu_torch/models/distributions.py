@@ -26,3 +26,10 @@ class DiagonalGaussianDistribution:
         """KL to the standard normal, summed per sample: (B,)."""
         var = torch.exp(self.logvar)
         return 0.5 * (self.mean.square() + var - 1.0 - self.logvar).sum(dim=(1, 2, 3))
+
+
+def mean_logvar_to_mean_std(moments: torch.Tensor) -> torch.Tensor:
+    """(mean || logvar) -> (mean || std) on the last axis, the REG prefetch's
+    storage format (distributions.py:59; the logvar clamp of the posterior)."""
+    mean, logvar = moments.chunk(2, dim=-1)
+    return torch.cat([mean, torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))], dim=-1)

@@ -9,10 +9,16 @@ strict first, then the loose merge by name and shape; Adam's state is kept
 by parameter name, so a train_mode change between stages carries the
 moments and step counts of the parameters that stay trainable.
 
+At each snapshot tick the configured `metrics` run (loop.py:575-636):
+`recon_suite` (PSNR, SSIM and, with the loss's LPIPS, LPIPS) over
+`in_loop_metric_batches` streamed batches reconstructed by G_ema, written
+to metric-<name>.jsonl (and wandb) with the number of images stamped in;
+any other name is warned about and skipped (the offline tools run them).
+
 The loop runs in one process on one device (`device`, the card unless the
 caller asks for the CPU). Not ported, and refused before anything is built:
-several processes (the JAX package's mesh), in-loop metrics, fused phases,
-gradient accumulation above 1 and the discriminator warm-ups.
+several processes (the JAX package's mesh), fused phases, gradient
+accumulation above 1 and the discriminator warm-ups.
 """
 
 from __future__ import annotations
@@ -268,6 +274,40 @@ def ema_weights(G: torch.nn.Module, ema: Dict[str, torch.Tensor]):
                 params[n].copy_(v)
 
 
+def in_loop_metrics(metrics, trainer: Trainer, state: TrainState, data_iter, batches: int,
+                    run_dir: str, snapshot_path: Optional[str], wandb_sink: WandbSink,
+                    step: int) -> None:
+    """The snapshot tick's metrics (loop.py:575-636): recon_suite over
+    `batches` streamed batches, each reconstructed by G_ema with the
+    posterior sampled from a generator seeded 0 (the JAX loop's
+    PRNGKey(0)), against the loss's LPIPS when it has one; the record
+    carries num_val_images. A small trend, not the offline evaluation."""
+    from ..metrics import metric_main
+
+    G = trainer.G
+    dev = next(G.parameters()).device
+    for name in metrics:
+        if not metric_main.is_valid_metric(name):
+            print0(f"[warn] unknown metric '{name}'; have {metric_main.list_metrics()}")
+            continue
+        if name != "recon_suite":
+            print0(f"[warn] metric '{name}' is offline-only (vfm_vae_tpu_torch.tools.evaluate, "
+                   "fidelity, evaluate_npz); skipped in-loop")
+            continue
+        pairs = []
+        with ema_weights(G, state.ema), torch.no_grad():
+            for _ in range(batches):
+                imgs, _ = next(data_iter)
+                real = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev).float() / 255.0
+                gen = G(real, generator=torch.Generator(device=dev).manual_seed(0)).gen_img
+                pairs.append((real, (gen.float() + 1) / 2))
+        res = metric_main.calc_metric(name, pairs=pairs, lpips_module=trainer.loss.lpips,
+                                      device=dev)
+        res["results"]["num_val_images"] = int(sum(p[0].shape[0] for p in pairs))
+        metric_main.report_metric(res, run_dir=run_dir, snapshot_pkl=snapshot_path)
+        wandb_sink.log_metrics(res["results"], step=step)
+
+
 @dataclass
 class LoopResult:
     """What training_loop returns: the trainer (its modules hold the trained
@@ -321,7 +361,6 @@ def training_loop(
     rank, num_processes = process_index(), process_count()
     unported = {
         "several processes": num_processes > 1,
-        "metrics": bool(metrics),
         "fused_phases": bool(fused_phases),
         "accumulate_gradients": accumulate_gradients != 1,
         "use_stylegan_t_disc_warmup": bool(loss_kwargs.get("use_stylegan_t_disc_warmup")),
@@ -475,6 +514,12 @@ def training_loop(
                 print0(f"Snapshot {path} exists: not written again" if exists else
                        f"Saved snapshot {path} ({snapshot['bytes']} bytes, "
                        f"{snapshot['seconds']:.2f} s)")
+
+            if metrics and network_snapshot_ticks and rank == 0 and (
+                    cur_tick % network_snapshot_ticks == 0 or done):
+                in_loop_metrics(metrics, trainer, state, data_iter, in_loop_metric_batches,
+                                run_dir, snapshot and snapshot["path"], wandb_sink,
+                                step=int(cur_nimg / 1e3))
 
             if image_snapshot_ticks and (cur_tick % image_snapshot_ticks == 0 or done) \
                     and rank == 0:
