@@ -132,6 +132,23 @@
    against itself (evaluate_npz), finite figures, the PSNR clamp;
    each tool's img/s with its setup, model (CUDA events) and host split
    (tools_phase).
+10. Diffusion phase: on the tools phase's 72 latents and the recipe's last
+   snapshot, the latent-diffusion CLIs through main(argv) at full XL width
+   and depth, cut in scale only (B=32, 4 steps, a snapshot at step 3, 16
+   and 8 samples at 50 steps): lightningdit_train on the stage-0 YAML and
+   reg_train on the REG YAML with repa_weight 0.5 (on moments that
+   prefetch_reg --store-vfm-features writes here), each gated on finite
+   losses, a nonzero gradient and a move for every parameter, a moving
+   EMA, its snapshot equal to the trainer bit for bit and no kernel
+   launch, with a copy at XL width and depth 2 held against float64 on
+   the CPU (the loss and every gradient norm); lightningdit_sample (ODE,
+   cfg 1.5) and reg_sample (SDE, cfg 4.0, the REPA snapshot's dit part)
+   through the tokenizer: PNGs, the sampled z against an in-process
+   replay bit for bit, K1-K3 at 38/10/6 a decode, the decode against the
+   plain twins and fp32; alignment_extract in the vae, dit and reg modes
+   and alignment_metrics (finite, a set against itself 1). Step ms,
+   tokens/s, peak memory, img/s with the DiT and decode shares
+   (diffusion_phase).
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -3214,9 +3231,20 @@ def recipe_phase(card: str, tmp: str) -> tuple:
                     gen = torch.Generator(device="cuda").manual_seed(100 + i)
                     real = torch.rand((RECIPE_BATCH, res_px, res_px, 3), generator=gen,
                                       device="cuda")
-                    determinism_phase(tr, state, real, build_fp32=lambda: build_trainer(
-                        **kw, device="cuda", compute_dtype="float32", batch_size=RECIPE_BATCH,
-                        allow_random_lpips=True), label=f"recipe-determinism-stage{i}")
+                    try:
+                        determinism_phase(tr, state, real, build_fp32=lambda: build_trainer(
+                            **kw, device="cuda", compute_dtype="float32",
+                            batch_size=RECIPE_BATCH, allow_random_lpips=True),
+                            label=f"recipe-determinism-stage{i}")
+                    except SystemExit:
+                        # The weights this stage entered with, kept for
+                        # `python determinism_probe.py --entry <path>` (the
+                        # run's own temporary directory is removed).
+                        kept = tempfile.mkdtemp(prefix=f"vfm_stage{i}_entry_")
+                        shutil.copytree(prev["snapshot"], kept, dirs_exist_ok=True)
+                        print(f"[recipe] stage {i} entered from {prev['snapshot']}; kept as "
+                              f"{kept}", file=sys.stderr, flush=True)
+                        raise
                 if i == 3:  # (5) the final G_ema
                     real = torch.rand((RECIPE_BATCH, res_px, res_px, 3),
                                       generator=torch.Generator(device="cuda").manual_seed(5),
@@ -3666,6 +3694,451 @@ def tools_phase(card: str, snapshot: str, config: str, root: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ slice 15
+
+DIT_YAMLS = {"lightningdit": "tools/preprocess_for_lightningdit/train_lightningdit_xl_1_stage_0.yaml",
+             "reg": "tools/preprocess_for_reg/train_reg_sit_xl_1.yaml"}
+DIT_BATCH = 32  # global_batch_size (the YAMLs: 1024 and 256)
+DIT_STEPS = 4  # the YAMLs: 600 k and 400 k
+DIT_CKPT = 3
+DIT_SAMPLES, DIT_SAMPLE_BATCH, DIT_SAMPLE_STEPS = 16, 8, 50
+REG_SAMPLES = 8
+# One flow-matching step of a copy at XL width and depth 2 on the card (fp32,
+# TF32 off) against float64 on the CPU, the same weights, batch and draws:
+# the loss and every parameter's gradient norm, relative. fp32's rounding
+# of sums over 4 x 256 tokens of width 1152 to 4608 is about 1e-6 of them.
+DIT_FP64_LOSS_REL = 1e-5
+DIT_FP64_GRAD_REL = 1e-4
+# CKNNA(x, x) = HSIC / (HSIC + 1e-6) (the metric's own 1e-6 in its
+# denominator): within CKNNA_FORM_TOL of that for every set, and within
+# CKNNA_SELF_TOL of 1 for the DiT block's features (masked HSIC far above 1).
+CKNNA_SELF_TOL = 1e-5
+CKNNA_FORM_TOL = 1e-6
+
+
+def cknna_self_form(path: str, topk: int = 10) -> tuple:
+    """(masked unbiased HSIC of a feature file against itself, HSIC / (HSIC + 1e-6))."""
+    import numpy as np
+    import torch
+
+    from vfm_vae_tpu_torch.metrics import cknna
+
+    f = torch.from_numpy(np.load(path)["features"].astype(np.float32))
+    K = f @ f.T
+    m = cknna._topk_mask(K, topk, True)
+    h = cknna.hsic_unbiased(m * K, m * K)
+    return float(h), float(h / (torch.sqrt(h * h) + 1e-6))
+
+
+class dit_steps:
+    """Wraps DiTTrainer.step while a trainer CLI runs: each step timed
+    between two synchronizes, every parameter's gradient norm recorded, the
+    kernel launches counted, and the parameters and the EMA before the first
+    step kept on the host."""
+
+    def __enter__(self):
+        import torch
+
+        from vfm_vae_tpu_torch.ops import kernels
+        from vfm_vae_tpu_torch.tools._dit import DiTTrainer
+
+        self.orig = DiTTrainer.step
+        self.ms, self.grads, self.before, self.ema0, self.launches = [], [], None, None, {}
+        probe, orig = self, self.orig
+
+        def step(tr, *args, **kwargs):
+            if probe.before is None:
+                probe.before = host_copy(dict(tr.net.named_parameters()))
+                probe.ema0 = host_copy(tr.ema)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            c0 = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(tr, *args, **kwargs)
+            torch.cuda.synchronize()
+            probe.ms.append((time.perf_counter() - t0) * 1e3)
+            c1 = kernels.launch_counts()
+            for k in c1:
+                probe.launches[k] = probe.launches.get(k, 0) + c1[k] - c0[k]
+            # The step leaves each gradient in place until the next zero_grad.
+            probe.grads.append({n: float(p.grad.norm()) if p.grad is not None else 0.0
+                                for n, p in tr.net.named_parameters()})
+            return out
+
+        DiTTrainer.step = step
+        return self
+
+    def __exit__(self, *exc):
+        from vfm_vae_tpu_torch.tools._dit import DiTTrainer
+
+        DiTTrainer.step = self.orig
+
+
+def dit_train_gates(name: str, res: dict, probe: dit_steps, card: str, tokens: int) -> list:
+    """The trainer's gates: finite losses, every parameter with a nonzero
+    gradient in some step and moved by the end, the EMA moved, the last
+    snapshot equal to the trainer's state bit for bit, no kernel launched."""
+    import torch
+
+    from vfm_vae_tpu_torch.train.checkpoint import load_snapshot
+
+    fails = []
+    tr = res["trainer"]
+    losses = res["losses"]
+    if len(losses) != DIT_STEPS or not all(math.isfinite(v) for v in losses):
+        fails.append(f"losses {losses}")
+    params = host_copy(dict(tr.net.named_parameters()))
+    no_grad = [n for n in params if not any(g.get(n, 0.0) > 0.0 for g in probe.grads)]
+    still = [n for n in params if torch.equal(params[n], probe.before[n])]
+    # The EMA of a norm weight (it starts at 1.0) rounds back to 1.0 in fp32
+    # until the weight has moved by about 6e-4 (0.9999 e + 0.0001 p): more
+    # than a few AdamW steps at lr 1e-4 move it. Every other EMA must move.
+    ema_still = [n for n in params if torch.equal(tr.ema[n].cpu(), probe.ema0[n])]
+    ones = [n for n in ema_still if n.endswith("norm.weight")
+            and bool((probe.ema0[n] == 1.0).all())]
+    if no_grad or still or len(ema_still) > len(ones):
+        fails.append(f"no gradient in any step {no_grad[:4]} ({len(no_grad)}), not moved "
+                     f"{still[:4]} ({len(still)}), EMA not moved {ema_still[:4]} ({len(ema_still)})")
+    first_zero = sum(probe.grads[0][n] == 0.0 for n in params)
+    snaps = res["snapshots"]
+    want = tr.snapshot_state()
+
+    def flat(t, p=""):
+        if not isinstance(t, dict):
+            return {p[:-1]: t}
+        return {k: v for kk, vv in t.items() for k, v in flat(vv, f"{p}{kk}.").items()}
+
+    if len(snaps) != 1:
+        fails.append(f"snapshots {snaps}")
+    else:
+        got, ref = flat(load_snapshot(snaps[0])), flat(want)
+        off = [k for k in ref if k not in got or not torch.equal(got[k], ref[k].cpu())]
+        if off or set(got) != set(ref):
+            fails.append(f"snapshot differs from the trainer: {off[:4]}")
+    launched = {k: v for k, v in probe.launches.items() if v}
+    if launched:
+        fails.append(f"the DiT launched {launched}")
+    step_ms = statistics.median(probe.ms[1:])
+    n_params = sum(p.numel() for p in tr.net.parameters())
+    print(f"[diffusion] {name} train on {card}: {n_params / 1e6:.1f} M parameters, B={DIT_BATCH}, "
+          f"{DIT_STEPS} steps, losses {', '.join(f'{v:.5f}' for v in losses)}; step "
+          f"{step_ms:.1f} ms (median of steps 1-{DIT_STEPS - 1}; "
+          f"{', '.join(f'{v:.1f}' for v in probe.ms)}), {tokens * DIT_BATCH / step_ms * 1e3:.0f} "
+          f"tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated); {len(params)} tensors, all with a nonzero gradient in some "
+          f"step ({first_zero} zero at step 0: adaLN-zero) and moved; the EMA moved in "
+          f"{len(params) - len(ema_still)} (not: {len(ones)} norm weights at 1.0, "
+          f"{sorted(set(ema_still) - set(ones))}); snapshot "
+          f"{os.path.basename(snaps[0]) if snaps else None} equal to the trainer bit for bit; "
+          f"kernel launches {launched or 'none'}", flush=True)
+    return fails
+
+
+def dit_fp64_check(name: str, cfg: dict, z, y, feats, card: str) -> list:
+    """One flow-matching step (loss, gradients) of a copy of the YAML's model
+    at XL width and depth 2, zero-initialised Linears drawn at 0.02, on the
+    card in fp32 and on the CPU in float64, from the same weights, batch and
+    draws."""
+    import copy
+
+    import torch
+
+    from vfm_vae_tpu_torch.tools._dit import DiTTrainer, build_dit, build_reg
+
+    cfg = copy.deepcopy(cfg)
+    if name == "reg":
+        cfg["model"]["depth"] = 2
+        cfg["model"]["repa_block"] = 1
+        model, proj, _, _, w = build_reg(cfg, device="cpu")
+        lognorm = False
+    else:
+        model, *_ = build_dit(cfg, "cpu", depth=2)
+        proj, w = None, 0.0
+        lognorm = cfg.get("transport", {}).get("use_lognorm", True)
+    gen = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if "adaLN" in n or "final_linear" in n:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    B = z.shape[0]
+    draws = (torch.randn((B,), generator=gen) if lognorm else torch.rand((B,), generator=gen),
+             torch.randn(z.shape, generator=gen), torch.rand((B,), generator=gen) < 0.1)
+    out = {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        m = copy.deepcopy(model).to(dev, dt)
+        pr = copy.deepcopy(proj).to(dev, dt) if proj is not None else None
+        tr = DiTTrainer(m, pr, 1e-4, (0.9, 0.999), 0.0, lognorm, True, w, None)
+        loss = tr.loss(z.to(dev, dt), y.to(dev), feats.to(dev, dt) if feats is not None else None,
+                       tuple(d.to(dev) if d.dtype == torch.bool else d.to(dev, dt) for d in draws))
+        loss.backward()
+        out[dt] = (float(loss.detach()), {n: float(p.grad.double().norm())
+                                 for n, p in tr.net.named_parameters()})
+    (l32, g32), (l64, g64) = out[torch.float32], out[torch.float64]
+    loss_rel = abs(l32 - l64) / abs(l64)
+    rel = {n: abs(g32[n] - g64[n]) / g64[n] for n in g64 if g64[n] > 0}
+    worst = max(rel, key=rel.get)
+    zero = [n for n in g64 if g64[n] == 0]
+    print(f"[diffusion] {name} step at XL width, depth 2, B={B}: card fp32 vs CPU float64 loss "
+          f"{l32:.7f} vs {l64:.7f} (rel {loss_rel:.2e}, tol {DIT_FP64_LOSS_REL:g}); gradient norms "
+          f"of {len(rel)} tensors max rel {rel[worst]:.2e} ({worst}), median "
+          f"{statistics.median(rel.values()):.2e} (tol {DIT_FP64_GRAD_REL:g}); zero in float64 "
+          f"{zero}; on {card}", flush=True)
+    fails = []
+    if not loss_rel <= DIT_FP64_LOSS_REL or not rel[worst] <= DIT_FP64_GRAD_REL or zero:
+        fails.append(f"{name} fp32 vs float64: loss rel {loss_rel:.2e}, gradient norm rel "
+                     f"{rel[worst]:.2e} at {worst}, zero {zero}")
+    return fails
+
+
+def first_batch(data_dir: str, moments: bool):
+    """The trainer's first batch of 4 from its stream (seed 0), on the host."""
+    import numpy as np
+    import torch
+
+    from vfm_vae_tpu_torch.tools import lightningdit_train, reg_train
+
+    if moments:
+        x, y, f = next(reg_train.moment_batches(data_dir, 4, np.random.default_rng(0)))
+        m = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        mean, std = m.chunk(2, -1)
+        z = mean + std * torch.randn(mean.shape, generator=torch.Generator().manual_seed(1))
+        return z, torch.from_numpy(y), torch.from_numpy(f)
+    x, y = next(lightningdit_train.latent_batches(data_dir, 4, np.random.default_rng(0)))
+    st = np.load(os.path.join(data_dir, "latents_stats.npz"))
+    x = (x - st["mean"].transpose(0, 2, 3, 1)) / st["std"].transpose(0, 2, 3, 1)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)), torch.from_numpy(y), None
+
+
+def run_sampler(tool, argv, card, label):
+    """tool.main(argv) on the card with the launches of each Generator.decode."""
+    from vfm_vae_tpu_torch.ops import kernels
+
+    c0 = kernels.launch_counts()
+    with call_launches() as calls:
+        out = tool.main(argv)
+    c1 = kernels.launch_counts()
+    total = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    run = out["seconds"] - out["setup_s"]
+    print(f"[diffusion] {label} on {card}: {out['images']} images in {out['seconds']:.2f} s end to "
+          f"end; setup (build, weights) {out['setup_s']:.2f} s, then {out['images_per_s']:.3f} "
+          f"img/s: DiT {out['dit_s']:.3f} s ({out['dit_s'] / run:.1%}), decode "
+          f"{out['decode_s']:.3f} s ({out['decode_s'] / run:.1%}) by CUDA events, PNG work "
+          f"{out['host_s']:.3f} s (host clock)", flush=True)
+    return out, calls, total
+
+
+def diffusion_phase(card: str, snapshot: str, config: str, tools_root: str, root: str) -> dict:
+    """The latent-diffusion stack through its CLIs on the card, at full XL
+    width and depth, on the tools phase's latent shards (72 samples with
+    vfm_features and latents_stats.npz) and the recipe's last snapshot
+    (`config`: stage 3's YAML as the recipe ran it). Cuts, in scale only:
+    global_batch_size DIT_BATCH, DIT_STEPS steps, a snapshot every DIT_CKPT,
+    DIT_SAMPLES and REG_SAMPLES images at DIT_SAMPLE_STEPS steps.
+
+    (1) lightningdit_train on the stage-0 YAML: dit_train_gates and
+    dit_fp64_check. (2) lightningdit_sample (ODE Euler, --cfg 1.5, --batch
+    8) of its snapshot through the tokenizer: 16 PNGs of 256 x 256, the
+    sampled z equal to an in-process replay bit for bit, K1/K2/K3 at
+    38/10/6 a decode and nothing else, the last batch's decode against the
+    plain twins (DECODE_REL_L1) and fp32 (TRUTH_FACTOR). (3) prefetch_reg
+    --store-vfm-features into this phase's directory, reg_train on the REG
+    YAML with repa_weight 0.5 (the same gates), reg_sample (SDE, --cfg 4.0)
+    of the REPA snapshot. (4) alignment_extract vae (the 72 stored images,
+    named as the latents), dit and reg (projector_0), alignment_metrics of
+    the vae features against a DiT block: finite, and a set against itself
+    1 within CKNNA_SELF_TOL. Returns the launches by path."""
+    import copy
+    import glob
+
+    import numpy as np
+    import PIL.Image
+    import torch
+    import yaml
+
+    from vfm_vae_tpu_torch.tools import (
+        alignment_extract, alignment_metrics, lightningdit_sample, lightningdit_train,
+        prefetch_reg, reg_sample, reg_train)
+    from vfm_vae_tpu_torch.tools._dit import build_dit, sample_latents, snapshot_params
+    from vfm_vae_tpu_torch.tools._generator import build_generator
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    lat = os.path.join(tools_root, "lat")
+    fails, launches = [], {}
+    cfgs = {}
+    for name, rel in DIT_YAMLS.items():
+        with open(os.path.join(HERE, rel)) as f:
+            cfgs[name] = yaml.safe_load(f)
+    dcfg = cfgs["lightningdit"]
+    dcfg["data"]["data_path"] = lat
+    rcfg = cfgs["reg"]
+    rcfg["data"]["data_path"] = os.path.join(root, "reg")
+    rcfg["model"]["repa_weight"] = 0.5
+    for name, c in cfgs.items():
+        c["train"].update(global_batch_size=DIT_BATCH, ckpt_every=DIT_CKPT, log_every=1,
+                          output_dir=os.path.join(root, "runs"))
+    paths = {}
+    for name, c in cfgs.items():
+        paths[name] = os.path.join(root, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(c, f)
+    print(f"[diffusion] overrides of {DIT_YAMLS['lightningdit']}: data_path {lat} (the tools "
+          f"phase's 72 latents), global_batch_size {DIT_BATCH}, ckpt_every {DIT_CKPT}, log_every 1, "
+          f"output_dir {root}/runs, --max-steps {DIT_STEPS}; of {DIT_YAMLS['reg']}: the same, "
+          f"data_path {rcfg['data']['data_path']} (prefetch_reg --store-vfm-features here), "
+          f"repa_weight 0.5 (the YAML's documented option)", flush=True)
+
+    # ---- (1) LightningDiT-XL/1
+    with dit_steps() as probe:
+        res = lightningdit_train.main(["--config", paths["lightningdit"], "--max-steps",
+                                       str(DIT_STEPS)])
+    fails += dit_train_gates("lightningdit", res, probe, card, 256)
+    dit_snap = res["snapshots"][-1] if res["snapshots"] else None
+    del res, probe
+    torch.cuda.empty_cache()
+    z4, y4, _ = first_batch(lat, False)
+    fails += dit_fp64_check("lightningdit", dcfg, z4, y4, None, card)
+    if fails:
+        raise SystemExit("chip_smoke: diffusion: " + "; ".join(fails))
+
+    # ---- (2) the ODE sampler through the tokenizer
+    out_png = os.path.join(root, "samples")
+    argv = ["--config", paths["lightningdit"], "--dit-snapshot", dit_snap, "--vae-config", config,
+            "--vae-snapshot", snapshot, "--out", out_png, "--num", str(DIT_SAMPLES), "--batch",
+            str(DIT_SAMPLE_BATCH), "--steps", str(DIT_SAMPLE_STEPS), "--cfg", "1.5"]
+    samp, calls, total = run_sampler(lightningdit_sample, argv, card, "lightningdit_sample ODE "
+                                     f"{DIT_SAMPLE_STEPS} steps, cfg 1.5")
+    launches["lightningdit_sample"] = total
+    names = sorted(os.listdir(out_png))
+    shapes = {np.array(PIL.Image.open(os.path.join(out_png, n))).shape for n in names}
+    if names != [f"{i:06d}.png" for i in range(DIT_SAMPLES)] or shapes != {(256, 256, 3)}:
+        fails.append(f"sampler wrote {names[:3]}... ({len(names)}) of shapes {shapes}")
+    decs = calls.of("Generator.decode")
+    n_dec = DIT_SAMPLES // DIT_SAMPLE_BATCH
+    summed = {k: sum(c.get(k, 0) for c in decs) for k in total}
+    if len(decs) != n_dec or any(c != PER_DECODE for c in decs) or summed != total:
+        fails.append(f"sampler launches: decodes {decs}, total {total}")
+    model, size, ch, ncls = build_dit(dcfg, "cuda")
+    model.load_state_dict(snapshot_params(dit_snap)[0])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    replay = []
+    for _ in range(n_dec):
+        yb = torch.randint(0, ncls, (DIT_SAMPLE_BATCH,), generator=gen, device="cuda")
+        replay.append(sample_latents(lambda *a: model(*a), gen, yb,
+                                     (DIT_SAMPLE_BATCH, size, size, ch), "ode",
+                                     DIT_SAMPLE_STEPS, 1.5).cpu())
+    same = torch.equal(torch.cat(replay), samp["latents"])
+    if not same:
+        fails.append("sampled z differs from the in-process replay")
+    del model
+    st = np.load(os.path.join(lat, "latents_stats.npz"))
+    z_tail = (samp["latents"][-DIT_SAMPLE_BATCH:] * torch.from_numpy(st["std"].transpose(0, 2, 3, 1))
+              + torch.from_numpy(st["mean"].transpose(0, 2, 3, 1))).cuda()
+    G, _ = build_generator(config, snapshot, torch.device("cuda"))
+    with torch.no_grad():
+        x_k = G.decode(z_tail)
+        G.use_plain_kernels(True)
+        x_p = G.decode(z_tail)
+    del G
+    G32, _ = build_generator(config, snapshot, torch.device("cuda"), "float32")
+    G32.use_plain_kernels(True)
+    with torch.no_grad():
+        x_32 = G32.decode(z_tail)
+    del G32
+    torch.cuda.empty_cache()
+    dec_kp, dec_k32, dec_p32 = rel_l1(x_k, x_p), rel_l1(x_k, x_32), rel_l1(x_p, x_32)
+    if not (dec_kp <= DECODE_REL_L1 and dec_k32 <= TRUTH_FACTOR * dec_p32 + 1e-6):
+        fails.append(f"sample decode: kernel vs plain {dec_kp:.3e}, vs fp32 {dec_k32:.3e} "
+                     f"(plain {dec_p32:.3e})")
+    print(f"[diffusion] lightningdit_sample on {card}: {len(names)} PNGs {sorted(shapes)}; z equal "
+          f"to an in-process replay (same generator) bit for bit {same}; per decode {decs[0]} "
+          f"(gate {PER_DECODE}), the DiT launched {({k: total[k] - summed[k] for k in total})}; "
+          f"last batch's decode kernel vs plain rel-L1 {dec_kp:.3e} (tol {DECODE_REL_L1:g}), vs "
+          f"fp32 kernel {dec_k32:.3e} plain {dec_p32:.3e} (kernel <= {TRUTH_FACTOR} x plain); "
+          f"|z| mean {float(samp['latents'].abs().mean()):.4f}", flush=True)
+    if fails:
+        raise SystemExit("chip_smoke: diffusion: " + "; ".join(fails))
+
+    # ---- (3) REG: moments with features, REPA training, the SDE sampler
+    pre = prefetch_reg.main(["--config", config, "--snapshot", snapshot, "--data",
+                             os.path.join(tools_root, "shards"), "--out",
+                             rcfg["data"]["data_path"], "--batch", str(TOOLS_BATCH),
+                             "--store-vfm-features"])
+    print(f"[diffusion] prefetch_reg --store-vfm-features on {card}: {pre['samples']} samples, "
+          f"{pre['images_per_s']:.2f} img/s after setup", flush=True)
+    with dit_steps() as probe:
+        res = reg_train.main(["--config", paths["reg"], "--max-steps", str(DIT_STEPS)])
+    fails += dit_train_gates("reg (REPA 0.5)", res, probe, card, 256)
+    if res["trainer"].projector is None:
+        fails.append("reg_train built no projector at repa_weight 0.5")
+    reg_snap = res["snapshots"][-1] if res["snapshots"] else None
+    del res, probe
+    torch.cuda.empty_cache()
+    zr, yr, fr = first_batch(rcfg["data"]["data_path"], True)
+    fails += dit_fp64_check("reg", rcfg, zr, yr, fr, card)
+    reg_png = os.path.join(root, "reg_samples")
+    rs, rcalls, rtotal = run_sampler(reg_sample, [
+        "--config", paths["reg"], "--dit-snapshot", reg_snap, "--vae-config", config,
+        "--vae-snapshot", snapshot, "--out", reg_png, "--num", str(REG_SAMPLES), "--batch",
+        str(REG_SAMPLES), "--steps", str(DIT_SAMPLE_STEPS), "--cfg", "4.0"], card,
+        f"reg_sample SDE {DIT_SAMPLE_STEPS} steps, cfg 4.0, on the REPA snapshot's dit part")
+    launches["reg_sample"] = rtotal
+    rdecs = rcalls.of("Generator.decode")
+    if (len(os.listdir(reg_png)) != REG_SAMPLES or len(rdecs) != 1 or rdecs[0] != PER_DECODE
+            or not bool(torch.isfinite(rs["latents"]).all())):
+        fails.append(f"reg_sample: {len(os.listdir(reg_png))} PNGs, decodes {rdecs}")
+    if fails:
+        raise SystemExit("chip_smoke: diffusion: " + "; ".join(fails))
+
+    # ---- (4) alignment
+    with open(os.path.join(lat, "images", "dataset_rank0.json")) as f:
+        records = json.load(f)["labels"]
+    imgs = os.path.join(root, "images")
+    os.makedirs(imgs)
+    for i, (rel, _) in enumerate(records):  # the latents' order
+        os.symlink(os.path.join(lat, "images", rel), os.path.join(imgs, f"image_{i:06d}.png"))
+    t_al = time.perf_counter()
+    vae = alignment_extract.main(["vae", "--config", config, "--snapshot", snapshot, "--images",
+                                  imgs, "--out", os.path.join(root, "feats_vae.npz")])
+    dit = alignment_extract.main(["dit", "--config", paths["lightningdit"], "--snapshot",
+                                  dit_snap, "--latents", lat, "--out",
+                                  os.path.join(root, "feats_dit"), "--num", str(TOOLS_IMAGES)])
+    reg = alignment_extract.main(["reg", "--config", paths["reg"], "--snapshot", reg_snap,
+                                  "--latents", rcfg["data"]["data_path"], "--out",
+                                  os.path.join(root, "feats_reg"), "--num", str(TOOLS_IMAGES)])
+    block = "block_13"
+    want_dit = {"embedder", "final_layer"} | {f"block_{i}" for i in range(28)}
+    if set(dit) != want_dit or set(reg) != want_dit | {"projector_0"}:
+        fails.append(f"feature taps: dit {sorted(dit)[:4]}..., reg {sorted(reg)[:4]}...")
+    shapes = {k: np.load(p)["features"].shape for k, p in (("vae", vae["features"]),
+                                                           ("dit", dit[block]),
+                                                           ("projector_0", reg["projector_0"]))}
+    finite = all(np.isfinite(np.load(p)["features"]).all()
+                 for p in [vae["features"], *dit.values(), *reg.values()])
+    cross = alignment_metrics.main(["--a", vae["features"], "--b", dit[block]])
+    sets = {"vae": vae["features"], f"dit {block}": dit[block], "projector_0": reg["projector_0"]}
+    selfs = {k: alignment_metrics.main(["--a", p, "--b", p]) for k, p in sets.items()}
+    forms = {k: cknna_self_form(p) for k, p in sets.items()}
+    if (not finite or not math.isfinite(cross)
+            or any(abs(selfs[k] - forms[k][1]) > CKNNA_FORM_TOL for k in sets)
+            or abs(selfs[f"dit {block}"] - 1.0) > CKNNA_SELF_TOL
+            or shapes != {"vae": (TOOLS_IMAGES, 32), "dit": (TOOLS_IMAGES, 1152),
+                          "projector_0": (TOOLS_IMAGES, 1024)}):
+        fails.append(f"alignment: finite {finite}, CKNNA vae vs {block} {cross}, self {selfs}, "
+                     f"shapes {shapes}")
+    print(f"[diffusion] alignment on {card}: features {shapes}, all finite {finite}; CKNNA "
+          f"(topk 10) vae vs dit {block} {cross:.6f}; against itself "
+          + ", ".join(f"{k} {v:.8f} (HSIC {forms[k][0]:.4g}, HSIC / (HSIC + 1e-6) "
+                      f"{forms[k][1]:.8f})" for k, v in selfs.items())
+          + f" (tol {CKNNA_FORM_TOL:g} of the form, and {CKNNA_SELF_TOL:g} of 1 for the DiT "
+          f"block); {time.perf_counter() - t_al:.1f} s", flush=True)
+    if fails:
+        raise SystemExit("chip_smoke: diffusion: " + "; ".join(fails))
+    print(f"[diffusion] phase {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--determinism-trials", type=int, default=1,
@@ -3795,6 +4268,8 @@ def main() -> int:
     try:
         launches["recipe"], snapshot, stage3_yaml = recipe_phase(card, tmp)
         launches.update(tools_phase(card, snapshot, stage3_yaml, os.path.join(tmp, "tools")))
+        launches.update(diffusion_phase(card, snapshot, stage3_yaml, os.path.join(tmp, "tools"),
+                                        os.path.join(tmp, "diffusion")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,0 +1,347 @@
+"""What moves the recipe's stage-2 determinism gate (chip_smoke.py's
+determinism_phase on stage 2's configuration). Run on a machine with the
+CUDA toolkit and a card, from the repository's root:
+
+    python determinism_probe.py [--chains 3] [--trials 8] [--entry SNAPSHOT]
+
+Each chain runs the recipe's stages 0, 1 and 2 through the port's CLI as
+chip_smoke.py's recipe phase does (flagship width and depth, B=4, three
+[D, G] steps a stage, synthetic 256 px shards; the loader's workers order
+the batches by timing, so every chain trains other weights), or, with
+--entry, resumes stage 2 from a kept stage-2 entry snapshot. On stage 2's
+trainer it then evaluates the gate's quantities (loss terms and
+per-module gradient norms of one [D, G] step with no random draws) on
+--trials batches: in fp32, with every kernel's plain twin, with every
+kernel, with one kernel at a time and with two at a time switched to
+their twins, forward and backward (K1 the fused ConvNeXt MLP, K2 the fused
+upsample, K3 the null-KV attention with its dK/dV and dQ kernels), with
+every kernel and K1's backward storing its recomputed hidden in fp32
+(VFM_VAE_MLP_BWD_BF16=0), and with every kernel and the SSIM term's weight
+at 0 (in all paths). For each path it prints the gate's paired median (the
+median over quantities of the path's relative error vs fp32 over the plain
+path's; the gate holds the all-kernel path to chip_smoke.TRUTH_FACTOR) and
+the synthesis blocks' relative errors.
+
+On each chain's first batch, and on every batch whose all-kernel path
+fails the gate, it then (1) evaluates the kernel, plain and fp32 paths
+twice more on the same weights and batch, and (2) runs the kernel path
+once more with every K1, K2 and K3 call checked against its twins on that
+call's own inputs: the forward against the bf16 twin under
+chip_smoke.TOLERANCES, and the gradients of the inputs for a fixed
+cotangent against the fp32 twin's, each no further from them than the
+bf16 twin's times TRUTH_FACTOR (chip_smoke's function_grad_phase rule).
+Prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import math
+import os
+import shutil
+import statistics
+import sys
+import tempfile
+import time
+
+import chip_smoke as cs
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+KINDS = ("K1", "K2", "K3")
+SINGLE = {f"kernels, {k} twin": (k,) for k in KINDS}
+PAIRS = {"kernels, K1+K2 twins": ("K1", "K2"), "kernels, K1+K3 twins": ("K1", "K3"),
+         "kernels, K2+K3 twins": ("K2", "K3")}
+
+
+def kernel_modules(G) -> dict:
+    """{K1, K2, K3: the G modules whose `plain` selects that kernel's twin}."""
+    from vfm_vae_tpu_torch.models.convnext import (
+        ConvNeXtSynthesisLayer, SeparableUpsampleWithFixedBlur)
+    from vfm_vae_tpu_torch.models.gigagan import SelfAttention
+
+    kinds = {"K1": ConvNeXtSynthesisLayer, "K2": SeparableUpsampleWithFixedBlur,
+             "K3": SelfAttention}
+    return {k: [m for m in G.modules() if isinstance(m, cls)] for k, cls in kinds.items()}
+
+
+class site_twins:
+    """For the length of a `with`: every kernel call of K1, K2 and K3 made
+    by the models is run again on detached copies of its inputs as the
+    kernel, as the bf16 twin and as the fp32 twin, each with the gradients
+    of its inputs for one seeded cotangent; each call's errors are kept in
+    `sites` as (kind, shape, forward max_rel, forward mean_rel, worst
+    gradient kernel/twin ratio, ok)."""
+
+    NAMES = {"K1": "fused_convnext_mlp", "K2": "fused_upsample_blur",
+             "K3": "flash_attention_nullkv"}
+
+    def __init__(self):
+        self.sites = []
+
+    def __enter__(self):
+        from vfm_vae_tpu_torch.models import convnext, gigagan
+
+        self.saved = (convnext.fused_convnext_mlp, convnext.fused_upsample_blur,
+                      gigagan.dot_product_attention_nullkv)
+        convnext.fused_convnext_mlp = self.wrap("K1", self.saved[0])
+        convnext.fused_upsample_blur = self.wrap("K2", self.saved[1])
+        gigagan.dot_product_attention_nullkv = self.wrap("K3", self.saved[2])
+        return self
+
+    def __exit__(self, *exc):
+        from vfm_vae_tpu_torch.models import convnext, gigagan
+
+        (convnext.fused_convnext_mlp, convnext.fused_upsample_blur,
+         gigagan.dot_product_attention_nullkv) = self.saved
+
+    def wrap(self, kind, fn):
+        def checked(*args, plain=False):
+            out = fn(*args, plain=plain)
+            if not plain:
+                self.sites.append(self.compare(kind, fn, args))
+            return out
+
+        return checked
+
+    def compare(self, kind, fn, args):
+        import torch
+
+        def run(plain: bool, fp32: bool):
+            with torch.enable_grad():
+                leaves = [a.detach().float() if fp32 and a.is_floating_point() else a.detach()
+                          for a in args if torch.is_tensor(a)]
+                for a in leaves:
+                    a.requires_grad_(a.is_floating_point())
+                it = iter(leaves)
+                out = fn(*[next(it) if torch.is_tensor(a) else a for a in args], plain=plain)
+                g = torch.randn(out.shape, generator=torch.Generator(device=out.device)
+                                .manual_seed(5), device=out.device).to(out.dtype)
+                grads = torch.autograd.grad(out, [a for a in leaves if a.requires_grad], g,
+                                            allow_unused=True)
+            return out.detach(), grads
+
+        (ko, kg), (po, pg), (_, tg) = run(False, False), run(True, False), run(True, True)
+        _, max_rel, mean_rel = cs.rel_errors(ko, po)
+        tol = cs.TOLERANCES[self.NAMES[kind]]
+        worst, ok = 0.0, bool(torch.isfinite(ko.float()).all()) and max_rel <= tol[0] \
+            and mean_rel <= tol[1]
+        for a, b, c in zip(kg, pg, tg):
+            if a is None or c is None:
+                continue
+            k32, p32 = cs.rel_errors(a, c)[2], cs.rel_errors(b, c)[2]
+            worst = max(worst, k32 / max(p32, 1e-6))
+            ok = ok and bool(torch.isfinite(a.float()).all()) \
+                and k32 <= cs.TRUTH_FACTOR * p32 + 1e-6
+        return kind, tuple(args[0].shape), max_rel, mean_rel, worst, ok
+
+    def report(self, label: str) -> list:
+        bad = [s for s in self.sites if not s[-1]]
+        for kind in KINDS:
+            mine = [s for s in self.sites if s[0] == kind]
+            if mine:
+                print(f"[{label}] {kind} {len(mine)} calls vs twins: forward max_rel "
+                      f"{max(s[2] for s in mine):.3e} mean_rel {max(s[3] for s in mine):.3e} "
+                      f"(bounds {cs.TOLERANCES[self.NAMES[kind]]}); worst input-gradient "
+                      f"kernel/bf16-twin error ratio vs fp32 {max(s[4] for s in mine):.3f} "
+                      f"(limit {cs.TRUTH_FACTOR}); past a bound "
+                      f"{sum(not s[-1] for s in mine)}", flush=True)
+        for s in bad:
+            print(f"[{label}] site past its bound: {s}", flush=True)
+        return bad
+
+
+class Evaluation:
+    """The gate's quantities of stage 2's trainer `tr` and an fp32 plain
+    copy on the same weights, with the buffers reset before each run."""
+
+    def __init__(self, tr, state, build_fp32, label: str):
+        import torch
+
+        self.tr, self.state, self.label = tr, state, label
+        self.dev = next(tr.G.parameters()).device
+        self.bufs = {"G": {k: v.clone() for k, v in tr.G.named_buffers()},
+                     "D": {k: v.clone() for k, v in tr.D.named_buffers()}}
+        self.tr32 = build_fp32()
+        self.tr32.G.load_state_dict(tr.G.state_dict())
+        self.tr32.D.load_state_dict(tr.D.state_dict())
+        if tr.loss.lpips is not None:
+            self.tr32.loss.lpips.load_state_dict(tr.loss.lpips.state_dict())
+        self.tr32.G.use_plain_kernels(True)
+        self.state32 = self.tr32.init_state()
+        self.mods = kernel_modules(tr.G)
+        self.ssim_w = (tr.loss.ssim_loss_weight, self.tr32.loss.ssim_loss_weight)
+        self.torch = torch
+        print(f"[{label}] kernel sites: "
+              + ", ".join(f"{k} {len(v)} modules" for k, v in self.mods.items()), flush=True)
+
+    def batch(self, trial: int):
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(102 if trial == 0 else trial)
+        img = torch.rand((cs.RECIPE_BATCH, 256, 256, 3), generator=gen, device=self.dev)
+        return img, ((1.0, 0, False) if trial == 0
+                     else cs.FORCED_BUCKETS[trial % len(cs.FORCED_BUCKETS)])
+
+    def set_plain(self, which) -> None:
+        for k, ms in self.mods.items():
+            for m in ms:
+                m.plain = k in which
+
+    def run(self, fp32: bool, img, eq) -> dict:
+        from vfm_vae_tpu_torch.train.loss import G_TERMS
+
+        t, st = (self.tr32, self.state32) if fp32 else (self.tr, self.state)
+        for mod, key in ((t.G, "G"), (t.D, "D")):
+            for k, v in mod.named_buffers():
+                v.copy_(self.bufs[key][k])
+        t.record_grad_norms, t.grad_norms = True, {}
+        _, d_total, _ = t.d_gradients(st, img, eq)
+        _, terms, _, _, g_total = t.g_gradients(st, img, eq, update_buffers=False)
+        t.record_grad_norms = False
+        out = {"D total": float(d_total), "G total": float(g_total)}
+        out.update({"G " + n: float(v) for n, v in zip(G_TERMS, terms) if float(v) != 0.0})
+        groups = {}
+        for n, v in t.grad_norms.items():
+            key = ".".join(n.split(".")[:4])
+            groups[key] = groups.get(key, 0.0) + v * v
+        out.update({"|grad| " + k: math.sqrt(v) for k, v in groups.items()})
+        return out
+
+    def median(self, name, got, plain, exact, trial, eq) -> float:
+        keys = [k for k in exact if exact[k] != 0.0 and k in got and k in plain]
+        eg = {k: abs(got[k] - exact[k]) / abs(exact[k]) for k in keys}
+        ep = {k: abs(plain[k] - exact[k]) / abs(exact[k]) for k in keys}
+        med = statistics.median(max(eg[k], 1e-6) / max(ep[k], 1e-6) for k in keys)
+        synth = [k for k in keys if "synthesis.blocks" in k]
+        print(f"[{self.label}] trial {trial} eq={eq} {name}: paired median {med:.3f} over "
+              f"{len(keys)} quantities (limit {cs.TRUTH_FACTOR}); synthesis blocks rel vs "
+              f"fp32 " + " ".join(f"{eg[k]:.2e}" for k in synth)
+              + "; plain " + " ".join(f"{ep[k]:.2e}" for k in synth), flush=True)
+        return med
+
+    def trial(self, trial: int) -> dict:
+        """{path: paired median} on batch `trial`, every path."""
+        img, eq = self.batch(trial)
+        out = {}
+        for no_ssim in (False, True):
+            self.tr.loss.ssim_loss_weight = 0.0 if no_ssim else self.ssim_w[0]
+            self.tr32.loss.ssim_loss_weight = 0.0 if no_ssim else self.ssim_w[1]
+            exact = self.run(True, img, eq)
+            self.set_plain(KINDS)
+            plain = self.run(False, img, eq)
+            paths = {"kernels no-SSIM": ()} if no_ssim else dict({"kernels": ()}, **SINGLE,
+                                                                **PAIRS)
+            for name, twins in paths.items():
+                self.set_plain(twins)
+                out[name] = self.median(name, self.run(False, img, eq), plain, exact, trial, eq)
+            if not no_ssim:
+                with cs.env_vars({"VFM_VAE_MLP_BWD_BF16": "0"}):
+                    for name, twins in (("kernels, K1 bwd fp32 hidden", ()),
+                                        ("plain, K1 bwd fp32 hidden", KINDS)):
+                        self.set_plain(twins)
+                        out[name] = self.median(name, self.run(False, img, eq), plain, exact,
+                                                trial, eq)
+            self.set_plain(())
+        self.tr.loss.ssim_loss_weight, self.tr32.loss.ssim_loss_weight = self.ssim_w
+        return out
+
+    def revisit(self, trial: int) -> list:
+        """Batch `trial` again on the same weights: the kernel, plain and
+        fp32 paths twice more, then the kernel path with every kernel call
+        checked against its twins. Returns the sites past a bound."""
+        img, eq = self.batch(trial)
+        for rep in (1, 2):
+            exact = self.run(True, img, eq)
+            self.set_plain(KINDS)
+            plain = self.run(False, img, eq)
+            self.set_plain(())
+            self.median(f"kernels (repeat {rep})", self.run(False, img, eq), plain, exact,
+                        trial, eq)
+        with site_twins() as sites:
+            self.run(False, img, eq)
+        return sites.report(f"{self.label} trial {trial} sites")
+
+    def close(self) -> None:
+        del self.tr32, self.state32
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--chains", type=int, default=3)
+    ap.add_argument("--trials", type=int, default=8)
+    ap.add_argument("--entry", default=None,
+                    help="a stage-2 entry snapshot (stage 1's) to resume instead of stages 0-1")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("determinism probe: no CUDA device")
+
+    from vfm_vae_tpu_torch.core.config import derive_config, load_config
+    from vfm_vae_tpu_torch.ops.kernels._build import library
+    from vfm_vae_tpu_torch.train.loop import build_trainer
+
+    card = cs.gpu_line()
+    print(card, flush=True)
+    library()
+    overrides = dict(batch_size=cs.RECIPE_BATCH, kimg_per_tick=1000, network_snapshot_ticks=1,
+                     allow_random_lpips=True)
+    chains = 1 if args.entry else args.chains
+    failing, bad_sites = [], []
+    for chain in range(chains):
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="vfm_det_")
+        try:
+            shards = os.path.join(tmp, "shards")
+            cs.write_recipe_shards(shards)
+            prev = args.entry
+            for i in ((2,) if args.entry else (0, 1, 2)):
+                c = derive_config(load_config(os.path.join(ROOT, cs.RECIPE_YAMLS[i])))
+                c.run_dir = os.path.join(tmp, f"stage{i}")
+                c.training_set_kwargs.path = shards
+                c.update(overrides, resume_path=prev, resume_kimg=0)
+                res = cs.run_recipe_cli(c, os.path.join(tmp, f"stage{i}.yaml"), cs.RECIPE_STEPS,
+                                        {})
+                if i == 2:
+                    break
+                prev = res.snapshot["path"]
+                del res
+                gc.collect()
+                torch.cuda.empty_cache()
+            label = f"chain {chain}"
+            print(f"[{label}] stages trained in {time.perf_counter() - t0:.1f} s; stage 2 "
+                  f"entered from {prev}", flush=True)
+            kw = {k: c[k] for k in ("G_kwargs", "D_kwargs", "loss_kwargs", "G_opt_kwargs",
+                                    "D_opt_kwargs")}
+            ev = Evaluation(res.trainer, res.state, lambda: build_trainer(
+                **kw, device="cuda", compute_dtype="float32", batch_size=cs.RECIPE_BATCH,
+                allow_random_lpips=True), label)
+            medians = {}
+            for trial in range(args.trials):
+                for name, med in ev.trial(trial).items():
+                    medians.setdefault(name, []).append(med)
+            print(f"[{label}] on {card}: median over {args.trials} trials of each path's paired "
+                  "median: " + "; ".join(f"{n} {statistics.median(v):.3f} (max {max(v):.3f})"
+                                         for n, v in medians.items()), flush=True)
+            fails = [t for t, m in enumerate(medians["kernels"]) if m > cs.TRUTH_FACTOR]
+            failing += [(chain, t) for t in fails]
+            for trial in sorted({0, *fails}):
+                bad_sites += [(chain, trial, s) for s in ev.revisit(trial)]
+            ev.close()
+            del ev, res
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"[chain {chain}] {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[determinism-probe] on {card}: (chain, trial) failing the gate: {failing} of "
+          f"{chains} x {args.trials}; kernel calls past a twin's bound on the revisited "
+          f"batches: {len(bad_sites)}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,6 +26,10 @@ The JAX package keeps the int8 tower mirror in a separate 'int8' collection
 path); `state_dict_from_jax(..., int8=)` carries it into the port's Linear
 buffers (wq transposed to (N, K)), `load_state_dict_numpy` creates those
 buffers, and `int8_collection_from_state_dict` is the inverse.
+
+`dit_state_dict_from_jax` does it for the latent DiT (models/dit.py) and
+the REG trainer's REPA projector: every Linear kernel is (in, out) in JAX
+(layers.py:303) and is transposed; `blocks_{i}` becomes `blocks.{i}`.
 """
 
 from __future__ import annotations
@@ -368,6 +372,19 @@ def inception_state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[st
     if "fc_weight" in params:
         sd["fc.weight"] = _t(params["fc_weight"])
         sd["fc.bias"] = _arr(params["fc_bias"])
+    return sd
+
+
+def dit_state_dict_from_jax(params: Mapping[str, Any]) -> SD:
+    """A JAX LightningDiT (or REPA projector) parameter tree -> the port's
+    state_dict: a leaf `weight` of two axes is a Linear kernel and is
+    transposed, and the tables (`pos_embed`, `y_embedding`) and norm
+    weights are copied. A REPA trainer's {"dit", "proj"} tree maps to keys
+    under "dit." and "proj."."""
+    sd: SD = {}
+    for path, v in _leaves(params):
+        name = ".".join(k.replace("blocks_", "blocks.") for k in path)
+        sd[name] = _t(v) if path[-1] == "weight" and np.ndim(v) == 2 else _arr(v)
     return sd
 
 
