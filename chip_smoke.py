@@ -116,7 +116,27 @@
    determinism gate on stages 2 and 3; per stage the median D and G step
    ms, peak memory, snapshot bytes and save and load seconds
    (recipe_phase).
-9. Tools phase: on the recipe's last snapshot, the offline tools through
+9. Batch phase (slice 16, batch_phase): the published batch at flagship
+   width and depth. On entry.flagship_trainer at B=4: one stage-0 [D, G]
+   step under each remat policy (none, dots, names, full, then back, in
+   turns; cuDNN deterministic), gated on the stats and totals bit for bit
+   against none, every gradient norm within the two none runs' spread,
+   the same tensors moved and the launches that predicted_launches gives
+   for the policy (the replayed ConvNeXt layers launch K1 twice more in
+   the G phase); step ms and peak memory per policy, and a B=8 step under
+   dots and full for a linear memory fit. Trainer(num_accumulation=2) at
+   B=8 against two d_gradients and g_gradients calls on the same chunks
+   and draws: the summed gradients and the parameters and EMA after the
+   step bit for bit. The B=4 step inside init_process_group("nccl",
+   world_size=1) against no process group, bit for bit, with
+   check_replica_consistency. Then the stage-0 YAML with only
+   accumulate_gradients changed (512 / it the largest microbatch the fit
+   admits under the remat policy the loop picks) through the CLI: one
+   [D, G] step of 512 images, a snapshot, and a second call that
+   auto-resumes it; gated on finite losses, cur_nimg and Progress/kimg,
+   tensors moved, each step's launches per bucket and the peak memory;
+   ms per D and G step, img/s and peak memory.
+10. Tools phase: on the recipe's last snapshot, the offline tools through
    each CLI's main(argv) at flagship width and depth on 72 seeded 256 px
    JPEGs in tar shards (two B=32 batches and a B=8 tail): prefetch (bf16
    tower, features and images stored), prefetch --int8 under the flash
@@ -132,7 +152,7 @@
    against itself (evaluate_npz), finite figures, the PSNR clamp;
    each tool's img/s with its setup, model (CUDA events) and host split
    (tools_phase).
-10. Diffusion phase: on the tools phase's 72 latents and the recipe's last
+11. Diffusion phase: on the tools phase's 72 latents and the recipe's last
    snapshot, the latent-diffusion CLIs through main(argv) at full XL width
    and depth, cut in scale only (B=32, 4 steps, a snapshot at step 3, 16
    and 8 samples at 50 steps): lightningdit_train on the stage-0 YAML and
@@ -247,6 +267,7 @@ STATS_REL = 1e-5
 # summed in another order in the fp32 accumulator: one bf16 ulp of t.
 DWCONV_ULPS = 1.0
 PER_DECODE = {"fused_convnext_mlp": 38, "fused_upsample_blur": 10, "flash_attention_nullkv": 6}
+MLP_WRAPPERS = ("fused_convnext_mlp", "fused_convnext_mlp_pipelined")
 # SASS instructions of one GELU evaluation in the built K1 (main() reads it
 # from the library with cuobjdump; probes/fused_mlp.py:gelu_instructions).
 GELU_INSTRUCTIONS = {"count": None}
@@ -1826,7 +1847,7 @@ def bn_fed_bias(name: str) -> bool:
                                                           ".main1.conv.bias"))
 
 
-def predicted_launches(G, buckets) -> dict:
+def predicted_launches(G, buckets, remat: str = "G", n_acc: int = 1) -> dict:
     """Launches of one [D, G] step per bucket, under the switches set now: G
     runs forward in the D phase and in the G phase (every forward kernel at
     each site of that bucket's encode and decode), and two backward passes
@@ -1838,30 +1859,54 @@ def predicted_launches(G, buckets) -> dict:
     K4's backward there, once at each site; post_quant (the decode side)
     lies downstream of it and takes two. A latent bucket encodes the full
     image, a prior bucket the shrunk one. K1/K9's, K2's and K5's backward
-    passes are PyTorch."""
+    passes are PyTorch.
+
+    Under a remat policy (`remat`: "G" reads G's, else None, "full", "dots"
+    or "names") each of the two backward passes replays every ConvNeXt
+    layer's forward (synthesis.run_checkpointed), so K1 (K9 under
+    VFM_VAE_MLP_PIPELINE=1) launches twice more at each of its sites in the
+    G phase; K2 and K3 lie outside the checkpointed layers. The prediction
+    covers the default K5 switch only (K5 inside a layer would replay too).
+    With `n_acc` microbatches every launch happens once per microbatch."""
+    want: dict = {}
+    for eq in buckets:
+        for phase in ("D", "G"):
+            for k, v in phase_launches(G, eq, phase, remat, n_acc).items():
+                want[k] = want.get(k, 0) + v
+    return want
+
+
+def phase_launches(G, eq, phase: str, remat: str = "G", n_acc: int = 1) -> dict:
+    """predicted_launches' count for one phase ("D" or "G") of one bucket."""
     from vfm_vae_tpu_torch.entry import eq_image_size, kernel_sites
+    from vfm_vae_tpu_torch.models.synthesis import remat_policy
     from vfm_vae_tpu_torch.ops import kernels
 
+    policy = G.remat if remat == "G" else remat_policy(remat)
+    if policy is not None and os.environ.get("VFM_VAE_PALLAS_STATS") == "1":
+        raise SystemExit("chip_smoke: predicted_launches covers remat with K5 off only")
     want = {fn.__name__: 0 for fn in kernels.ALL_WRAPPERS}
     full = G.synthesis.block_resolutions[-1]
-    for eq in buckets:
-        # A latent bucket encodes the full image and resizes z; a prior bucket
-        # shrinks the tower's input with z.
-        dec = kernel_sites(G, eq_image_size(G, eq))
-        enc = kernel_sites(G, eq_image_size(G, eq) if eq[2] else full)
-        sites = {name: [s for s in (enc if name in ENCODE_KERNELS else dec)[name]
-                        if s.get("at") != "post_quant"]
-                 + [s for s in dec[name] if name in ENCODE_KERNELS and s["at"] == "post_quant"]
-                 for name in dec}
-        for name, n in forward_counts(sites).items():
-            want[name] += 2 * n
+    # A latent bucket encodes the full image and resizes z; a prior bucket
+    # shrinks the tower's input with z.
+    dec = kernel_sites(G, eq_image_size(G, eq))
+    enc = kernel_sites(G, eq_image_size(G, eq) if eq[2] else full)
+    sites = {name: [s for s in (enc if name in ENCODE_KERNELS else dec)[name]
+                    if s.get("at") != "post_quant"]
+             + [s for s in dec[name] if name in ENCODE_KERNELS and s["at"] == "post_quant"]
+             for name in dec}
+    for name, n in forward_counts(sites).items():
+        want[name] += n
+        if phase == "G" and policy is not None and name in MLP_WRAPPERS:
+            want[name] += 2 * n  # the layers replayed by the two backward passes
+    if phase == "G":
         n_att = sum(s["count"] for s in sites["flash_attention_nullkv"])
         want["flash_attention_nullkv_bwd_dkv"] += 2 * n_att
         want["flash_attention_nullkv_bwd_dq"] += 2 * n_att
         for name in K4_BWD:  # post_quant lies downstream of the anchor: both pulls
             want[name] += sum(s["count"] * (2 if s["at"] == "post_quant" else 1)
                               for s in sites[name])
-    return want
+    return {k: v * n_acc for k, v in want.items()}
 
 
 def named_params(tr) -> dict:
@@ -2999,18 +3044,19 @@ def write_recipe_shards(root: str, n_shards: int = 2, per_shard: int = 16,
 
 class recipe_steps:
     """Wraps Trainer.d_step and Trainer.g_step while the recipe's CLI calls
-    run: each step is timed between two synchronizes, each G step's kernel
-    launches are read from the wrappers' counters (differences, so the
-    phase's totals stay whole), and the stage's first D step records its
-    starting point: every G and D parameter and the EMA after the resume,
-    before any update (copied to the host, so that the stage's peak memory
-    is the training's own)."""
+    run: each step is timed between two synchronizes, each step's EQ bucket
+    is kept and its kernel launches are read from the wrappers' counters
+    (differences, so the phase's totals stay whole), and the stage's first
+    D step records its starting point: every G and D parameter and the EMA
+    after the resume, before any update (copied to the host, so that the
+    stage's peak memory is the training's own)."""
 
     def __init__(self):
         self.stage = None
 
     def begin(self, label: str) -> dict:
-        self.stage = dict(label=label, d_ms=[], g_ms=[], g_launches=[], before=None, ema0=None)
+        self.stage = dict(label=label, d_ms=[], g_ms=[], d_launches=[], g_launches=[],
+                          d_eq=[], g_eq=[], before=None, ema0=None)
         return self.stage
 
     def __enter__(self):
@@ -3038,9 +3084,15 @@ class recipe_steps:
                 st["ema0"] = host_copy(state.ema)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-            return timed(d_step, tr, (state,) + args, kwargs, st["d_ms"])
+            st["d_eq"].append(args[1])
+            c0 = kernels.launch_counts()
+            out = timed(d_step, tr, (state,) + args, kwargs, st["d_ms"])
+            c1 = kernels.launch_counts()
+            st["d_launches"].append({k: c1[k] - c0[k] for k in c1})
+            return out
 
         def g_wrapped(tr, *args, **kwargs):
+            probe.stage["g_eq"].append(args[2])
             c0 = kernels.launch_counts()
             out = timed(g_step, tr, args, kwargs, probe.stage["g_ms"])
             c1 = kernels.launch_counts()
@@ -3286,6 +3338,563 @@ def recipe_phase(card: str, tmp: str) -> tuple:
           f"{ {k: v for k, v in counts.items() if v} }; phase {time.perf_counter() - t_phase:.1f} "
           f"s on {card}", flush=True)
     return counts, snapshot, os.path.join(tmp, "stage3.yaml")
+
+
+# ------------------------------------------------------------------ slice 16
+
+
+BATCH_POLICIES = ("none", "dots", "names", "full")
+BATCH_B = 4  # the remat and process-group steps; the accumulation step takes 2 x BATCH_B
+PUBLISHED_BATCH = 512  # every stage YAML's batch_size (a global batch)
+PUBLISHED_YAML = RECIPE_YAMLS[0]
+# Microbatches that split the published batch evenly, largest first.
+MICRO_CANDIDATES = (256, 128, 64, 32, 16, 8, 4)
+# The published step takes the largest microbatch whose peak, by the linear
+# fit of the remat steps' peaks at BATCH_B and 2 x BATCH_B, stays under this
+# share of the card's memory.
+MEMORY_SHARE = 0.85
+
+
+def set_remat(G, remat) -> None:
+    """G's remat policy after construction (as Generator's `remat` sets it)."""
+    from vfm_vae_tpu_torch.models.synthesis import remat_policy
+
+    policy = remat_policy(remat)
+    G.remat = policy
+    for block in G.synthesis.blocks:
+        block.remat = policy
+    G.vfm_encoder.tower.remat = policy is not None
+
+
+class trainer_weights:
+    """G's and D's parameters and buffers, kept on the card and put back by
+    restore() (the spectral-norm vectors and x_avg move in every step)."""
+
+    def __init__(self, tr):
+        self.mods = {"G": tr.G, "D": tr.D}
+        self.saved = {k: {n: t.detach().clone() for n, t in m.state_dict().items()}
+                      for k, m in self.mods.items()}
+
+    def restore(self) -> None:
+        import torch
+
+        with torch.no_grad():
+            for k, m in self.mods.items():
+                own = m.state_dict()
+                for n, t in self.saved[k].items():
+                    own[n].copy_(t)
+
+    def named(self) -> dict:
+        return {f"{k}.{n}": t for k, sd in self.saved.items() for n, t in sd.items()}
+
+
+def fresh_step(tr, real, eq, seed: int, before=None, keep: bool = False) -> dict:
+    """One [D, G] step from fresh optimiser state on the weights as they are,
+    its draws from a generator seeded `seed`: times, stats, totals, raw
+    gradient norms, launches, peak memory; the trainable tensors that moved
+    from `before` ({name: tensor}); with `keep`, the trainable parameters and
+    the EMA after the step, on the host (so that no later step's peak holds
+    them)."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=real.device).manual_seed(seed)
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tr.record_grad_norms, tr.grad_norms = True, {}
+    t0 = time.perf_counter()
+    state, d_stats, d_total = tr.d_step(state, real, eq, gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, g_stats, g_total = tr.g_step(state, real, eq, gen)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tr.record_grad_norms = False
+    params = named_params(tr)
+    out = dict(d_ms=(t1 - t0) * 1e3, g_ms=(t2 - t1) * 1e3, stats={**d_stats, **g_stats},
+               totals=torch.stack([d_total, g_total]), norms=dict(tr.grad_norms),
+               launches=kernels.launch_counts(), peak=torch.cuda.max_memory_allocated())
+    if before is not None:
+        out["moved"] = {n for n in trainable_names(tr) if n in before
+                        and not torch.equal(params[n], before[n])}
+    if keep:
+        out["params"] = host_copy({n: params[n] for n in trainable_names(tr)})
+        out["ema"] = host_copy(state.ema)
+    return out
+
+
+def trainable_names(tr) -> list:
+    return sorted({"G." + n for n in tr.g_params} | {"D." + n for n in tr.d_params})
+
+
+def max_rel(a: dict, b: dict) -> float:
+    """The largest relative difference between two {name: number} maps."""
+    return max((abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b), default=0.0)
+
+
+def differing(a: dict, b: dict) -> list:
+    """Names whose tensors differ (or are missing) between two maps."""
+    import torch
+
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+class deterministic_steps:
+    """For the length of a `with`: the step's kernels that can run
+    deterministically do (cuDNN's deterministic algorithms, PyTorch's
+    deterministic implementations, SDPA's math backend: the memory-efficient
+    backward of the adapter's fp32 attention sums with atomics), so that two
+    runs of one step can be compared bit for bit. Ops with no deterministic
+    implementation warn by name. The hand-written kernels are deterministic
+    as they are (K3's backward adds its partials in order)."""
+
+    def __enter__(self):
+        import torch
+        import torch.utils.deterministic
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        self.saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                      torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled(),
+                      torch.utils.deterministic.fill_uninitialized_memory)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        self.sdpa = sdpa_kernel([SDPBackend.MATH])
+        self.sdpa.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.utils.deterministic
+
+        self.sdpa.__exit__(*exc)
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, on, warn,
+         torch.utils.deterministic.fill_uninitialized_memory) = self.saved
+        torch.use_deterministic_algorithms(on, warn_only=warn)
+
+
+def module_norms(norms: dict) -> dict:
+    """Raw gradient norms summed in quadrature per module (determinism_phase's
+    grouping), without the BatchNormLocal-fed head biases (rounding noise)."""
+    groups: dict = {}
+    for n, v in norms.items():
+        if not bn_fed_bias(n):
+            key = ".".join(n.split(".")[:4])
+            groups[key] = groups.get(key, 0.0) + v * v
+    return {k: math.sqrt(v) for k, v in groups.items()}
+
+
+def remat_steps(tr, real, real2, eq, card: str) -> tuple:
+    """One stage-0 [D, G] step under each remat policy on the same weights,
+    batch and draws. A warm-up step first. Then, under deterministic_steps,
+    none, dots, names, full and none again; gates: every loss term and D's
+    total bit for bit against the first none run, and the per-module
+    gradient norms, the adaptive VF weight and G's total within the largest
+    relative spread between the two none runs (0 when the step is
+    deterministic). Then as the loop runs them (none, dots, names, full and
+    back, in turns): step ms and peak memory per policy, and gates on the
+    launches phase_launches predicts for the policy and on the same tensors
+    moving as under none (at least RECIPE_MOVED of the trainable ones);
+    then one step at 2 x BATCH_B under dots and under full for the memory
+    fit. Returns ({policy: [timed runs]}, {policy: {B: peak bytes}},
+    launches)."""
+    import torch
+
+    from vfm_vae_tpu_torch.train.train_step import G_STAT_NAMES
+
+    weights = trainer_weights(tr)
+    before = weights.named()
+    gated = [n for n in trainable_names(tr) if not bn_fed_bias(n)]
+    terms = [k for k in G_STAT_NAMES.values()]
+    exact = {p: [] for p in BATCH_POLICIES}
+    runs = {p: [] for p in BATCH_POLICIES}
+    peaks = {p: {} for p in BATCH_POLICIES}
+    launches: dict = {}
+
+    def step(policy, img, seed, **kw):
+        weights.restore()
+        set_remat(tr.G, policy)
+        r = fresh_step(tr, img, eq, seed=seed, **kw)
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        return r
+
+    try:
+        step("none", real, 30)
+        with deterministic_steps():
+            for policy in BATCH_POLICIES + ("none",):
+                exact[policy].append(step(policy, real, 31))
+        for policy in BATCH_POLICIES + BATCH_POLICIES[::-1]:
+            r = step(policy, real, 31, before=before)
+            r["want"] = predicted_launches(tr.G, [eq])
+            r["moved"] &= set(gated)
+            runs[policy].append(r)
+            peaks[policy][real.shape[0]] = max(peaks[policy].get(real.shape[0], 0), r["peak"])
+        for policy in ("dots", "full"):
+            peaks[policy][real2.shape[0]] = step(policy, real2, 32)["peak"]
+    finally:
+        set_remat(tr.G, None)
+        weights.restore()
+
+    def loose(r):
+        """The quantities that hang on the backward's sums."""
+        vf = r["stats"]["Loss/G/cur_vf_loss_weight"]
+        return {**module_norms(r["norms"]), "vf weight": float(vf[1] / vf[0]),
+                "G total": float(r["totals"][1])}
+
+    ref, other = exact["none"]
+    spread = max_rel(loose(other), loose(ref))
+    fails = []
+    for policy, rs in exact.items():
+        for turn, r in enumerate(rs):
+            tag = f"{policy} (deterministic, run {turn})"
+            stats = {k: v for k, v in r["stats"].items() if k.startswith("Loss/D/") or k in terms}
+            want = {k: v for k, v in ref["stats"].items() if k in stats}
+            off = differing(stats, want)
+            if off or not torch.equal(r["totals"][0], ref["totals"][0]):
+                fails.append(f"{tag}: loss terms {off[:4]} or D total "
+                             f"{float(r['totals'][0])} differ from none's")
+            rel = max_rel(loose(r), loose(ref))
+            if rel > spread:
+                fails.append(f"{tag}: gradient norms, VF weight or G total {rel:.3e} from "
+                             f"none's (spread {spread:.3e})")
+    ref_moved = runs["none"][0]["moved"]
+    for policy, rs in runs.items():
+        for turn, r in enumerate(rs):
+            tag = f"{policy} (turn {turn})"
+            if r["moved"] != ref_moved or len(r["moved"]) < RECIPE_MOVED * len(gated):
+                fails.append(f"{tag}: {len(r['moved'])}/{len(gated)} trainable tensors moved "
+                             f"(none: {len(ref_moved)})")
+            kern = {k: r["launches"][k] for k in r["want"]}
+            if kern != r["want"]:
+                fails.append(f"{tag}: launches {kern} != predicted {r['want']}")
+    for policy, rs in runs.items():
+        r0 = rs[0]
+        dev = max(max_rel(loose(r), loose(ref)) for r in exact[policy])
+        peak_text = ", ".join(f"B={b}: {v / 2 ** 30:.2f} GiB"
+                              for b, v in sorted(peaks[policy].items()))
+        print(f"[batch-remat] {policy}: B={real.shape[0]} eq={eq} on {card}: D "
+              f"{', '.join(f'{r['d_ms']:.1f}' for r in rs)} ms, G "
+              f"{', '.join(f'{r['g_ms']:.1f}' for r in rs)} ms (in turns); peak memory "
+              f"{peak_text} (max_memory_allocated); K1 {r0['launches']['fused_convnext_mlp']}, K2 "
+              f"{r0['launches']['fused_upsample_blur']}, K3 "
+              f"{r0['launches']['flash_attention_nullkv']}, K3-dkv/dq "
+              f"{r0['launches']['flash_attention_nullkv_bwd_dkv']}/"
+              f"{r0['launches']['flash_attention_nullkv_bwd_dq']} a step (predicted "
+              f"{r0['want']['fused_convnext_mlp']}, {r0['want']['fused_upsample_blur']}, "
+              f"{r0['want']['flash_attention_nullkv']}); deterministic: per-module gradient "
+              f"norms, VF weight and G total within {dev:.3e} of none's; "
+              f"{len(r0['moved'])}/{len(gated)} trainable tensors moved", flush=True)
+    print(f"[batch-remat] deterministic steps: the two none runs' per-module gradient norms, "
+          f"VF weight and G total differ by {spread:.3e} at most; the loss terms and D total "
+          f"of every policy {'bit for bit' if not fails else 'see failures'} against none",
+          flush=True)
+    if fails:
+        raise SystemExit("chip_smoke: batch remat: " + "; ".join(fails[:6]))
+    return peaks, launches
+
+
+def accumulation_check(tr, real8, eq, card: str) -> dict:
+    """Trainer(num_accumulation=2).d_step and .g_step at 2 x BATCH_B against
+    two d_gradients and two g_gradients calls on the same chunks, weights
+    and draws (the loss state threaded), summed, under deterministic_steps:
+    the summed gradients that reach Adam bit for bit, then every trainable
+    parameter and EMA tensor after the step bit for bit. Returns the
+    launches."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.train.train_step import Trainer
+
+    weights = trainer_weights(tr)
+    seen: list = []
+
+    def capture(opt, params, grads):
+        seen.append([g.clone() for g in grads])
+        Trainer._apply(opt, params, grads)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with deterministic_steps():
+            weights.restore()
+            tr.num_accumulation, tr._apply = 2, capture
+            gen = torch.Generator(device=real8.device).manual_seed(41)
+            state = tr.init_state()
+            state, _, _ = tr.d_step(state, real8, eq, gen)
+            state, _, _ = tr.g_step(state, real8, eq, gen)
+            params = named_params(tr)
+            acc = {n: params[n].detach().clone() for n in trainable_names(tr)}
+            acc_ema = {n: e.clone() for n, e in state.ema.items()}
+            del tr._apply
+            tr.num_accumulation = 1
+
+            weights.restore()
+            gen = torch.Generator(device=real8.device).manual_seed(41)
+            state = tr.init_state()
+            B = real8.shape[0] // 2
+            chunks = (real8[:B], real8[B:])
+            parts = [tr.d_gradients(state, c, eq, gen)[0] for c in chunks]
+            d_sum = [a + b for a, b in zip(*parts)]
+            Trainer._apply(state.d_opt, list(tr.d_params.values()), d_sum)
+            loss_state, parts = state.loss_state, []
+            for c in chunks:
+                g, _, loss_state, _, _ = tr.g_gradients(state, c, eq, gen, loss_state=loss_state)
+                parts.append(g)
+            g_sum = [a + b for a, b in zip(*parts)]
+            Trainer._apply(state.g_opt, list(tr.g_params.values()), g_sum)
+            from vfm_vae_tpu_torch.train.optim import ema_beta, ema_update
+
+            ema_update(state.ema, tr.g_params, ema_beta(tr.batch_size, state.cur_nimg,
+                                                        tr.ema_kimg, tr.ema_rampup))
+            params = named_params(tr)
+            manual = {n: params[n].detach().clone() for n in trainable_names(tr)}
+    finally:
+        tr.__dict__.pop("_apply", None)
+        tr.num_accumulation = 1
+        weights.restore()
+    launches = kernels.launch_counts()
+    fails = []
+    for label, got, want in (("D", seen[0], d_sum), ("G", seen[1], g_sum)):
+        off = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+        if off or len(got) != len(want):
+            fails.append(f"{label}: {len(off)}/{len(want)} summed gradients differ")
+    off = differing(acc, manual) + differing(acc_ema, state.ema)
+    if off:
+        fails.append(f"{len(off)} tensors differ after the step: {off[:4]}")
+    print(f"[batch-accumulation] B={real8.shape[0]} as 2 microbatches of {B} on {card}: the "
+          f"accumulated D and G gradients ({len(d_sum)} and {len(g_sum)} tensors) "
+          f"{'equal' if not fails else 'differ from'} the sums of two d_gradients and two "
+          f"g_gradients calls bit for bit, and so do {len(acc)} parameters and {len(acc_ema)} EMA "
+          f"tensors after the step; {time.perf_counter() - t0:.1f} s", flush=True)
+    if fails:
+        raise SystemExit("chip_smoke: batch accumulation: " + "; ".join(fails))
+    return launches
+
+
+def nccl_world1(tr, real, eq, card: str) -> dict:
+    """The stage-0 step at BATCH_B without a process group and inside
+    init_process_group("nccl", world_size=1), both under deterministic_steps:
+    stats, totals, every trainable parameter and EMA tensor bit for bit, and
+    check_replica_consistency over them passes. Returns the launches."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from vfm_vae_tpu_torch.parallel import mesh
+
+    weights = trainer_weights(tr)
+    store = tempfile.mkdtemp(prefix="vfm_nccl_")
+    launches: dict = {}
+    try:
+        with deterministic_steps():
+            weights.restore()
+            alone = fresh_step(tr, real, eq, seed=51, keep=True)
+            dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store, "s"), 1),
+                                    rank=0, world_size=1,
+                                    timeout=datetime.timedelta(seconds=120))
+            try:
+                weights.restore()
+                grouped = fresh_step(tr, real, eq, seed=51, keep=True)
+                mesh.check_replica_consistency({**grouped["params"], **{
+                    "G_ema." + n: e for n, e in grouped["ema"].items()}})
+                backend = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+            for r in (alone, grouped):
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    finally:
+        weights.restore()
+        shutil.rmtree(store, ignore_errors=True)
+    off = (differing(alone["stats"], grouped["stats"])
+           + differing(alone["params"], grouped["params"])
+           + differing(alone["ema"], grouped["ema"]))
+    same = not off and torch.equal(alone["totals"], grouped["totals"])
+    print(f"[batch-nccl] B={real.shape[0]} on {card}: world 1 over {backend} against no process "
+          f"group: stats, totals, {len(alone['params'])} trainable and {len(alone['ema'])} EMA "
+          f"tensors {'bit for bit' if same else 'DIFFER ' + str(off[:4])}; replica check "
+          f"passed; G {alone['g_ms']:.1f} ms alone, {grouped['g_ms']:.1f} ms in the group",
+          flush=True)
+    if not same:
+        raise SystemExit(f"chip_smoke: batch nccl: world 1 differs from no group: {off[:4]}")
+    return launches
+
+
+def pick_microbatch(peaks: dict, total: int) -> tuple:
+    """The largest microbatch of MICRO_CANDIDATES under the policy the loop
+    picks for it (dots up to 12 images, full above) whose peak, by the
+    linear fit of that policy's two measured peaks, is at most MEMORY_SHARE
+    of `total`; and each policy's largest fitting microbatch."""
+    def fit(policy):
+        (b0, p0), (b1, p1) = sorted(peaks[policy].items())
+        slope = (p1 - p0) / (b1 - b0)
+        return lambda m: p0 + slope * (m - b0)
+
+    fits = {p: fit(p) for p in ("dots", "full")}
+    largest = {p: next((m for m in MICRO_CANDIDATES if f(m) <= MEMORY_SHARE * total), None)
+               for p, f in fits.items()}
+    for m in MICRO_CANDIDATES:
+        policy = "dots" if m <= 12 else "full"
+        if fits[policy](m) <= MEMORY_SHARE * total:
+            return m, policy, fits[policy](m), largest
+    raise SystemExit(f"chip_smoke: no microbatch of {MICRO_CANDIDATES} fits the fit {peaks}")
+
+
+def published_batch(card: str, tmp: str, peaks: dict) -> dict:
+    """The stage-0 YAML with accumulate_gradients set so that 512 /
+    accumulate_gradients is the largest microbatch that fits
+    (pick_microbatch) through the port's CLI: one [D, G] step of the
+    published 512 images on synthetic 256 px shards, a snapshot, then a
+    second call that auto-resumes it and takes one more step. Overrides as
+    the recipe phase's (run_dir, the shards, one tick and one snapshot a
+    call, random LPIPS). Gates: finite logged losses, Progress/kimg 0.512
+    and cur_nimg 512 after the first call, RECIPE_MOVED of the trainable
+    tensors moved, every step's launches as phase_launches predicts for its
+    bucket, the loop's remat and accumulate_gradients microbatches, peak
+    memory under the card's, and the auto-resume. Returns the launches."""
+    import gc
+
+    import torch
+
+    from vfm_vae_tpu_torch.core.config import derive_config, load_config
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    micro, policy, predicted, largest = pick_microbatch(peaks, total)
+    n_acc = PUBLISHED_BATCH // micro
+    print(f"[batch-published] memory fit (peaks at B=4 and 8, {card}): the largest microbatch "
+          f"within {MEMORY_SHARE} of {total / 2 ** 30:.2f} GiB is "
+          + ", ".join(f"{p} {m}" for p, m in largest.items())
+          + f"; the step takes {n_acc} microbatches of {micro} under {policy!r} (predicted peak "
+          f"{predicted / 2 ** 30:.2f} GiB)", flush=True)
+    shards = os.path.join(tmp, "shards")
+    write_recipe_shards(shards, n_shards=2, per_shard=64, seed=16)
+    c = derive_config(load_config(os.path.join(HERE, PUBLISHED_YAML)))
+    if c.batch_size != PUBLISHED_BATCH:
+        raise SystemExit(f"chip_smoke: {PUBLISHED_YAML} has batch_size {c.batch_size}")
+    c.run_dir = os.path.join(tmp, "published")
+    c.training_set_kwargs.path = shards
+    c.update(accumulate_gradients=n_acc, kimg_per_tick=1000, network_snapshot_ticks=1,
+             allow_random_lpips=True)
+    print(f"[batch-published] {PUBLISHED_YAML} with accumulate_gradients {n_acc}; overrides as "
+          f"the recipe's: run_dir {c.run_dir}, training_set_kwargs.path {shards} (2 shards x 64 "
+          f"seeded 256 px JPEGs), kimg_per_tick 1000, network_snapshot_ticks 1, "
+          f"allow_random_lpips", flush=True)
+    counts: dict = {}
+    probe = recipe_steps()
+    fails = []
+    with probe:
+        calls = []
+        for call in ("first", "auto-resume"):
+            t0 = time.perf_counter()
+            st = probe.begin(call)
+            res = run_recipe_cli(c, os.path.join(tmp, f"published_{call}.yaml"), 1, counts)
+            peak = torch.cuda.max_memory_allocated()
+            with open(os.path.join(c.run_dir, "stats.jsonl")) as f:
+                entry = json.loads(f.read().splitlines()[-1])
+            tr = res.trainer
+            if tr.num_accumulation != n_acc or tr.G.remat != policy:
+                fails.append(f"{call}: the loop ran {tr.num_accumulation} microbatches under "
+                             f"{tr.G.remat!r}")
+            for phase, eqs, got in (("D", st["d_eq"], st["d_launches"]),
+                                    ("G", st["g_eq"], st["g_launches"])):
+                for eq, lc in zip(eqs, got):
+                    want = phase_launches(tr.G, eq, phase, n_acc=n_acc)
+                    if {k: lc[k] for k in want} != want:
+                        fails.append(f"{call} {phase} step eq={eq}: launches {lc} != {want}")
+            losses = {k: v for k, v in entry.items() if k.startswith("Loss/")}
+            if not losses or any(not math.isfinite(v) for v in losses.values()):
+                fails.append(f"{call}: logged losses not finite: {losses}")
+            if peak >= total:
+                fails.append(f"{call}: peak {peak} bytes")
+            params = host_copy(named_params(tr))
+            gated = [n for n in trainable_names(tr) if not bn_fed_bias(n)]
+            moved = [n for n in gated if not torch.equal(st["before"][n], params[n])]
+            if len(moved) < RECIPE_MOVED * len(gated):
+                fails.append(f"{call}: {len(moved)}/{len(gated)} trainable tensors moved")
+            if call == "first":
+                if (res.state.cur_nimg != PUBLISHED_BATCH
+                        or entry["Progress/kimg"] != PUBLISHED_BATCH / 1000):
+                    fails.append(f"cur_nimg {res.state.cur_nimg}, Progress/kimg "
+                                 f"{entry['Progress/kimg']}")
+                c.resume_path = None  # the second call finds the snapshot itself
+                snapshot = res.snapshot["path"]
+            else:
+                with open(os.path.join(c.run_dir, "log.txt")) as f:
+                    logged = f"[auto-resume] found {snapshot}" in f.read()
+                if (res.resume is None or res.resume["path"] != snapshot or not logged
+                        or res.state.cur_nimg != 2 * PUBLISHED_BATCH):
+                    fails.append(f"the second call did not auto-resume {snapshot} "
+                                 f"({res.resume and res.resume['path']}, logged {logged}, "
+                                 f"cur_nimg {res.state.cur_nimg})")
+            d_ms, g_ms = st["d_ms"][0], st["g_ms"][0]
+            calls.append((d_ms, g_ms))
+            print(f"[batch-published] {call}: one [D, G] step of {PUBLISHED_BATCH} images "
+                  f"({n_acc} x {micro}, remat {tr.G.remat!r}) on {card}: D {d_ms:.1f} ms, G "
+                  f"{g_ms:.1f} ms, {PUBLISHED_BATCH / ((d_ms + g_ms) / 1e3):.1f} img/s; peak "
+                  f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); Progress/kimg "
+                  f"{entry['Progress/kimg']}, cur_nimg {res.state.cur_nimg}; "
+                  f"{len(moved)}/{len(gated)} trainable tensors moved; buckets D {st['d_eq']} "
+                  f"G {st['g_eq']}; snapshot {res.snapshot['path']} "
+                  f"({res.snapshot['seconds']:.2f} s)"
+                  + (f"; resumed {res.resume['path']}" if res.resume else "")
+                  + f"; call {time.perf_counter() - t0:.1f} s", flush=True)
+            print(f"[batch-published] {call} losses: " + ", ".join(
+                f"{k[5:]}={v:.4g}" for k, v in sorted(losses.items())
+                if "/is_safe/" not in k and "skipped" not in k), flush=True)
+            del res, tr, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    if fails:
+        raise SystemExit("chip_smoke: batch published: " + "; ".join(fails[:6]))
+    return counts
+
+
+def batch_phase(card: str, tmp: str) -> dict:
+    """The published batch (slice 16) at flagship width and depth: remat
+    policies against none, accumulation against summed microbatches, world
+    1 over NCCL against no process group (on entry.flagship_trainer, B=4
+    and 8), then the stage-0 YAML's 512 images through the CLI. A world of
+    two processes on the one card is not run: NCCL refuses two ranks on
+    one device, and the phase's time goes to the published step; the CPU
+    tests hold world 2 against world 1 with gloo. Returns the launches."""
+    import gc
+
+    import torch
+
+    from vfm_vae_tpu_torch.entry import flagship_trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tr = flagship_trainer(dev, 2 * BATCH_B, gen, allow_random_lpips=True)
+    randomize_zero_init_branches(tr.G, seed=4)
+    res = tr.G.synthesis.block_resolutions[-1]
+    real8 = torch.rand((2 * BATCH_B, res, res, 3), generator=gen, device=dev)
+    eq = (1.0, 0, False)  # the largest activations: no EQ shrink
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    peaks, c = remat_steps(tr, real8[:BATCH_B], real8, eq, card)
+    add(c)
+    add(accumulation_check(tr, real8, eq, card))
+    add(nccl_world1(tr, real8[:BATCH_B], eq, card))
+    del tr, real8
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(published_batch(card, tmp, peaks))
+    print(f"[batch] launches: { {k: v for k, v in counts.items() if v} }; phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return counts
 
 
 TOOLS_IMAGES = 72  # two B=32 batches and a B=8 tail
@@ -4144,6 +4753,7 @@ def main() -> int:
     ap.add_argument("--determinism-trials", type=int, default=1,
                     help="batches of the deterministic kernel/plain/fp32 step (default 1)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "vfm_vae_tpu_torch")):
         raise SystemExit("chip_smoke: the vfm_vae_tpu_torch package is not beside this script")
     sys.path.insert(0, HERE)
@@ -4267,6 +4877,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="vfm_recipe_")
     try:
         launches["recipe"], snapshot, stage3_yaml = recipe_phase(card, tmp)
+        launches["batch"] = batch_phase(card, os.path.join(tmp, "batch"))
         launches.update(tools_phase(card, snapshot, stage3_yaml, os.path.join(tmp, "tools")))
         launches.update(diffusion_phase(card, snapshot, stage3_yaml, os.path.join(tmp, "tools"),
                                         os.path.join(tmp, "diffusion")))
@@ -4279,6 +4890,8 @@ def main() -> int:
         entries.append(dict(name=name, route="cuda", source=SOURCES[name][0],
                             replaces=SOURCES[name][1], launches=sum(by_path.values()),
                             launches_by_path=by_path, **s))
+    print(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s on {card}",
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,14 @@ once more with every K1, K2 and K3 call checked against its twins on that
 call's own inputs: the forward against the bf16 twin under
 chip_smoke.TOLERANCES, and the gradients of the inputs for a fixed
 cotangent against the fp32 twin's, each no further from them than the
-bf16 twin's times TRUTH_FACTOR (chip_smoke's function_grad_phase rule).
-Prints the card's name and power limit first.
+bf16 twin's times TRUTH_FACTOR (chip_smoke's function_grad_phase rule),
+and (3) traces the kernel and plain paths' activations and the gradients
+reaching them, module by module through the whole [D, G] evaluation,
+against the fp32 path's (trace_blocks): where the kernel path's error first
+departs from the plain path's; and, for every module whose gradient norm
+the kernel path gets further from fp32 than the gate allows, the
+parameters that carry that error (parameter_errors). Prints the card's
+name and power limit first.
 """
 
 from __future__ import annotations
@@ -151,6 +157,77 @@ class site_twins:
         return bad
 
 
+def traced_modules(prefix: str, module) -> dict:
+    """The modules whose outputs trace_blocks follows: the encoder, the
+    adapter's parts, the mapping, every z injector, synthesis block and its
+    upsamples (K2), ConvNeXt layers (K1), attentions (K3) and to-RGB, and
+    D's backbone and heads."""
+    import re
+
+    keep = re.compile(r"(vfm_encoder|ldm_adapter\.[^.]+|mapping|synthesis\.z_convs\.\d+"
+                      r"|synthesis\.blocks\.\d+(\.(conv0|convs1\.\d+|self_attns\.\d+"
+                      r"|seperate_upsample_conv|last_upsample_conv|torgb))?|dino|heads)")
+    return {f"{prefix}.{n}": m for n, m in module.named_modules() if keep.fullmatch(n)}
+
+
+class trace_blocks:
+    """For the length of a `with`: every output of the traced modules of a
+    trainer's G and D (traced_modules), by module and call, and the
+    gradients that reach each output in each backward pass. With `ref` None
+    the values are kept in fp32 (the fp32 path's); otherwise each is
+    replaced by its relative L2 distance from the `ref` value of the same
+    name ({name: ||x - ref|| / ||ref||})."""
+
+    def __init__(self, tr, ref=None):
+        self.mods = {**traced_modules("G", tr.G), **traced_modules("D", tr.D)}
+        self.ref, self.values, self.count, self.handles = ref, {}, {}, []
+
+    @staticmethod
+    def tensors(out) -> list:
+        import torch
+
+        if torch.is_tensor(out):
+            return [out]
+        if isinstance(out, (tuple, list)):
+            return [t for o in out for t in trace_blocks.tensors(o)]
+        if hasattr(out, "__dict__"):
+            return [t for o in vars(out).values() for t in trace_blocks.tensors(o)]
+        return []
+
+    def take(self, key: str, t) -> None:
+        t = t.detach().float()
+        if self.ref is None:
+            self.values[key] = t.clone()
+        elif key in self.ref and self.ref[key].shape == t.shape:
+            f = self.ref[key]
+            self.values[key] = float((t - f).norm() / f.norm().clamp_min(1e-30))
+
+    def hook(self, name: str):
+        def forward(module, args, out):
+            call = self.count.get(name, 0)
+            self.count[name] = call + 1
+            for j, t in enumerate(self.tensors(out)):
+                key = f"{name}#{call}.{j}"
+                self.take(key, t)
+                if t.requires_grad:
+                    passes = [0]
+
+                    def backward(g, key=key, passes=passes):
+                        self.take(f"d {key} pass {passes[0]}", g)
+                        passes[0] += 1
+
+                    t.register_hook(backward)
+        return forward
+
+    def __enter__(self):
+        self.handles = [m.register_forward_hook(self.hook(n)) for n, m in self.mods.items()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
 class Evaluation:
     """The gate's quantities of stage 2's trainer `tr` and an fp32 plain
     copy on the same weights, with the buffers reset before each run."""
@@ -158,7 +235,7 @@ class Evaluation:
     def __init__(self, tr, state, build_fp32, label: str):
         import torch
 
-        self.tr, self.state, self.label = tr, state, label
+        self.tr, self.state, self.label, self.grads = tr, state, label, None
         self.dev = next(tr.G.parameters()).device
         self.bufs = {"G": {k: v.clone() for k, v in tr.G.named_buffers()},
                      "D": {k: v.clone() for k, v in tr.D.named_buffers()}}
@@ -195,9 +272,12 @@ class Evaluation:
             for k, v in mod.named_buffers():
                 v.copy_(self.bufs[key][k])
         t.record_grad_norms, t.grad_norms = True, {}
-        _, d_total, _ = t.d_gradients(st, img, eq)
-        _, terms, _, _, g_total = t.g_gradients(st, img, eq, update_buffers=False)
+        d_grads, d_total, _ = t.d_gradients(st, img, eq)
+        g_grads, terms, _, _, g_total = t.g_gradients(st, img, eq, update_buffers=False)
         t.record_grad_norms = False
+        # The last run's gradients by parameter, as the gate's norms name them.
+        self.grads = {**{"D." + n: g.detach().float() for n, g in zip(t.d_params, d_grads)},
+                      **{"G." + n: g.detach().float() for n, g in zip(t.g_params, g_grads)}}
         out = {"D total": float(d_total), "G total": float(g_total)}
         out.update({"G " + n: float(v) for n, v in zip(G_TERMS, terms) if float(v) != 0.0})
         groups = {}
@@ -259,7 +339,75 @@ class Evaluation:
                         trial, eq)
         with site_twins() as sites:
             self.run(False, img, eq)
+        self.trace(trial, img, eq)
         return sites.report(f"{self.label} trial {trial} sites")
+
+    def trace(self, trial: int, img, eq) -> None:
+        """The kernel path's and the plain path's activations and the
+        gradients reaching them, module by module in the order the [D, G]
+        evaluation runs them, against the fp32 path's: each one's relative
+        L2 error, and where the kernel path's error first exceeds the plain
+        path's by TRUTH_FACTOR (forward, then gradients)."""
+        with trace_blocks(self.tr32) as exact:
+            self.run(True, img, eq)
+        grads = {"fp32": self.grads}
+        errs = {}
+        for name, twins in (("kernels", ()), ("plain", KINDS)):
+            self.set_plain(twins)
+            with trace_blocks(self.tr, ref=exact.values) as t:
+                self.run(False, img, eq)
+            errs[name], grads[name] = t.values, self.grads
+        self.set_plain(())
+        self.grads = None
+        self.parameter_errors(trial, eq, grads)
+        keys = [k for k in exact.values if k in errs["kernels"] and k in errs["plain"]]
+        del exact
+        tag = f"[{self.label} trial {trial} trace]"
+        first = {}
+        for k in keys:
+            ek, ep = errs["kernels"][k], errs["plain"][k]
+            ratio = max(ek, 1e-6) / max(ep, 1e-6)
+            kind = "gradient" if k.startswith("d ") else "forward"
+            if ratio > cs.TRUTH_FACTOR and kind not in first:
+                first[kind] = k
+            print(f"{tag} {k}: kernels {ek:.3e} plain {ep:.3e} ratio {ratio:.3f}", flush=True)
+        print(f"{tag} {len(keys)} outputs and gradients on {eq}; first past {cs.TRUTH_FACTOR}x "
+              f"the plain path's error vs fp32: forward {first.get('forward')}, gradient "
+              f"{first.get('gradient')}", flush=True)
+
+    def parameter_errors(self, trial: int, eq, grads: dict) -> None:
+        """Where the gate's per-module gradient norms part: for every module
+        whose norm the kernel path gets further from fp32 than TRUTH_FACTOR
+        times the plain path does, its parameters with the largest share of
+        the kernel path's norm error (the difference of squared norms), each
+        with its own norm's and its tensor's relative errors, kernel and
+        plain."""
+        f, k, p = grads["fp32"], grads["kernels"], grads["plain"]
+        sq = {path: {n: float(g.square().sum()) for n, g in gs.items()}
+              for path, gs in grads.items()}
+        groups: dict = {}
+        for n in f:
+            groups.setdefault(".".join(n.split(".")[:4]), []).append(n)
+        tag = f"[{self.label} trial {trial} parameters]"
+        for key, names in groups.items():
+            nf, nk, np_ = (math.sqrt(sum(sq[path][n] for n in names))
+                           for path in ("fp32", "kernels", "plain"))
+            ek, ep = abs(nk - nf) / max(nf, 1e-30), abs(np_ - nf) / max(nf, 1e-30)
+            if max(ek, 1e-6) / max(ep, 1e-6) <= cs.TRUTH_FACTOR:
+                continue
+            share = sorted(names, key=lambda n: -abs(sq["kernels"][n] - sq["fp32"][n]))
+            parts = []
+            for n in share[:5]:
+                g = f[n].norm().clamp_min(1e-30)
+                part = abs(sq["kernels"][n] - sq["fp32"][n]) / max(abs(nk * nk - nf * nf), 1e-30)
+                rel_k, rel_p = (abs(math.sqrt(sq[path][n]) - float(g)) / float(g)
+                                for path in ("kernels", "plain"))
+                parts.append(
+                    f"{n} (|g| {float(g):.3e}, share {part:.2f}; norm rel kernels {rel_k:.2e} "
+                    f"plain {rel_p:.2e}; tensor rel kernels {float((k[n] - f[n]).norm() / g):.2e} "
+                    f"plain {float((p[n] - f[n]).norm() / g):.2e})")
+            print(f"{tag} {key} on {eq}: norm rel vs fp32 kernels {ek:.3e} plain {ep:.3e}; "
+                  f"largest shares: " + "; ".join(parts), flush=True)
 
     def close(self) -> None:
         del self.tr32, self.state32

@@ -30,6 +30,7 @@ from vfm_vae_tpu_torch.models.generator import Generator
 from vfm_vae_tpu_torch.train.diffaug import cutout_size, diff_augment, translation_shift
 from vfm_vae_tpu_torch.train.loss import ImageTransform, TotalLoss
 from vfm_vae_tpu_torch.train.lpips import LPIPS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY_DINO = dict(hidden_size=48, num_layers=2, num_heads=4, mlp_dim=96, patch_size=8,
                  image_size=32, hooks=(0, 1), hook_patch=True)

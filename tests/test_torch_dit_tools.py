@@ -17,6 +17,7 @@ the model.
 import json
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -284,10 +285,18 @@ def test_vfm_mode_refuses_other_towers(tmp_path):
 
 
 def test_trainers_refuse_several_processes(rig, monkeypatch):
+    """Several processes are ported (tests/test_torch_distributed.py); a
+    trainer told WORLD_SIZE=2 with no rendezvous to reach refuses to start
+    rather than train alone as if it were the whole world."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     for tool, cfg in ((lightningdit_train, rig["dit_cfg"]), (reg_train, rig["reg_cfg"])):
-        with pytest.raises(NotImplementedError, match="several processes"):
+        t0 = time.perf_counter()
+        with pytest.raises(ValueError, match="MASTER_ADDR"):
             tool.main(["--config", cfg, "--device", "cpu"])
+        assert time.perf_counter() - t0 < 60
+        assert not torch.distributed.is_initialized()
 
 
 def test_tools_need_the_card_unless_asked_for_the_cpu(rig, tmp_path):

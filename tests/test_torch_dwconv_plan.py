@@ -11,6 +11,7 @@ import torch
 
 from vfm_vae_tpu_torch.ops.kernels import dwconv_stats as dws
 from vfm_vae_tpu_torch.ops.kernels._build import CSRC
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (C, H = W, k) of the flagship decode's 38 ConvNeXt dwconvs
 # (entry.kernel_sites(G, 256)), and ragged maps off the tiles: (C, H, W, k).

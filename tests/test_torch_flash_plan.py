@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block can use on the H100
 H100_SMS = 132

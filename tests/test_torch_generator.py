@@ -27,6 +27,7 @@ from vfm_vae_tpu_torch.models.convnext import ConvNeXtSynthesisLayer, SeparableU
 from vfm_vae_tpu_torch.models.generator import Generator
 from vfm_vae_tpu_torch.models.gigagan import SelfAttention
 from vfm_vae_tpu_torch.ops import kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -33,6 +33,7 @@ from vfm_vae_tpu_torch.models.generator import Generator
 from vfm_vae_tpu_torch.ops import kernels, quantized
 from vfm_vae_tpu_torch.ops.attention import dot_product_attention
 from vfm_vae_tpu_torch.ops.kernels.int8_matmul import quantize_activations
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def matmul_inputs(M=64, K=256, N=128, seed=0, ties=True):

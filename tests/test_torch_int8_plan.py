@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from vfm_vae_tpu_torch.ops.kernels._build import CSRC
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 mod = importlib.import_module("vfm_vae_tpu_torch.ops.kernels.int8_matmul")
 

@@ -21,6 +21,7 @@ from vfm_vae_tpu.ops.pallas.fused_mlp import fused_convnext_mlp as j_mlp
 from vfm_vae_tpu.ops.pallas.fused_upsample import fused_upsample_blur as j_upsample
 from vfm_vae_tpu_torch.ops import kernels
 from vfm_vae_tpu_torch.ops.kernels import _build
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TAPS = {3: [0.25, 0.5, 0.25], 5: [1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16]}
 

@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from vfm_vae_tpu_torch.ops.kernels import fused_mlp as fm
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (C, H) of the flagship decode's K1 sites, of the stage-0 EQ decodes (z of
 # 4, 8 and 12 px: H from 2 to 192) and the card test's ragged H x W.

@@ -22,6 +22,7 @@ from vfm_vae_tpu_torch.models import convert
 from vfm_vae_tpu_torch.models import convnext as tcx
 from vfm_vae_tpu_torch.models import gigagan as tgg
 from vfm_vae_tpu_torch.models import vit as tvit
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RANDOMIZED = ("gamma", "noise_strength", "null_kv")
 

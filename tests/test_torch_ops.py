@@ -18,6 +18,7 @@ from vfm_vae_tpu_torch.ops import bias_act as tbias
 from vfm_vae_tpu_torch.ops import groupnorm as tgn
 from vfm_vae_tpu_torch.ops import pixelshuffle as tps
 from vfm_vae_tpu_torch.ops import resize as trs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def rng(seed=0):

@@ -240,7 +240,8 @@ def test_cli_and_loop_refuse_what_is_unported(rig, tmp_path):
     c = stage_config(rig, 0)
     c.run_dir = str(tmp_path / "run")
     # (`metrics` is ported: tests/test_torch_tools.py runs recon_suite in the loop.)
-    for key, value in (("fused_phases", True), ("accumulate_gradients", 2)):
+    # (accumulate_gradients is ported: tests/test_torch_accumulation.py.)
+    for key, value in (("fused_phases", True),):
         with pytest.raises(NotImplementedError, match=key):
             run_cli(tmp_path, dict(c, **{key: value}), key)
     warm = stage_config(rig, 0)

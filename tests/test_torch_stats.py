@@ -30,6 +30,7 @@ from vfm_vae_tpu_torch.entry import kernel_sites
 from vfm_vae_tpu_torch.models import convert
 from vfm_vae_tpu_torch.models.generator import Generator
 from vfm_vae_tpu_torch.ops import groupnorm, kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SWITCHES = {"VFM_VAE_PALLAS_STATS": "1", "VFM_VAE_MLP_PIPELINE": "1",
             "VFM_VAE_USE_PALLAS_FLASH": "1", "VFM_VAE_ADAPTER_ATTN": "3mm-flash"}

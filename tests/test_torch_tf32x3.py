@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from vfm_vae_tpu_torch.ops.kernels import flash_attention as fa
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FLASH_FP32_MAX_REL = 1e-5  # chip_smoke.py: K4 fp32 against its twin
 TRUTH_FACTOR = 1.5         # chip_smoke.py: against fp64, x the twin's error

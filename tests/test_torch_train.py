@@ -44,6 +44,7 @@ from vfm_vae_tpu_torch.train.loss import G_TERMS, TotalLoss
 from vfm_vae_tpu_torch.train.lpips import LPIPS, build_lpips
 from vfm_vae_tpu_torch.train.optim import adam, ema_beta, ema_update
 from vfm_vae_tpu_torch.train.train_step import Trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RES = 64
 TINY_DINO = dict(hidden_size=48, num_layers=2, num_heads=4, mlp_dim=96, patch_size=8,
@@ -330,8 +331,13 @@ def test_unported_configurations_raise(port_rig):
     with pytest.raises(NotImplementedError):
         TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
                   **dict(LOSS_KW, use_patchgan_disc_warmup=True))
-    with pytest.raises(NotImplementedError):
-        Trainer(tr.loss, set(), set(), num_accumulation=2)
+    # Accumulation is ported; a batch that num_accumulation does not divide
+    # is refused, as the JAX package's assert B % n == 0 (train_step.py:72).
+    acc = Trainer(tr.loss, set(tr.g_params), set(tr.d_params), num_accumulation=3)
+    with pytest.raises(ValueError, match="not divisible into 3 microbatches"):
+        acc.d_step(acc.init_state(), torch.zeros(2, RES, RES, 3), BUCKETS[0])
+    with pytest.raises(ValueError, match="not divisible into 3 microbatches"):
+        acc.g_step(acc.init_state(), torch.zeros(2, RES, RES, 3), BUCKETS[0])
     with pytest.raises(NotImplementedError):
         ProjectedDiscriminator(c_dim=10, dino_kwargs=TINY_DINO)
     with pytest.raises(NotImplementedError):

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from vfm_vae_tpu_torch.ops.kernels import fused_upsample as fu
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (Ci, Co, H, taps) of the flagship decode's K2 sites (the separate and the
 # last upsample of blocks 1-5: entry.kernel_sites), of the stage-0 EQ

@@ -33,6 +33,29 @@ def merge(a: Dict[str, Moments], b: Dict[str, Moments]) -> Dict[str, Moments]:
     return out
 
 
+def sync_across_processes(stats: Dict[str, Moments]) -> Dict[str, Moments]:
+    """The moments summed over the processes (reference:
+    training_stats.py:234 _sync; JAX core/stats.py:104): one all-reduce of
+    the stacked [n, sum(x), sum(x^2)] rows. Every process must hold the same
+    names. The identity without a process group."""
+    from ..parallel.mesh import active
+
+    if not active() or not stats:
+        return stats
+    import torch.distributed as dist
+
+    names = sorted(stats)
+    stacked = torch.stack([torch.as_tensor(stats[n]).detach().double().reshape(3)
+                           for n in names])
+    dev = torch.device("cpu")
+    if dist.get_backend() == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    stacked = stacked.to(dev)
+    dist.all_reduce(stacked)
+    stacked = stacked.cpu()
+    return {n: stacked[i] for i, n in enumerate(names)}
+
+
 class Collector:
     """Host-side drain of accumulated moments (reference:
     training_stats.py:113). `update(stats)` ingests a {name: (3,)} dict of

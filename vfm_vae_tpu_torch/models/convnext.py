@@ -12,7 +12,9 @@ package's unfused chain.
 
 from __future__ import annotations
 
+import contextlib
 import math
+
 import numpy as np
 import torch
 
@@ -26,6 +28,19 @@ from .modulated import ModulatedPointwiseConv2DLayer, demod_coefs
 # Binomial low-pass kernels (convnext_utils.py:190-194).
 GAUSSIAN_KERNELS = {"3x3": [1, 2, 1], "4x4": [1, 3, 3, 1], "5x5": [1, 4, 6, 4, 1]}
 LAYER_SCALE_INIT = 1e-5
+_NAME_SCOPE: list = []
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Ops run inside the block carry `name` for the "names" remat policy
+    (synthesis.remat_policy; the port's counterpart of
+    jax.ad_checkpoint.checkpoint_name)."""
+    _NAME_SCOPE.append(name)
+    try:
+        yield
+    finally:
+        _NAME_SCOPE.pop()
 
 
 class ConvNeXtSynthesisLayer(Module):
@@ -61,7 +76,10 @@ class ConvNeXtSynthesisLayer(Module):
         dt = x.dtype
         x_in = x
         style = self.affine_pw1(w).float()
-        x = self.dwconv(x)
+        # Named for the "names" remat policy (convnext.py:59-62): the map
+        # that K1's backward takes as its residual.
+        with checkpoint_name("dwconv_out"):
+            x = self.dwconv(x)
         if self.legacy:
             H, W = x.shape[1], x.shape[2]
             noise = (self.noise_const * self.noise_strength)[None, :, :, None]

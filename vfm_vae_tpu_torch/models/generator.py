@@ -23,7 +23,7 @@ from ..ops.resize import resize_bilinear, rot90
 from .adapter import LDMAdapter
 from .dataclasses import GeneratorForwardOutput
 from .layers import Module, init_parameters
-from .synthesis import MappingNetwork, SynthesisNetwork, pooled_z
+from .synthesis import MappingNetwork, SynthesisNetwork, pooled_z, remat_policy
 from .vfm import VFMEncoder
 
 # Keywords of the flagship and tiny configurations that no port computation reads.
@@ -77,6 +77,7 @@ class Generator(Module):
         cos_margin: float = 0.0,
         distmat_weight: float = 1.0,
         cos_weight: float = 1.0,
+        remat=False,
         dtype: torch.dtype = torch.float32,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -102,11 +103,16 @@ class Generator(Module):
         if bad:
             raise NotImplementedError(f"Generator: not ported for {bad}")
         sk = dict(synthesis_kwargs or {})
+        # Rematerialisation (generator.py:93-96): the policy checkpoints each
+        # ConvNeXt layer (synthesis.remat_policy); the tower takes any truthy
+        # value as a checkpoint per ViT block.
+        self.remat = remat_policy(remat)
         self.z_pooled_resolution = z_pooled_resolution
         z_resolution = img_resolution // resolution_compression_factor
         z_dim_concat = z_dimension * decompress_factor
 
-        self.vfm_encoder = VFMEncoder(vfm_name, scale_factor, patch_from_layers, dtype, device)
+        self.vfm_encoder = VFMEncoder(vfm_name, scale_factor, patch_from_layers, dtype, device,
+                                      remat=self.remat is not None)
         patch = self.vfm_encoder.patch_size
         if (img_resolution * scale_factor) % patch:
             raise ValueError("img_resolution * scale_factor must be a multiple of the patch size")
@@ -128,7 +134,7 @@ class Generator(Module):
             attn_block_indices=attn_block_indices if use_self_attn else (),
             attn_depths=attn_depths if use_self_attn else (),
             add_additional_convnext=add_additional_convnext,
-            legacy=legacy, dtype=dtype, device=device,
+            legacy=legacy, dtype=dtype, remat=self.remat, device=device,
         )
         self.mapping = MappingNetwork(
             z_dim_concat * z_pooled_resolution ** 2, z_dim_for_mapping_mlp_output,

@@ -5,17 +5,132 @@ the reference: blocks.N.*, z_convs.N.* (nn.Sequential indices)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.bias_act import apply_activation
 from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
 from ..ops.resize import adaptive_avg_pool2d
-from .convnext import ConvNeXtSynthesisLayer, ConvNeXtToRGBLayer, SeparableUpsampleWithFixedBlur
+from .convnext import (
+    _NAME_SCOPE,
+    ConvNeXtSynthesisLayer,
+    ConvNeXtToRGBLayer,
+    SeparableUpsampleWithFixedBlur,
+)
 from .gigagan import SelfAttentionBlock
 from .layers import MLP, Conv2d, GroupNorm32, Module, holder, normalize_2nd_moment
+
+
+def remat_policy(remat) -> Optional[str]:
+    """The remat knob (synthesis.py:43-68) as None, "full", "dots" or "names":
+      False / None / "none" -- no rematerialisation;
+      True / "full"         -- every activation of a ConvNeXt layer recomputed
+                               in the backward;
+      "dots"                -- the outputs of plain products (mm, addmm, bmm,
+                               baddbmm) kept, the rest recomputed;
+      "names"               -- the dwconv's outputs kept (what runs inside
+                               checkpoint_name("dwconv_out"): the convolution,
+                               its NHWC copy and the bias add), the rest
+                               recomputed.
+    Unknown values raise, as in the JAX package."""
+    if remat is None or remat is False or remat == "none":
+        return None
+    if remat is True or remat == "full":
+        return "full"
+    if remat in ("dots", "names"):
+        return remat
+    raise ValueError(f"unknown remat policy: {remat!r}")
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(op) -> bool:
+    return op in _DOTS
+
+
+def _dwconv_out_saveable(op) -> bool:
+    # Views (detach among them) are recomputed: they cost no work, and a kept
+    # view cannot be handed back as a fresh tensor.
+    return bool(_NAME_SCOPE) and _NAME_SCOPE[-1] == "dwconv_out" and not op.is_view
+
+
+_SELECTIVE = {"dots": _dots_saveable, "names": _dwconv_out_saveable}
+
+
+class _Keep(TorchDispatchMode):
+    """The forward of a checkpointed layer: the outputs of the ops that the
+    policy selects are kept, in order, per op."""
+
+    def __init__(self, saveable, kept: dict):
+        super().__init__()
+        self.saveable, self.kept = saveable, kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.saveable(func):
+            self.kept.setdefault(func, []).append(
+                tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor) else t, out))
+        return out
+
+
+class _Replay(TorchDispatchMode):
+    """The recompute in a backward: the selected ops hand back what the
+    forward kept, every other op runs again. Each backward pass that
+    reaches the layer replays it from the start (the G step's anchor pull
+    and its training pull both do), which torch's own selective checkpoint
+    refuses."""
+
+    def __init__(self, saveable, kept: dict):
+        super().__init__()
+        self.saveable, self.kept, self.seen = saveable, kept, {}
+
+    def __enter__(self):
+        self.seen = {}
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.saveable(func):
+            return func(*args, **(kwargs or {}))
+        i = self.seen.get(func, 0)
+        self.seen[func] = i + 1
+        return tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor) else t,
+                        self.kept[func][i])
+
+
+def _selective_contexts(saveable):
+    kept: dict = {}
+    return _Keep(saveable, kept), _Replay(saveable, kept)
+
+
+def run_checkpointed(fn, policy: Optional[str], *args):
+    """fn(*args) under torch.utils.checkpoint (non-reentrant) with `policy`
+    (remat_policy's values), where a gradient is recorded; else plainly.
+
+    The hand-written kernels are torch.autograd.Functions over ctypes
+    launches, which no aten-level policy sees: under every policy K1's
+    forward runs again in the backward of each checkpointed layer (its
+    Function saves its inputs, not its output), where JAX's "dots" and
+    "names" keep the Pallas call's residuals. The selective policies keep
+    what their aten ops produce and hand it back in the recompute, so the
+    numbers do not depend on the policy; torch replays every other op of
+    the layer, where XLA drops the ones whose results are not needed. No
+    random draw and no buffer update lies inside a ConvNeXt layer (the
+    legacy noise is the noise_const buffer, read only), so the replay needs
+    none of the explicit generators' states."""
+    if policy is None or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(_selective_contexts, _SELECTIVE[policy]))
 
 
 def synthesis_channels(img_resolution: int, num_blocks: int, channel_base: int, channel_max: int):
@@ -116,11 +231,12 @@ class SynthesisBlock(Module):
                  last_out_channels: Optional[int], w_dim: int, img_channels: int,
                  is_first: bool, num_res_blocks: int, attn_depth: int,
                  add_additional_convnext: bool = False, legacy: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, remat=None, device=None):
         super().__init__()
         if in_channels == 0:
             raise NotImplementedError("the Fourier SynthesisInput first block is not ported")
         self.dtype = dtype
+        self.remat = remat_policy(remat)
         kernel_size = 5 if block_index <= 1 else 7
         blur = "3x3" if block_index <= 2 else "5x5"
         per_res = 3 if (block_index <= 3 and add_additional_convnext) else 2
@@ -144,9 +260,9 @@ class SynthesisBlock(Module):
 
     def forward(self, x, x_sum, ws):
         x = self.seperate_upsample_conv(x.to(self.dtype))
-        x = self.conv0(x, ws[:, 0])
+        x = run_checkpointed(self.conv0, self.remat, x, ws[:, 0])
         for i, layer in enumerate(self.convs1):
-            x = layer(x, ws[:, 1 + i])
+            x = run_checkpointed(layer, self.remat, x, ws[:, 1 + i])
         for blk in self.self_attns:
             x = blk(x)
         x = x.to(self.dtype)
@@ -165,7 +281,8 @@ class SynthesisNetwork(Module):
                  concat_z_mapped_dims: Sequence[int] = (), activation_for_concat_z: str = "gelu",
                  attn_block_indices: Sequence[int] = (), attn_depths: Sequence[int] = (),
                  add_additional_convnext: bool = False,
-                 legacy: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 legacy: bool = False, dtype: torch.dtype = torch.float32, remat=None,
+                 device=None):
         super().__init__()
         block_res, channels = synthesis_channels(img_resolution, num_blocks, channel_base,
                                                  channel_max)
@@ -185,7 +302,7 @@ class SynthesisNetwork(Module):
                 idx, in_ch, channels[idx], channels[idx - 1] if idx > 0 else None, w_dim,
                 img_channels, idx == 0, num_res_blocks, depth,
                 add_additional_convnext=add_additional_convnext, legacy=legacy, dtype=dtype,
-                device=device))
+                remat=remat, device=device))
         self.blocks = nn.ModuleList(blocks)
         self.z_convs = nn.ModuleDict(zconvs)
         self.num_ws = sum(b.num_ws for b in blocks)

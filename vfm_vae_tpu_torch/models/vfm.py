@@ -67,7 +67,7 @@ class VFMEncoder(Module):
     layer-index convention (vfm_utils.py:26-123, siglip2_utils.py:94-137)."""
 
     def __init__(self, model_name: str, scale_factor: float, patch_from_layers: Sequence[int],
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, remat: bool = False):
         super().__init__()
         if "siglip" not in model_name.lower():
             raise NotImplementedError(f"only the SigLIP family is ported: {model_name!r}")
@@ -80,7 +80,7 @@ class VFMEncoder(Module):
         tower = SigLIPVisionTower(
             hidden_size=p["hidden_size"], num_layers=p["num_layers"], num_heads=p["num_heads"],
             mlp_dim=p["mlp_dim"], patch_size=p["patch_size"], image_size=p["image_size"],
-            device=device,
+            remat=remat, device=device,
         )
         self.encoder = holder(vision_model=holder(vision_model=tower))
         self.requires_grad_(False)

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from ..ops.bias_act import apply_activation
@@ -152,8 +153,11 @@ class SigLIPVisionTower(Module):
 
     def __init__(self, hidden_size: int = 1024, num_layers: int = 24, num_heads: int = 16,
                  mlp_dim: int = 4096, patch_size: int = 16, image_size: int = 512,
-                 eps: float = 1e-6, device=None):
+                 eps: float = 1e-6, remat: bool = False, device=None):
         super().__init__()
+        # A checkpoint per block where a gradient is recorded (vit.py:401,
+        # :446); the frozen tower's encode records none, so there it is idle.
+        self.remat = bool(remat)
         self.grid = image_size // patch_size
         self.embeddings = holder(
             patch_embedding=_PatchEmbedding(3, hidden_size, patch_size, device=device),
@@ -176,7 +180,10 @@ class SigLIPVisionTower(Module):
         want = set(collect) if collect is not None else set(range(len(layers) + 1))
         hidden: Dict[int, torch.Tensor] = {0: x} if 0 in want else {}
         for i, block in enumerate(layers):
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
             if i + 1 in want:
                 hidden[i + 1] = x
         return hidden, self.post_layernorm(x)

@@ -1,1 +1,2 @@
-"""Work splitting for the offline tools (one process per card)."""
+"""Several processes: data-parallel training (mesh.py) and the offline
+tools' work split (serving.py), one process per card."""

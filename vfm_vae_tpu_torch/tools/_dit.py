@@ -2,8 +2,19 @@
 tools/preprocess_for_lightningdit/sample.py:21 build_dit, one size map for
 the trainer and the sampler, with the dev size "T"), the REG SiT and its
 REPA projector (tools/preprocess_for_reg/train.py:68 build_reg), the
-one-card flow-matching trainer (AdamW, EMA 0.9999) and its loop, and the
-sampler CLI that both samplers run.
+flow-matching trainer (AdamW, EMA 0.9999) and its loop, and the sampler
+CLI that both samplers run.
+
+The trainers run in one process or, under torchrun, in several
+(parallel/mesh.py, tools/preprocess_for_lightningdit/train.py:107-156):
+every process draws the same global batch from the seeded numpy generator
+and the same draws (time, noise, class dropout, the posterior's noise) for
+the whole of it, takes its 1/world slice, and the gradients are averaged
+over the processes; AdamW and the EMA run replicated and rank 0 writes the
+snapshots. The JAX trainers hand every process the whole global batch,
+which shard_batch then takes as that process's slice (mesh.py:110-127), so
+the batch they step is world x global_batch_size with duplicates; the port
+steps global_batch_size.
 
 Precision: the JAX trainers compute in fp32, so these tools build fp32
 models and keep TF32 off (entry.configure_precision).
@@ -115,19 +126,24 @@ def snapshot_params(path: str):
 
 
 class DiTTrainer:
-    """Flow-matching training on one device: the DiT (with the REPA
-    projector, a {"dit", "proj"} parameter tree), torch.optim.AdamW (the
-    decoupled decay of optax.adamw) and an EMA of every parameter updated
-    after each step as ema * 0.9999 + param * 0.0001. Draws (time, noise,
-    class dropout; the posterior noise first for moments) come from
-    `draws`, a torch.Generator on the device, unless `loss` is given them."""
+    """Flow-matching training: the DiT (with the REPA projector, a {"dit",
+    "proj"} parameter tree), torch.optim.AdamW (the decoupled decay of
+    optax.adamw) and an EMA of every parameter updated after each step as
+    ema * 0.9999 + param * 0.0001. Draws (time, noise, class dropout; the
+    posterior noise first for moments) come from `draws`, a torch.Generator
+    on the device, unless `loss` is given them. Batches are global: under
+    several processes each takes its slice after the draws, and the
+    parameters start from rank 0's."""
 
     def __init__(self, model, projector, lr: float, betas: Tuple[float, float],
                  weight_decay: float, use_lognorm: bool, use_cosine_loss: bool,
                  repa_weight: float, draws: torch.Generator):
+        from ..parallel.mesh import broadcast_modules
+
         self.model, self.projector = model, projector
         self.net = (torch.nn.ModuleDict({"dit": model, "proj": projector})
                     if projector is not None else model)
+        broadcast_modules([self.net])
         self.opt = torch.optim.AdamW(self.net.parameters(), lr=lr, betas=betas, eps=1e-8,
                                      weight_decay=weight_decay)
         self.ema = {n: p.detach().clone() for n, p in self.net.named_parameters()}
@@ -147,25 +163,37 @@ class DiTTrainer:
                                   self.model.class_dropout_prob, z.device)
 
     def loss(self, z, y, repa_targets=None, draws=None):
+        """The loss of this process's slice of the global batch `z`, `y`
+        (and `repa_targets`), with the draws made for the whole of it."""
+        from ..parallel.mesh import rank_slice
         from ..train.transport import flow_matching_loss
 
         t, noise, drop = draws if draws is not None else self.draw(z)
-        return flow_matching_loss(self.model_fn, z, y, t, noise, drop, self.use_lognorm,
-                                  self.use_cosine_loss,
-                                  repa_targets if self.projector is not None else None,
-                                  self.repa_weight)[0]
+        part = lambda x: None if x is None else rank_slice(x)  # noqa: E731
+        targets = repa_targets if self.projector is not None else None
+        return flow_matching_loss(self.model_fn, part(z), part(y), part(t), part(noise),
+                                  part(drop), self.use_lognorm, self.use_cosine_loss,
+                                  part(targets), self.repa_weight)[0]
 
     def step(self, z, y, repa_targets=None) -> torch.Tensor:
-        """One AdamW step on the flow-matching loss of latents `z` (NHWC)
-        and labels `y`, then the EMA; returns the loss (detached)."""
+        """One AdamW step on the flow-matching loss of the global batch of
+        latents `z` (NHWC) and labels `y`, then the EMA; returns the loss
+        (detached; the mean over the processes)."""
+        from ..parallel.mesh import mean_across
+
         loss = self.loss(z, y, repa_targets)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.update()
-        return loss.detach()
+        return mean_across(loss.detach())
 
     def update(self) -> None:
-        """AdamW on the parameters' gradients, then the EMA."""
+        """The gradients averaged over the processes, AdamW, then the EMA."""
+        from ..parallel.mesh import all_reduce_mean
+
+        params = [p for p in self.net.parameters() if p.grad is not None]
+        for p, g in zip(params, all_reduce_mean([p.grad for p in params])):
+            p.grad = g
         self.opt.step()
         with torch.no_grad():
             for n, p in self.net.named_parameters():
@@ -183,34 +211,57 @@ class DiTTrainer:
         return {"params": nest(params, split), "ema": nest(self.ema, split)}
 
 
-def refuse_processes(tool: str) -> None:
-    """The trainers run on one card; several processes are not ported."""
-    from ..parallel.serving import rank_and_world
+def start_processes(device: str, tool: str):
+    """The trainer's device and whether this call made the process group:
+    under torchrun (WORLD_SIZE above 1) the group joins here (NCCL on
+    cuda:LOCAL_RANK, gloo on the CPU) and fails loudly when its rendezvous
+    cannot be reached, rather than training alone."""
+    from ..parallel.mesh import init_processes
+    from ._generator import resolve_device
 
-    if rank_and_world()[1] > 1:
-        raise NotImplementedError(f"{tool}: not ported for several processes (WORLD_SIZE > 1)")
+    return init_processes(resolve_device(device, tool))
 
 
 def train_loop(tool: str, trainer: DiTTrainer, batches: Iterator, step_args: Callable,
-               max_steps: int, log_every: int, ckpt_every: int, out_dir: str) -> dict:
+               max_steps: int, log_every: int, ckpt_every: int, out_dir: str,
+               made_group: bool = False) -> dict:
     """The trainers' loop: step_args(batch) -> the trainer's step arguments,
     a JSON line {"step", "loss", "sec"} at every log_every-th step, a
-    snapshot {"params", "ema"} at every ckpt_every-th step after step 0.
+    snapshot {"params", "ema"} at every ckpt_every-th step after step 0
+    (rank 0 writes it, the others wait for it). Under several processes it
+    ends with the replica check; a group this call made is taken down.
     Returns {"losses", "snapshots", "out_dir", "trainer"}."""
-    from ..train.checkpoint import save_snapshot
+    from ..core.logging import print0
+    from ..parallel import mesh
+    from ..train.checkpoint import save_snapshot, snapshot_name
 
+    rank = mesh.rank_and_world()[0]
+    dev = next(trainer.net.parameters()).device
     os.makedirs(out_dir, exist_ok=True)
     losses, snapshots = [], []
     t0 = time.time()
-    for step_idx in range(max_steps):
-        loss = trainer.step(*step_args(next(batches)))
-        losses.append(float(loss))
-        if step_idx % log_every == 0:
-            print(json.dumps({"step": step_idx, "loss": losses[-1], "sec": time.time() - t0}),
-                  flush=True)
-        if step_idx > 0 and step_idx % ckpt_every == 0:
-            snapshots.append(save_snapshot(out_dir, step_idx, trainer.snapshot_state()))
-    print(f"{tool}: training done", flush=True)
+    try:
+        for step_idx in range(max_steps):
+            loss = trainer.step(*step_args(next(batches)))
+            losses.append(float(loss))
+            if step_idx % log_every == 0:
+                print0(json.dumps({"step": step_idx, "loss": losses[-1],
+                                   "sec": time.time() - t0}), flush=True)
+            if step_idx > 0 and step_idx % ckpt_every == 0:
+                if rank == 0:
+                    save_snapshot(out_dir, step_idx, trainer.snapshot_state())
+                mesh.barrier(dev)
+                snapshots.append(os.path.abspath(os.path.join(out_dir,
+                                                              snapshot_name(step_idx))))
+        mesh.check_replica_consistency({
+            **{"params." + n: p for n, p in trainer.net.named_parameters()},
+            **{"ema." + n: e for n, e in trainer.ema.items()}})
+    finally:
+        if made_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    print0(f"{tool}: training done", flush=True)
     return dict(losses=losses, snapshots=snapshots, out_dir=out_dir, trainer=trainer)
 
 

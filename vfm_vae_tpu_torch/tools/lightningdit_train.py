@@ -5,15 +5,19 @@ Reads the safetensors latent shards that `prefetch` writes, normalises
 them with latents_stats.npz and latent_multiplier, and trains the DiT of
 the YAML's model_type by flow matching (lognorm times and the cosine term
 as the YAML's transport section says) with AdamW (lr, 0.9, beta2,
-weight_decay 0) and an EMA of 0.9999, on one card in fp32:
+weight_decay 0) and an EMA of 0.9999, in fp32, on one card or on several
+under torchrun (tools/_dit.py: each process steps its slice of the global
+batch):
 
     python -m vfm_vae_tpu_torch.tools.lightningdit_train --config <yaml> \\
         [--max-steps N] [--device cuda|cpu]
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m vfm_vae_tpu_torch.tools.lightningdit_train --config <yaml>
 
 The first batch serves as step 0's batch. A JSON line {step, loss, sec}
 is printed every log_every steps, and a snapshot {params, ema} written
 under output_dir/exp_name every ckpt_every steps after step 0
-(train/checkpoint.save_snapshot). Several processes are refused.
+(train/checkpoint.save_snapshot) by rank 0.
 """
 
 from __future__ import annotations
@@ -68,11 +72,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     import torch
 
     from ..entry import configure_precision
-    from ._dit import DiTTrainer, build_dit, latent_stats, refuse_processes, tool_config, train_loop
-    from ._generator import resolve_device
+    from ._dit import DiTTrainer, build_dit, latent_stats, start_processes, tool_config, train_loop
 
-    refuse_processes("lightningdit_train")
-    dev = resolve_device(args.device, "lightningdit_train")
+    dev, made_group = start_processes(args.device, "lightningdit_train")
     configure_precision()
     cfg = tool_config(args.config)
     tcfg, ocfg = cfg.get("train", {}), cfg.get("optimizer", {})
@@ -101,7 +103,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return train_loop("lightningdit_train", trainer, batches(), step_args,
                       args.max_steps or tcfg.get("max_steps", 600000), tcfg.get("log_every", 100),
                       tcfg.get("ckpt_every", 10000),
-                      os.path.join(tcfg.get("output_dir", "runs/dit"), tcfg.get("exp_name", "exp")))
+                      os.path.join(tcfg.get("output_dir", "runs/dit"), tcfg.get("exp_name", "exp")),
+                      made_group)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ AdamW(lr, 0.9, 0.999) at optax.adamw's default weight_decay 1e-4
 (decoupled decay of every parameter); with model.repa_weight > 0 the REPA
 term aligns a projector of block repa_block's tokens with the shards'
 vfm_features (prefetch --store-vfm-features), and the parameters are a
-{"dit", "proj"} tree. One card, fp32:
+{"dit", "proj"} tree. fp32, on one card or on several under torchrun as
+lightningdit_train:
 
     python -m vfm_vae_tpu_torch.tools.reg_train --config <yaml> \\
         [--max-steps N] [--device cuda|cpu]
@@ -59,11 +60,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     import torch
 
     from ..entry import configure_precision
-    from ._dit import DiTTrainer, build_reg, refuse_processes, tool_config, train_loop
-    from ._generator import resolve_device
+    from ._dit import DiTTrainer, build_reg, start_processes, tool_config, train_loop
 
-    refuse_processes("reg_train")
-    dev = resolve_device(args.device, "reg_train")
+    dev, made_group = start_processes(args.device, "reg_train")
     configure_precision()
     cfg = tool_config(args.config)
     tcfg, dcfg = cfg.get("train", {}), cfg.get("data", {})
@@ -88,7 +87,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return train_loop("reg_train", trainer, it, step_args,
                       args.max_steps or tcfg.get("max_steps", 400000), tcfg.get("log_every", 100),
                       tcfg.get("ckpt_every", 10000),
-                      os.path.join(tcfg.get("output_dir", "runs/reg"), tcfg.get("exp_name", "exp")))
+                      os.path.join(tcfg.get("output_dir", "runs/reg"), tcfg.get("exp_name", "exp")),
+                      made_group)
 
 
 if __name__ == "__main__":

@@ -4,6 +4,13 @@ training loop).
 
     python -m vfm_vae_tpu_torch.train.cli --config configs/<stage>.yaml \
         [--max-steps N] [--no-resume] [--device cuda|cpu]
+    python -m torch.distributed.run --nproc-per-node N -m vfm_vae_tpu_torch.train.cli \
+        --config configs/<stage>.yaml [--device cuda|cpu]
+
+Under torchrun (WORLD_SIZE above 1) the processes join one group, NCCL on
+the cards (process r on cuda:LOCAL_RANK) or gloo with --device cpu, and
+the YAML's batch_size is split between them (train/loop.py). Rank 0 writes
+log.txt and training_config.yaml; every process resumes the same snapshot.
 
 The run directory (`run_dir` in the YAML) receives log.txt (everything
 printed, appended across calls), training_config.yaml (the derived config
@@ -35,18 +42,21 @@ def main(argv: Optional[Sequence[str]] = None):
 
     from ..core.config import derive_config, load_config, to_plain
     from ..core.logging import Logger, print0
+    from ..parallel import mesh
     from .checkpoint import find_latest_snapshot
     from .loop import training_loop
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train.cli: no CUDA device (--device cpu trains on the CPU)")
+    device, made_group = mesh.init_processes(args.device)
+    rank = mesh.rank_and_world()[0]
     c = derive_config(load_config(args.config))
     run_dir = c.get("run_dir", "runs/default")
     os.makedirs(run_dir, exist_ok=True)
 
     # The log tee comes first, so that the auto-resume decision is in
     # run_dir/log.txt: a restarted job's log says what it resumed from.
-    logger = Logger(os.path.join(run_dir, "log.txt"), mode="a")
+    logger = Logger(os.path.join(run_dir, "log.txt") if rank == 0 else None, mode="a")
     try:
         if not args.no_resume and not c.get("resume_path"):
             latest = find_latest_snapshot(run_dir)
@@ -54,8 +64,9 @@ def main(argv: Optional[Sequence[str]] = None):
                 c["resume_path"], c["resume_kimg"] = latest
                 print0(f"[auto-resume] found {c['resume_path']} at {latest[1]} kimg")
 
-        with open(os.path.join(run_dir, "training_config.yaml"), "w") as f:
-            yaml.safe_dump(to_plain(c), f, default_flow_style=False)
+        if rank == 0:
+            with open(os.path.join(run_dir, "training_config.yaml"), "w") as f:
+                yaml.safe_dump(to_plain(c), f, default_flow_style=False)
 
         return training_loop(
             run_dir=run_dir,
@@ -87,10 +98,14 @@ def main(argv: Optional[Sequence[str]] = None):
             fused_phases=c.get("fused_phases", False),
             wandb_project_name=c.get("wandb_project_name"),
             wandb_run_name=c.get("wandb_run_name"),
-            device=args.device,
+            device=device,
         )
     finally:
         logger.close()
+        if made_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -15,10 +15,21 @@ At each snapshot tick the configured `metrics` run (loop.py:575-636):
 to metric-<name>.jsonl (and wandb) with the number of images stamped in;
 any other name is warned about and skipped (the offline tools run them).
 
-The loop runs in one process on one device (`device`, the card unless the
-caller asks for the CPU). Not ported, and refused before anything is built:
-several processes (the JAX package's mesh), fused phases, gradient
-accumulation above 1 and the discriminator warm-ups.
+`batch_size` is the global batch (configs/vfm_vae_details.yaml:125-126).
+Under several processes (a torch.distributed group, parallel/mesh.py) each
+process loads `batch_size // world` images from its own shards and steps
+them in `accumulate_gradients` microbatches; G and D start from rank 0's
+weights, the gradients are averaged over the processes, and rank 0 alone
+writes stats.jsonl, the grids and the snapshots (behind a barrier), while
+every process resumes from the same snapshot. The in-loop metrics run in a
+single process only, as in the JAX package (loop.py:578-581). The run ends
+with check_replica_consistency over G, G_ema and D. D's BatchNormLocal
+groups each microbatch by virtual_bs, so a split batch matches the unsplit
+one where every process's microbatch is a multiple of it.
+
+G's `remat` defaults as in the JAX loop (loop.py:146-149): "dots" up to 12
+images per process and microbatch, "full" above. Not ported, and refused
+before anything is built: fused phases and the discriminator warm-ups.
 """
 
 from __future__ import annotations
@@ -36,11 +47,17 @@ import torch
 from ..core.logging import format_time, print0, process_count, process_index
 from ..core.profiling import PhaseTimer, device_memory_stats, host_memory_stats
 from ..core.registry import construct_class_by_name, get_class_by_name
-from ..core.stats import Collector
+from ..core.stats import Collector, sync_across_processes
 from ..core.summary import module_summary
 from ..core.wandb_sink import WandbSink
 from ..models.adapter import EquivarianceTransform
 from ..models.generator import trainable_names, trainable_path_predicates
+from ..parallel.mesh import (
+    barrier,
+    broadcast_modules,
+    check_replica_consistency,
+    local_device,
+)
 from .checkpoint import (
     flat_keys,
     grouped_keys,
@@ -360,30 +377,36 @@ def training_loop(
     start_time = time.time()
     rank, num_processes = process_index(), process_count()
     unported = {
-        "several processes": num_processes > 1,
         "fused_phases": bool(fused_phases),
-        "accumulate_gradients": accumulate_gradients != 1,
         "use_stylegan_t_disc_warmup": bool(loss_kwargs.get("use_stylegan_t_disc_warmup")),
         "use_patchgan_disc_warmup": bool(loss_kwargs.get("use_patchgan_disc_warmup")),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"training_loop: not ported for {bad}")
-    dev = torch.device(device)
+    dev = local_device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training_loop: no CUDA device; pass device='cpu' to train on the CPU")
 
-    # EQ buckets: one host generator, eq_d then eq_g each step (loop.py:441-452);
-    # G's and D's own draws (posterior sample, DiffAugment, crop) come from a
-    # torch generator on the device.
+    if batch_size % num_processes or (batch_size // num_processes) % accumulate_gradients:
+        raise ValueError(f"global batch {batch_size} does not split into {num_processes} "
+                         f"processes x {accumulate_gradients} microbatches")
+    per_process = batch_size // num_processes
+    G_kwargs = dict(G_kwargs)
+    G_kwargs.setdefault("remat", "dots" if per_process // accumulate_gradients <= 12 else "full")
+
+    # EQ buckets: one host generator, eq_d then eq_g each step (loop.py:441-452),
+    # the same draws on every process; G's and D's own draws (posterior
+    # sample, DiffAugment, crop) come from a torch generator on the device,
+    # seeded per process as the reference seeds them.
     np_rng = np.random.default_rng(random_seed)
-    draws = torch.Generator(device=dev).manual_seed(random_seed)
+    draws = torch.Generator(device=dev).manual_seed(random_seed * num_processes + rank)
 
     print0("Loading training set...")
     training_set = construct_class_by_name(**training_set_kwargs)
-    data_iter = iter(training_set.loader(batch_size=batch_size, workers=data_workers,
-                                         base_seed=random_seed, num_processes=1,
-                                         process_index=0))
+    data_iter = iter(training_set.loader(batch_size=per_process, workers=data_workers,
+                                         base_seed=random_seed, num_processes=num_processes,
+                                         process_index=rank))
     stats_file = None
     try:
         print0("Constructing networks...")
@@ -393,8 +416,12 @@ def training_loop(
             ema_kimg=ema_kimg, ema_rampup=ema_rampup, accumulate_gradients=accumulate_gradients,
             total_kimg=total_kimg, lpips_ckpt=lpips_ckpt, allow_random_lpips=allow_random_lpips)
         G = trainer.G
+        broadcast_modules([G, trainer.D])
         print0(module_summary(G, name="Generator"))
         print0(module_summary(trainer.D, name="Discriminator"))
+        print0(f"[batch] {batch_size} images a step: {num_processes} process(es) x "
+               f"{accumulate_gradients} microbatch(es) of "
+               f"{per_process // accumulate_gradients}; remat {G_kwargs['remat']!r}")
         state = trainer.init_state(cur_nimg=int(resume_kimg * 1000))
 
         resume = None
@@ -414,7 +441,8 @@ def training_loop(
         collector = Collector()
         wandb_sink = WandbSink(
             wandb_project_name, wandb_run_name, run_dir,
-            config={"batch_size_per_process": batch_size, "accumulation_steps": 1,
+            config={"batch_size_per_process": per_process,
+                    "accumulation_steps": accumulate_gradients,
                     "process_count": num_processes, "lr of G": G_opt_kwargs.get("lr"),
                     "lr of D": D_opt_kwargs.get("lr"), "total_kimg": total_kimg},
             enabled=rank == 0)
@@ -463,9 +491,10 @@ def training_loop(
             if (cur_nimg < tick_start_nimg + kimg_per_tick * 1000) and not done:
                 continue
 
-            # ---- tick maintenance (the newest step's stats, as loop.py:500-501)
-            collector.update(d_stats)
-            collector.update(g_stats)
+            # ---- tick maintenance (the newest step's stats, as loop.py:500-501,
+            # summed over the processes)
+            collector.update(sync_across_processes(d_stats))
+            collector.update(sync_across_processes(g_stats))
             tick_time = time.time() - tick_start_time
             total_time = time.time() - start_time
             sec_per_kimg = tick_time / max((cur_nimg - tick_start_nimg) / 1000, 1e-8)
@@ -503,19 +532,26 @@ def training_loop(
                 wandb_sink.log(entry, step=int(cur_nimg / 1e3))
             collector.reset()
 
-            if network_snapshot_ticks and (cur_tick % network_snapshot_ticks == 0 or done) \
-                    and rank == 0:
+            if network_snapshot_ticks and (cur_tick % network_snapshot_ticks == 0 or done):
                 t0 = time.perf_counter()
                 name = os.path.join(run_dir, snapshot_name(cur_nimg // 1000))
-                exists = os.path.isdir(name)
-                path = save_snapshot(run_dir, cur_nimg // 1000, snapshot_state(trainer, state))
-                snapshot = dict(path=path, bytes=snapshot_bytes(path),
-                                seconds=time.perf_counter() - t0)
-                print0(f"Snapshot {path} exists: not written again" if exists else
-                       f"Saved snapshot {path} ({snapshot['bytes']} bytes, "
-                       f"{snapshot['seconds']:.2f} s)")
+                if rank == 0:
+                    exists = os.path.isdir(name)
+                    path = save_snapshot(run_dir, cur_nimg // 1000,
+                                         snapshot_state(trainer, state))
+                    snapshot = dict(path=path, bytes=snapshot_bytes(path),
+                                    seconds=time.perf_counter() - t0)
+                    print0(f"Snapshot {path} exists: not written again" if exists else
+                           f"Saved snapshot {path} ({snapshot['bytes']} bytes, "
+                           f"{snapshot['seconds']:.2f} s)")
+                # The others go on once the snapshot is whole on the disk.
+                barrier(dev)
+                if rank != 0:
+                    path = os.path.abspath(name)
+                    snapshot = dict(path=path, bytes=snapshot_bytes(path),
+                                    seconds=time.perf_counter() - t0)
 
-            if metrics and network_snapshot_ticks and rank == 0 and (
+            if metrics and network_snapshot_ticks and num_processes == 1 and (
                     cur_tick % network_snapshot_ticks == 0 or done):
                 in_loop_metrics(metrics, trainer, state, data_iter, in_loop_metric_batches,
                                 run_dir, snapshot and snapshot["path"], wandb_sink,
@@ -536,6 +572,14 @@ def training_loop(
             tick_start_time = time.time()
             if done:
                 break
+        # The reference's check_ddp_consistency (loop.py:688-700): a silent
+        # divergence between the replicas fails here.
+        check_replica_consistency({
+            **{"G." + n: p for n, p in G.named_parameters()},
+            **{"G_ema." + n: e for n, e in state.ema.items()},
+            **{"D." + n: p for n, p in trainer.D.named_parameters()}})
+        if num_processes > 1:
+            print0(f"[processes] replica consistency OK ({num_processes} processes)")
         wandb_sink.finish()
     finally:
         if stats_file is not None:

@@ -23,6 +23,7 @@ import torch
 
 from ..core import stats as tstats
 from ..ops.resize import resize_bicubic, resize_bilinear, rot90
+from ..parallel.mesh import mean_across
 from .ssim import ssim as ssim_fn
 
 G_TERMS = (
@@ -329,8 +330,12 @@ class TotalLoss:
     # ------------------------------------------------------------ G safety
 
     def g_safe(self, terms: Sequence[torch.Tensor], state: LossState, cur_nimg: float):
-        """Safe-loss check (loss.py:499-519): (skip, per-term safe marks, new state)."""
-        vals = torch.stack([terms[G_TERMS.index(n)].detach().float() for n in G_TRACKED])
+        """Safe-loss check (loss.py:499-519): (skip, per-term safe marks, new
+        state). Under several processes the terms are first averaged over
+        them: the JAX step checks the global microbatch's terms, and every
+        process must take the same skip decision."""
+        vals = mean_across(torch.stack([terms[G_TERMS.index(n)].detach().float()
+                                        for n in G_TRACKED]))
         finite = torch.isfinite(vals)
         too_large = (state.prev_g_loss > 1e-6) & (vals > state.prev_g_loss * 10)
         is_rec = torch.tensor([n in G_REC_TERMS for n in G_TRACKED], device=vals.device)
@@ -386,7 +391,8 @@ class TotalLoss:
         d_total = (self.stylegan_t_discriminator_loss_weight * st
                    + self.patchgan_discriminator_loss_weight * pg)
 
-        vals = torch.stack([terms[n].detach() for n in D_TERMS])
+        # The global microbatch's terms decide the skip (see g_safe).
+        vals = mean_across(torch.stack([terms[n].detach() for n in D_TERMS]))
         active = cur_nimg > self.resume_kimg * 1e3 + SAFE_LOSS_CHECKING_START_NIMG
         unsafe = (~torch.isfinite(vals) | (vals.abs() > 1e4)) & active
         skip = unsafe.any()

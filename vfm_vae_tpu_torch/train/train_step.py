@@ -1,11 +1,28 @@
 """The sequential [D, G] training step (port of vfm_vae_tpu/train/train_step.py:
-TrainState, Trainer.d_step and Trainer.g_step, :165-304).
+TrainState, _microbatches, Trainer.d_step and Trainer.g_step, :67-77, :165-304).
 
-PyTorch runs eagerly, so each phase is one forward, the gradients the JAX
-step takes with jax.value_and_grad / jax.vjp, one Adam step and (G) the EMA.
-Parameters live in the modules and are updated in place; the state holds
-the optimisers, the EMA copy of the trainable G parameters, the loss state
-and cur_nimg.
+PyTorch runs eagerly, so each phase is one forward per microbatch, the
+gradients the JAX step takes with jax.value_and_grad / jax.vjp, one Adam
+step and (G) the EMA. Parameters live in the modules and are updated in
+place; the state holds the optimisers, the EMA copy of the trainable G
+parameters, the loss state and cur_nimg.
+
+Gradient accumulation (num_accumulation = n): the batch splits into n
+contiguous chunks, each chunk's gradients are taken as above and summed
+(the JAX package sums, it does not average), the sum is cleaned once and
+Adam steps once. D's spectral-norm buffers, G's x_avg and the loss state
+thread through the chunks in order; the adaptive VF weight, the safe-loss
+check and the skip gate are per chunk; the stats merge; the returned total
+is the chunks' mean.
+
+Several processes (parallel/mesh.py): each process holds its slice of the
+global batch and takes chunk i of its own slice as its part of microbatch
+i. JAX's vjp runs over the global microbatch, so the port averages over
+the processes what the JAX step sees globally: the loss terms before the
+safe-loss checks (every process takes the same skip decision), the two
+anchor gradients before their norms (the VF weight) and the summed
+gradients before Adam (one flat-bucket all-reduce per step). Without a
+process group each of these is the identity.
 
 Adaptive VF weight (:226-239): ||d rec / d anchor|| / (||d vf / d anchor|| +
 1e-4), clipped to [0, 1e8] and times vf_loss_weight, from two gradients of
@@ -17,11 +34,12 @@ gradients by zero and Adam still steps, as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
 from ..core import stats as tstats
+from ..parallel.mesh import all_reduce_mean, mean_across, rank_and_world
 from .loss import G_TERMS, G_TRACKED, LossState, TotalLoss, init_loss_state
 from .optim import adam, clean_grads, ema_beta, ema_update
 
@@ -56,6 +74,19 @@ def as_unit_float(real_img: torch.Tensor) -> torch.Tensor:
     return real_img.float() / 255.0 if real_img.dtype == torch.uint8 else real_img
 
 
+def microbatches(x: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """The leading (batch) axis split into n contiguous chunks (train_step.py:67-77)."""
+    B = x.shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} is not divisible into {n} microbatches")
+    m = B // n
+    return [x[i * m:(i + 1) * m] for i in range(n)]
+
+
+def _add(a: Optional[List[torch.Tensor]], b: List[torch.Tensor]) -> List[torch.Tensor]:
+    return b if a is None else [x + y for x, y in zip(a, b)]
+
+
 class Trainer:
     """Binds the loss configuration, the trainable sets and the optimiser
     settings. Freezes everything outside the trainable sets
@@ -65,8 +96,9 @@ class Trainer:
                  g_opt_kwargs: Optional[dict] = None, d_opt_kwargs: Optional[dict] = None,
                  batch_size: int = 512, ema_kimg: float = 160.0,
                  ema_rampup: Optional[float] = 0.05, num_accumulation: int = 1):
-        if num_accumulation != 1:
-            raise NotImplementedError("gradient accumulation > 1 is not ported")
+        if int(num_accumulation) < 1:
+            raise ValueError(f"num_accumulation {num_accumulation} < 1")
+        self.num_accumulation = int(num_accumulation)
         self.loss = loss
         self.G, self.D = loss.G, loss.D
         self.g_opt_kwargs = dict(g_opt_kwargs or {})
@@ -107,6 +139,17 @@ class Trainer:
             norms = torch.stack([g.detach().float().norm() for g in grads]).tolist()
             self.grad_norms.update({prefix + n: v for n, v in zip(params, norms)})
 
+    def _reduce(self, prefix: str, params: Dict[str, torch.nn.Parameter],
+                grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The summed gradients averaged over the processes; recorded again
+        when they differ from the one microbatch's that d_gradients or
+        g_gradients recorded."""
+        world = rank_and_world()[1]
+        grads = all_reduce_mean(grads)
+        if self.num_accumulation > 1 or world > 1:
+            self._record(prefix, params, grads)
+        return grads
+
     @staticmethod
     def _apply(opt: torch.optim.Adam, params: Sequence[torch.nn.Parameter],
                grads: Sequence[torch.Tensor]) -> None:
@@ -130,26 +173,41 @@ class Trainer:
         self._record("D.", self.d_params, grads)
         return grads, d_total.detach(), aux
 
+    def d_accumulate(self, state: TrainState, real_img, eq: Tuple[float, int, bool],
+                     generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0):
+        """D's gradients summed over the step's microbatches and averaged
+        over the processes, before the update: (gradients, stats, total; the
+        total is the microbatches' and processes' mean)."""
+        grads, stats, total = None, {}, 0.0
+        for chunk in microbatches(real_img, self.num_accumulation):
+            g, d_total, aux = self.d_gradients(state, chunk, eq, generator, blur_sigma)
+            grads = _add(grads, g)
+            stats = tstats.merge(stats, aux["stats"])
+            total = total + d_total
+        grads = self._reduce("D.", self.d_params, grads)
+        return grads, stats, mean_across(total / self.num_accumulation)
+
     def d_step(self, state: TrainState, real_img, eq: Tuple[float, int, bool],
                generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0):
         """One D update (train_step.py:165-204). Returns (state, stats, total)."""
         real_img = as_unit_float(real_img)
-        grads, d_total, aux = self.d_gradients(state, real_img, eq, generator, blur_sigma)
+        grads, stats, total = self.d_accumulate(state, real_img, eq, generator, blur_sigma)
         self._apply(state.d_opt, list(self.d_params.values()), grads)
-        return state, aux["stats"], d_total
+        return state, stats, total
 
     # -------------------------------------------------------------- G step
 
     def g_gradients(self, state: TrainState, real_img, eq: Tuple[float, int, bool],
                     generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0,
-                    update_buffers: bool = True):
+                    update_buffers: bool = True, loss_state: Optional[LossState] = None):
         """The G microbatch (train_step.py:208-256) without the update:
-        (gradients in g_params order, terms, new loss state, stats, total)."""
+        (gradients in g_params order, terms, new loss state, stats, total).
+        `loss_state` is the previous microbatch's (default: the state's)."""
         params = list(self.g_params.values())
         terms, aux = self.loss.g_terms(real_img, eq, state.cur_nimg, generator, blur_sigma,
                                        update_buffers)
-        skip, safe_marks, new_loss_state = self.loss.g_safe(terms, state.loss_state,
-                                                            state.cur_nimg)
+        skip, safe_marks, new_loss_state = self.loss.g_safe(
+            terms, state.loss_state if loss_state is None else loss_state, state.cur_nimg)
         stacked = torch.stack(terms)
         dev = stacked.device
         if self.loss.use_adaptive_vf_loss and self.loss.vf_loss_weight > 0:
@@ -162,8 +220,10 @@ class Trainer:
             g_rec, = torch.autograd.grad(rec, anchor, retain_graph=True, allow_unused=True)
             g_vf, = torch.autograd.grad(terms[G_TERMS.index("vf_loss")], anchor,
                                         retain_graph=True, allow_unused=True)
-            n_rec = g_rec.norm() if g_rec is not None else stacked.new_zeros(())
-            n_vf = g_vf.norm() if g_vf is not None else stacked.new_zeros(())
+            zero = torch.zeros_like(anchor)
+            g_rec, g_vf = all_reduce_mean([zero if g_rec is None else g_rec,
+                                           zero if g_vf is None else g_vf])
+            n_rec, n_vf = g_rec.norm(), g_vf.norm()
             cur_vf_w = (torch.clamp(n_rec / (n_vf + 1e-4), 0.0, 1e8)
                         * self.loss.vf_loss_weight).detach()
         else:
@@ -184,15 +244,31 @@ class Trainer:
         tstats.report(stats, "Loss/G/cur_vf_loss_weight", cur_vf_w)
         return grads, [t.detach() for t in terms], new_loss_state, stats, total.detach()
 
+    def g_accumulate(self, state: TrainState, real_img, eq: Tuple[float, int, bool],
+                     generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0):
+        """G's gradients summed over the step's microbatches (the loss state
+        threaded through them) and averaged over the processes, before the
+        update: (gradients, new loss state, stats, total)."""
+        grads, stats, total, loss_state = None, {}, 0.0, state.loss_state
+        for chunk in microbatches(real_img, self.num_accumulation):
+            g, _, loss_state, st, t = self.g_gradients(state, chunk, eq, generator, blur_sigma,
+                                                       loss_state=loss_state)
+            grads = _add(grads, g)
+            stats = tstats.merge(stats, st)
+            total = total + t
+        grads = self._reduce("G.", self.g_params, grads)
+        return grads, loss_state, stats, mean_across(total / self.num_accumulation)
+
     def g_step(self, state: TrainState, real_img, eq: Tuple[float, int, bool],
                generator: Optional[torch.Generator] = None, blur_sigma: float = 0.0):
-        """One G update with EMA (train_step.py:258-304). Returns (state, stats, total)."""
+        """One G update with EMA (train_step.py:258-304); `real_img` is this
+        process's slice of the global batch. Returns (state, stats, total)."""
         real_img = as_unit_float(real_img)
-        grads, _, loss_state, stats, total = self.g_gradients(
-            state, real_img, eq, generator, blur_sigma)
+        grads, loss_state, stats, total = self.g_accumulate(state, real_img, eq, generator,
+                                                            blur_sigma)
         self._apply(state.g_opt, list(self.g_params.values()), grads)
         beta = ema_beta(self.batch_size, state.cur_nimg, self.ema_kimg, self.ema_rampup)
         ema_update(state.ema, self.g_params, beta)
         state.loss_state = loss_state
-        state.cur_nimg += real_img.shape[0]
+        state.cur_nimg += real_img.shape[0] * rank_and_world()[1]
         return state, stats, total
