@@ -48,13 +48,13 @@
    launch a call (the wrapper's counter and the profiler's kernel count),
    with its events and device time beside the bound. K4's fp32 forward
    (3xTF32 on wgmma; its SASS is checked for TF32 HGMMA and no FFMA main
-   loop at the build) is held at the adapter's sites at B=2 and B=32, at
-   ragged Tq != Tk and at d=128: against its twin (FLASH_FP32_MAX_REL, max
+   loop at the build) is held at the adapter's sites and at discrete
+   mode's post_quant site at B=2 and B=32, at ragged Tq != Tk and at d=128: against its twin (FLASH_FP32_MAX_REL, max
    and mean), its log-sum-exp against the twin's, against float64
    (TRUTH_FACTOR), bit-identical on repeat, one launch a call by the
    wrapper's counter and one kernel a call by the profiler; and it is timed
    against SDPA's fp32 forward in turns (events and device time) at the
-   adapter's sites at B=2 and B=32, with the fraction of its 3xTF32 bound.
+   same sites at B=2 and B=32, with the fraction of its 3xTF32 bound.
 4. Slice phase: answers three encode -> decode requests of B=4 random
    256x256 images through the kernels, checks shapes, finiteness and the
    launch counts per decode, reruns one request with the plain twins
@@ -82,8 +82,9 @@
    entry.kernel_sites predicts; prints ms per D and G
    step, peak memory and a profile of one G step. One deterministic step
    then runs with the kernels, with the plain twins and in fp32, and its
-   loss terms and per-module gradient norms are compared quantity by
-   quantity (--determinism-trials N repeats it on N batches).
+   loss terms and trainable gradient tensors are compared quantity by
+   quantity (gate_readings; --determinism-trials N repeats it on N
+   batches).
 7. The opt-in kernels and K4's backward: K5 (GroupNorm moments) against
    its twin and fp64 sums at every K5 site of a decode and the EQ shapes,
    repeatable bit for bit, one kernel a call by the profiler's count; K9
@@ -95,7 +96,8 @@
    call by the profiler's count; K4's backward against its
    twin and fp64 at the training path's sites (the adapter's fp32 sites,
    3xTF32 kernels, held to FLASH_FP32_MAX_REL against the twin) at B=2 and
-   at the stage-0 step's B=4, at ragged fp32 shapes and d=128, bit for bit
+   at the stage-0 step's B=4, at discrete mode's post_quant site at B=2 and
+   B=32, at ragged fp32 shapes and d=128, bit for bit
    on repeat, the one-call backward timed against SDPA's backward in turns
    (CUDA events and device time, SDPA's kernels by name). With every
    opt-in switch of the JAX package on (ALL_SWITCHES), three round-trip
@@ -169,6 +171,15 @@
    and alignment_metrics (finite, a set against itself 1). Step ms,
    tokens/s, peak memory, img/s with the DiT and decode shares
    (diffusion_phase).
+12. Discrete phase (after the batch phase): the flagship in discrete (VQ)
+   mode at B=32, by default and under VFM_VAE_ADAPTER_ATTN=3mm-flash (K4's
+   fp32 forward at post_quant, T=256 N=16 d=64; phases 3 and 7 hold
+   that site forward and backward against its twin and float64 at B=2 and
+   B=32: POST_QUANT_SITE), its launches, decode against the plain
+   twins and fp32, the indices round trip, img/s in turns with the
+   continuous flagship, the VQ's device time; then the stage-0 YAML in
+   discrete mode with both discriminator warm-ups and the D-input blur
+   through the CLI, a snapshot and an auto-resumed step (discrete_phase).
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -213,6 +224,11 @@ TOLERANCES = {
 # error may exceed the bf16 twin's by at most this factor: the kernel must be
 # as close to the exact function as the plain bf16 path is.
 TRUTH_FACTOR = 1.5
+# The determinism gate's per-tensor guard (gate_readings): a gradient tensor
+# the kernel path gets this far from fp32 (relative L2) ...
+GUARD_KERNEL_REL = 0.5
+# ... where the plain bf16 path stays within this, fails the step.
+GUARD_PLAIN_REL = 0.05
 # End to end, bf16 kernel decode vs bf16 plain decode: mean |diff| / mean
 # |plain|. 54 kernel calls chained through 38 residual layers; per-call
 # differences are ~1e-3 of scale (above) and add up along the chain.
@@ -1161,7 +1177,7 @@ def flash_batch_phase(k3_sites, k4_sites, B: int = 32) -> dict:
     # SDPA's fp32 forward in turns (events and device time).
     tot = dict(ms=0.0, library_ms=0.0, device_ms=0.0, library_device_ms=0.0, bound_ms=0.0,
                fma_bound_ms=0.0)
-    for site in (x for x in k4_sites if x["at"] == "adapter"):
+    for site in (x for x in k4_sites if x["at"] in ("adapter", "post_quant")):
         T, N, D, n = site["T"], site["N"], site["D"], site["count"]
         q, k, v = (torch.randn(B, T, N, D, generator=gen, device=dev) for _ in range(3))
         ok, text, max_abs = k4_f32_gates(q, k, v)
@@ -1173,18 +1189,18 @@ def flash_batch_phase(k3_sites, k4_sites, B: int = 32) -> dict:
         flops, byts = flash_work(B, T, T, N, D, 4)
         a, bb = flops / PEAK_3XTF32_FLOPS * 1e3, byts / PEAK_BYTES_PER_S * 1e3
         bnd, fma_bnd = max(a, bb), max(flops / PEAK_FP32_FLOPS * 1e3, bb)
-        print(f"[flash-b{B}] flash_attention_nonull adapter float32 T={T} N={N} D={D} B={B} "
+        print(f"[flash-b{B}] flash_attention_nonull {site['at']} float32 T={T} N={N} D={D} B={B} "
               f"x{n}/encode: {text} kernel_ms={ms:.4f} bound_ms={bnd:.4f} (3xTF32; FMA bound "
               f"{fma_bnd:.4f}) {flash_rate_text(ms, dev_ms, flops, bnd, lib_ms, lib_dev)} in turns "
               f"(K4, SDPA, SDPA, K4); SDPA's kernels "
               f"{', '.join(x[:50] for x in s_per)} {'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
-            failed.append(f"flash_attention_nonull adapter float32 T={T}")
+            failed.append(f"flash_attention_nonull {site['at']} float32 T={T}")
         for key, val in (("ms", ms), ("library_ms", lib_ms), ("device_ms", dev_ms),
                          ("library_device_ms", lib_dev), ("bound_ms", bnd),
                          ("fma_bound_ms", fma_bnd)):
             tot[key] = add_or_none(tot[key], val, n)
-        out.setdefault("flash_attention_nonull", {})[f"adapter_fp32_T{T}"] = dict(
+        out.setdefault("flash_attention_nonull", {})[f"{site['at']}_fp32_T{T}"] = dict(
             batch=B, T=T, N=N, D=D, count=n, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
             library_device_ms=lib_dev, bound_ms=bnd, fma_bound_ms=fma_bnd, max_abs_err=max_abs)
         del q, k, v, sdpa_args
@@ -1531,6 +1547,12 @@ def k4_f32_gates(q, k, v) -> tuple:
     return ok, text, max_abs
 
 
+# K4-f32's site in discrete mode only: post_quant, AttnProjection(vocab_width
+# 64 -> 1024, 16 heads) over the decode's T=256 tokens (head dim 64, which
+# flash_eligible_shape admits; the continuous mode's head dim 32 is not).
+# Held and timed with the encode's fp32 sites (kernel_flash_phase,
+# flash_batch_phase, k4_backward_phase); it runs in no encode (count 0).
+POST_QUANT_SITE = dict(at="post_quant", T=256, N=16, D=64, count=0)
 # K4's fp32 forward off the adapter's sites (B, Tq, Tk, N, D): the card
 # test's ragged Tq != Tk shapes (partial query blocks and key tiles) and
 # d=128 (one consumer warpgroup, 32-key tiles).
@@ -1839,6 +1861,15 @@ def int8_serving_phase(G, card: str) -> dict:
     return {"int8_serving": launches, "int8_ceiling_probe": probe_launches}
 
 
+def hinge_count_bias(name: str) -> bool:
+    """A D head's logit bias: under the hinge loss its gradient is a count
+    of the logits inside the margin over their number, so a logit that one
+    bf16 path moves across the margin changes it by a whole count (errors
+    of exactly 1/3, 1/2, 2/9 against fp32 on the card) with no kernel at
+    fault; the determinism gate's per-tensor guard holds it apart."""
+    return re.fullmatch(r"D\.heads\.\d+\.cls\.bias", name) is not None
+
+
 def bn_fed_bias(name: str) -> bool:
     """A D head's conv bias that feeds BatchNormLocal: the mean subtraction
     makes its gradient exactly zero in exact arithmetic (rounding noise on
@@ -2080,6 +2111,201 @@ def train_steps(tr, state, buckets, reals, gen, card: str, label: str):
     return state, launches
 
 
+def gate_readings(kern: dict, plain: dict, exact: dict, gk: dict, gp: dict, g32: dict,
+                  maps=None) -> dict:
+    """The determinism gate's readings of one batch.
+
+    kern, plain, exact: {quantity: value} of the kernel path, the plain bf16
+    path and the fp32 plain copy (loss terms, and the per-module gradient
+    norms "|grad| <module>"); gk, gp, g32: {parameter: gradient} of the same
+    three runs; maps: {"kernels", "plain", "fp32": noise_maps' maps} of the
+    same runs, or None.
+
+    The gated median (since slice 17): the loss terms and every trainable
+    gradient tensor, each quantity's relative error against fp32 (a tensor's
+    relative L2 error ||g - g32|| / ||g32||) for the kernel path over the
+    plain path's, each floored at 1e-6 (fp32's own rounding), and the median
+    of these ratios. Tensors whose fp32 gradient is zero and the D heads'
+    BatchNormLocal-fed biases (zero in exact arithmetic) are left out.
+
+    The guard, beside the median: no tensor whose kernel-path error is past
+    GUARD_KERNEL_REL while the plain path's is under GUARD_PLAIN_REL (a
+    gradient that the kernels alone get wrong, which one median over some
+    800 tensors cannot see). A legacy noise_strength scalar is read there
+    through its noise map when `maps` holds it: its gradient is the map's
+    sum weighted by the layer's fixed noise, a projection of the map on a
+    random pattern whose terms cancel (conditioning = sum |terms| / |sum|,
+    reported; medians 6 to 674 at the flagship), so its relative error swings over
+    three decades in either bf16 path alike. The D heads' cls biases are
+    left out of the guard (hinge_count_bias). Both were measured on the
+    card: PERF.md section 6, PR 17.
+
+    The gain, reported and not gated: a tensor's <g, g32> / ||g32||^2, the
+    part of its gradient along fp32's; `gain_p90` is the 90th percentile
+    over tensors of |gain - 1| for the kernel path and the plain path. At
+    stage 2 both bf16 paths' gains sit about 2% from 1, as far as a kernel
+    whose outputs are 1.6% off moves them, so it separates no better than
+    the median does (PERF.md section 6).
+
+    The old reading, printed and not gated: the ratio over the loss terms
+    and the per-module gradient norms. A norm's error against fp32 is a
+    small residual (2-7%) of a 10-40% tensor error that both bf16 paths
+    share, and the ratio of two such residuals swung from below 1 to 100x
+    between batches (PERF.md section 7), so it failed about one stage-2
+    batch in 8 with no kernel at fault."""
+    def ratio(a: float, b: float) -> float:
+        return max(a, 1e-6) / max(b, 1e-6)
+
+    keys = [k for k in exact if exact[k] != 0.0 and k in kern and k in plain]
+    rel = {k: (abs(kern[k] - exact[k]) / abs(exact[k]), abs(plain[k] - exact[k]) / abs(exact[k]))
+           for k in keys}
+    losses = [k for k in keys if not k.startswith("|grad| ")]
+    old = [ratio(*rel[k]) for k in keys]
+    tensors, gains = {}, {}
+    for n, t32 in g32.items():
+        if bn_fed_bias(n) or n not in gk or n not in gp:
+            continue
+        sq = float(t32.square().sum())
+        if sq == 0.0:
+            continue
+        norm = math.sqrt(sq)
+        tensors[n] = (float((gk[n] - t32).norm()) / norm, float((gp[n] - t32).norm()) / norm)
+        gains[n] = (float((gk[n] * t32).sum()) / sq, float((gp[n] * t32).sum()) / sq)
+    new = {k: ratio(*rel[k]) for k in losses}
+    new.update({"tensor " + n: ratio(*e) for n, e in tensors.items()})
+    vals = sorted(new.values())
+    worst = max(new, key=new.get)
+    errs = {**{k: rel[k] for k in losses}, **{"tensor " + n: e for n, e in tensors.items()}}
+    noise = {}
+    if maps is not None:
+        for n, (m32, unit) in maps["fp32"].items():
+            if n not in maps["kernels"] or n not in maps["plain"]:
+                continue
+            terms = unit * m32
+            norm = float(m32.norm())
+            if norm == 0.0:
+                continue
+            noise[n] = dict(
+                kernel=float((maps["kernels"][n][0] - m32).norm()) / norm,
+                plain=float((maps["plain"][n][0] - m32).norm()) / norm,
+                conditioning=float(terms.abs().sum()) / max(abs(float(terms.sum())), 1e-30))
+    guard_read = {n: e for n, e in tensors.items() if not hinge_count_bias(n)}
+    for n, v in noise.items():
+        if n + ".noise_strength" in guard_read:
+            guard_read[n + ".noise_strength"] = (v["kernel"], v["plain"])
+    guard = sorted(n for n, (ek, ep) in guard_read.items()
+                   if ek > GUARD_KERNEL_REL and ep < GUARD_PLAIN_REL)
+    scalar_guard = sorted(n for n, (ek, ep) in tensors.items() if not hinge_count_bias(n)
+                          and ek > GUARD_KERNEL_REL and ep < GUARD_PLAIN_REL)
+    dk = sorted(abs(a - 1.0) for a, _ in gains.values())
+    dp = sorted(abs(b - 1.0) for _, b in gains.values())
+    q = min(len(dk) - 1, int(0.9 * len(dk)))
+    return dict(median=statistics.median(vals), p90=vals[min(len(vals) - 1, int(0.9 * len(vals)))],
+                worst=worst, worst_ratio=new[worst], worst_errors=errs[worst],
+                n=len(vals), n_tensors=len(tensors), kernel_worse=sum(v > 1 for v in vals),
+                old_median=statistics.median(old), old_n=len(old), ratios=new, errors=errs,
+                old_keys=keys, rel=rel, guard=guard, scalar_guard=scalar_guard, noise=noise,
+                gains=gains, gain_median=(statistics.median(dk), statistics.median(dp)),
+                gain_p90=(dk[q], dp[q]), gain_shift=statistics.median(
+                    a - b for a, b in gains.values()))
+
+
+def gate_text(r: dict) -> str:
+    """One line of gate_readings' figures."""
+    ek, ep = r["worst_errors"]
+    (mk, mp), (pk, pp) = r["gain_median"], r["gain_p90"]
+    noise = r["noise"]
+    nz = ""
+    if noise:
+        kk = sorted(v["kernel"] / max(v["plain"], 1e-6) for v in noise.values())
+        nz = (f"; noise maps of {len(noise)} layers: kernel/plain error vs fp32 median "
+              f"{statistics.median(kk):.3f}, max {kk[-1]:.3f}, conditioning of the scalars "
+              f"median {statistics.median(v['conditioning'] for v in noise.values()):.3g}")
+    return (f"gated: median of kernel/plain relative errors vs fp32 over {r['n']} quantities "
+            f"({r['n'] - r['n_tensors']} loss terms, {r['n_tensors']} gradient tensors, relative "
+            f"L2) {r['median']:.3f} (limit {TRUTH_FACTOR}), 90th percentile {r['p90']:.3f}, "
+            f"worst {r['worst']} {r['worst_ratio']:.3f} (kernel {ek:.3e}, plain {ep:.3e}), "
+            f"kernel worse in {r['kernel_worse']}/{r['n']}; guard (kernel > {GUARD_KERNEL_REL}"
+            f" where plain < {GUARD_PLAIN_REL}): {r['guard'] or 'none'} (on the scalars "
+            f"themselves: {r['scalar_guard'] or 'none'}); gain |<g,g32>/|g32|^2 - 1| median "
+            f"kernel {mk:.3e} plain {mp:.3e}, 90th percentile kernel {pk:.3e} plain {pp:.3e} "
+            f"(ratio {pk / max(pp, 1e-12):.3f}), median kernel-plain gain {r['gain_shift']:.3e}"
+            f"{nz}; old reading (loss terms and per-module gradient norms, not gated) median "
+            f"{r['old_median']:.3f} over {r['old_n']}"
+            f"{' (past the limit)' if r['old_median'] > TRUTH_FACTOR else ''}")
+
+
+class noise_maps:
+    """For the length of a `with`: for every legacy ConvNeXt layer of `G`,
+    the gradient reaching its noise in the last backward pass through it
+    (the sum over samples and channels of the gradient at its dwconv's
+    output, which the noise is added to), fp32 (H, W), with the layer's
+    noise for a strength of 1 at that size: `maps` {"G." + layer: (map,
+    unit noise)}. The layer's noise_strength gradient is the sum of their
+    product."""
+
+    def __init__(self, G):
+        from vfm_vae_tpu_torch.models.convnext import ConvNeXtSynthesisLayer
+
+        self.layers = {"G." + n: m for n, m in G.named_modules()
+                       if isinstance(m, ConvNeXtSynthesisLayer) and m.legacy}
+        self.maps, self.handles = {}, []
+
+    def hook(self, name: str, layer):
+        from vfm_vae_tpu_torch.ops.resize import resize_bilinear
+
+        def forward(module, args, out):
+            if not out.requires_grad:
+                return
+            H, W = out.shape[1], out.shape[2]
+            unit = layer.noise_const.detach().float()[None, :, :, None]
+            if unit.shape[1:3] != (H, W):
+                unit = resize_bilinear(unit, size=(H, W))
+            unit = unit[0, :, :, 0]
+
+            def backward(g):
+                self.maps[name] = (g.detach().float().sum((0, 3)), unit)
+
+            out.register_hook(backward)
+        return forward
+
+    def __enter__(self):
+        self.handles = [m.dwconv.register_forward_hook(self.hook(n, m))
+                        for n, m in self.layers.items()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def determinism_run(t, st, img, eq, bufs) -> tuple:
+    """One [D, G] evaluation without the update on trainer `t` from the
+    buffers `bufs` ({"G": ..., "D": ...}): ({quantity: value} of the loss
+    terms and per-module gradient norms, {"G."/"D." + parameter: fp32
+    gradient}, noise_maps' maps of the G step)."""
+    from vfm_vae_tpu_torch.train.loss import G_TERMS
+
+    for mod, key in ((t.G, "G"), (t.D, "D")):  # spectral-norm u/v, x_avg, usage as they were
+        for k, v in mod.named_buffers():
+            v.copy_(bufs[key][k])
+    t.record_grad_norms, t.grad_norms = True, {}
+    d_grads, d_total, _ = t.d_gradients(st, img, eq)
+    with noise_maps(t.G) as nm:
+        g_grads, terms, _, _, g_total = t.g_gradients(st, img, eq, update_buffers=False)
+    t.record_grad_norms = False
+    out = {"D total": float(d_total), "G total": float(g_total)}
+    out.update({"G " + n: float(v) for n, v in zip(G_TERMS, terms) if float(v) != 0.0})
+    groups = {}
+    for n, v in t.grad_norms.items():
+        key = ".".join(n.split(".")[:4])
+        groups[key] = groups.get(key, 0.0) + v * v
+    out.update({"|grad| " + k: math.sqrt(v) for k, v in groups.items()})
+    grads = {**{"D." + n: g.detach().float() for n, g in zip(t.d_params, d_grads)},
+             **{"G." + n: g.detach().float() for n, g in zip(t.g_params, g_grads)}}
+    return out, grads, nm.maps
+
+
 def determinism_phase(tr, state, real, trials: int = 1, build_fp32=None,
                       label: str = "determinism") -> None:
     """[D, G] steps with no random draws (posterior mode, no DiffAugment, D
@@ -2089,46 +2315,26 @@ def determinism_phase(tr, state, real, trials: int = 1, build_fp32=None,
     bucket; trial i > 0 a batch drawn from a generator seeded i at
     FORCED_BUCKETS[i % 3].
 
-    The gate is paired: for each loss term and module gradient norm, the
-    kernel path's relative error vs fp32 over the plain path's, and the
-    median of these ratios must be at most TRUTH_FACTOR. Most quantities
-    carry an error that both bf16 paths share (ratio near 1), a few (a D
-    head's gradient, which hangs on the statistics of four images) move by
-    several percent between any two bf16 evaluations. Unpaired, the median
-    kernel error over the median plain error read 0.86-1.07 in four runs
-    of one tree on the H100 and past 1.5 in another: the two medians fall on
-    different quantities. The paired median read 0.98-1.00 in the same four
-    runs, and 0.96-1.15 over eight batches of a later run whose unpaired
-    ratios spread over 0.59-1.70. The unpaired reading is printed beside it.
+    The gate is paired and reads the gradient tensors (gate_readings): for
+    each loss term and each trainable gradient tensor, the kernel path's
+    relative error vs fp32 over the plain path's; the median of these
+    ratios must be at most TRUTH_FACTOR, and no tensor may trip the guard
+    (the kernel path past GUARD_KERNEL_REL where the plain path is under
+    GUARD_PLAIN_REL; noise_strength read through its noise map). Until
+    slice 16 it read the loss terms and the per-module gradient norms,
+    whose errors are small residuals of an error both bf16 paths share;
+    that reading is printed beside the gated one, with the gains. A
+    failure prints every quantity to stderr.
 
     `build_fp32` builds the fp32 trainer of the configuration `tr` runs
     (default: the stage-0 flagship trainer); `label` names the printed lines."""
     import torch
 
     from vfm_vae_tpu_torch.entry import flagship_trainer
-    from vfm_vae_tpu_torch.train.loss import G_TERMS
 
     dev = real.device
     bufs = {"G": {k: v.clone() for k, v in tr.G.named_buffers()},
             "D": {k: v.clone() for k, v in tr.D.named_buffers()}}
-
-    def run(t, st, img, eq):
-        for mod, key in ((t.G, "G"), (t.D, "D")):  # spectral-norm u/v and x_avg as they were
-            for k, v in mod.named_buffers():
-                v.copy_(bufs[key][k])
-        t.record_grad_norms, t.grad_norms = True, {}
-        _, d_total, aux = t.d_gradients(st, img, eq)
-        _, terms, _, _, g_total = t.g_gradients(st, img, eq, update_buffers=False)
-        t.record_grad_norms = False
-        out = {"D total": float(d_total), "G total": float(g_total)}
-        out.update({"G " + n: float(v) for n, v in zip(G_TERMS, terms) if float(v) != 0.0})
-        groups = {}
-        for n, v in t.grad_norms.items():
-            key = ".".join(n.split(".")[:4])
-            groups[key] = groups.get(key, 0.0) + v * v
-        out.update({"|grad| " + k: math.sqrt(v) for k, v in groups.items()})
-        return out
-
     if build_fp32 is None:
         tr32 = flagship_trainer(dev, real.shape[0], torch.Generator(device=dev).manual_seed(0),
                                 dtype=torch.float32, allow_random_lpips=True)
@@ -2148,32 +2354,26 @@ def determinism_phase(tr, state, real, trials: int = 1, build_fp32=None,
             gen = torch.Generator(device=dev).manual_seed(trial)
             img = torch.rand(real.shape, generator=gen, device=dev)
             eq = FORCED_BUCKETS[trial % len(FORCED_BUCKETS)]
-        kern = run(tr, state, img, eq)
+        kern, gk, mk = determinism_run(tr, state, img, eq, bufs)
         tr.G.use_plain_kernels(True)
-        plain = run(tr, state, img, eq)
+        plain, gp, mp = determinism_run(tr, state, img, eq, bufs)
         tr.G.use_plain_kernels(False)
-        exact = run(tr32, state32, img, eq)
-        keys = [k for k in exact if exact[k] != 0.0]
-        ek = [abs(kern[k] - exact[k]) / abs(exact[k]) for k in keys]
-        ep = [abs(plain[k] - exact[k]) / abs(exact[k]) for k in keys]
-        # Below 1e-6 a relative error is fp32's own rounding: equal floors
-        # make two such quantities a ratio of 1.
-        ratios = [max(a, 1e-6) / max(b, 1e-6) for a, b in zip(ek, ep)]
+        exact, g32, m32 = determinism_run(tr32, state32, img, eq, bufs)
+        r = gate_readings(kern, plain, exact, gk, gp, g32,
+                          dict(kernels=mk, plain=mp, fp32=m32))
+        del gk, gp, g32, mk, mp, m32
         lines = [f"[{label}] trial {trial} eq={eq} {k}: fp32 {exact[k]:.6g} kernel "
-                 f"{kern[k]:.6g} (rel {a:.2e}) plain {plain[k]:.6g} (rel {b:.2e})"
-                 for k, a, b in zip(keys, ek, ep)]
+                 f"{kern[k]:.6g} (rel {r['rel'][k][0]:.2e}) plain {plain[k]:.6g} (rel "
+                 f"{r['rel'][k][1]:.2e})" for k in r["old_keys"]]
         print("\n".join(lines), flush=True)
-        paired, mk, mp = (statistics.median(v) for v in (ratios, ek, ep))
-        ok = paired <= TRUTH_FACTOR
-        summary = (f"[{label}] trial {trial} eq={eq}: {len(keys)} quantities (loss terms, "
-                   f"per-module gradient norms): median of kernel/plain relative errors vs fp32 "
-                   f"{paired:.3f} (limit {TRUTH_FACTOR}); kernel worse in "
-                   f"{sum(r > 1 for r in ratios)}/{sum(r != 1 for r in ratios)}; unpaired median "
-                   f"kernel {mk:.3e} plain {mp:.3e} (ratio {mk / max(mp, 1e-12):.3f}; means "
-                   f"{sum(ek) / len(ek):.3e} and {sum(ep) / len(ep):.3e}) {'OK' if ok else 'FAIL'}")
+        ok = r["median"] <= TRUTH_FACTOR and not r["guard"]
+        summary = f"[{label}] trial {trial} eq={eq}: {gate_text(r)} {'OK' if ok else 'FAIL'}"
         print(summary, flush=True)
         if not ok:
-            print("\n".join(lines + [summary]), file=sys.stderr, flush=True)
+            detail = [f"[{label}] trial {trial} {k}: kernel/plain {v:.3f} (kernel "
+                      f"{r['errors'][k][0]:.3e}, plain {r['errors'][k][1]:.3e})"
+                      for k, v in sorted(r["ratios"].items(), key=lambda kv: -kv[1])]
+            print("\n".join(lines + detail + [summary]), file=sys.stderr, flush=True)
             failed.append(trial)
     del tr32, state32
     torch.cuda.empty_cache()
@@ -2729,7 +2929,9 @@ def device_in_turns(fn_a, fn_b):
 def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
     """K4's backward kernels against their twin and an fp64 autograd
     evaluation: at every K4 site of the training path (the adapter's fp32
-    sites) at B=2, counted per encode, and at the stage-0 step's B=4; at the
+    sites) at B=2, counted per encode, and at the stage-0 step's B=4; at
+    discrete mode's post_quant site (POST_QUANT_SITE) at B=2 and at
+    DISCRETE_B, rows under "post_quant"; at the
     card test's ragged fp32 shapes (Tq != Tk) and at d=128 in fp32; at the
     tower's bf16 shape and one bf16 d=128 shape. fp32 is held to
     FLASH_FP32_MAX_REL against the twin (max and mean), bf16 to K3-bwd's
@@ -2758,6 +2960,8 @@ def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
                                          (129, 640, 8, 128, "ragged"),
                                          (1024, 77, 8, 128, "ragged"),
                                          (1024, 1024, 8, 128, "d128"))]
+             + [dict(POST_QUANT_SITE, Tk=POST_QUANT_SITE["T"], B=b, dt=f32, timed=True)
+                for b in (B, DISCRETE_B)]
              + [dict(tower, Tk=tower["T"], count=0, B=B, dt=bf, timed=True),
                 dict(T=1024, Tk=1024, N=8, D=128, at="d128", count=0, B=B, dt=bf, timed=True)])
     acc = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, fma_bound_ms=0.0, max_abs_err=0.0,
@@ -2848,7 +3052,9 @@ def k4_backward_phase(enc_sites, B: int = 2) -> tuple:
             row = dict(ms=ms, device_ms=dm, call_device_ms=kdev, plain_ms=pm, bound_ms=bnd,
                        fma_bound_ms=fma_bnd, library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
                        backward_ms=bwd_ms, backward_device_ms=bwd_dev)
-            if Bc != B:
+            if c["at"] == "post_quant":
+                acc[key].setdefault("post_quant", {})[f"B={Bc}"] = row
+            elif Bc != B:
                 acc[key]["b4"][f"T={Tq} N={N}"] = row
             elif n_call:  # a site of the encode (the bf16 shapes count 0)
                 acc[key]["ms"] += ms * n_call
@@ -3897,6 +4103,308 @@ def batch_phase(card: str, tmp: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ slice 17
+
+# The discrete phase's stage-0 YAML: configs/*stage_0*.yaml with only these
+# keys changed (G_kwargs, loss_kwargs). entropy_loss_weight weights the
+# entropy term, which use_entropy_loss computes (the JAX default 0 would
+# leave it out of the gradient); blur_fade_kimg > 1 turns the D-input blur
+# schedule on (sigma 2 at cur_nimg 0).
+DISCRETE_YAML_G = dict(compression_mode="discrete", use_entropy_loss=True)
+DISCRETE_YAML_LOSS = dict(compression_mode="discrete", entropy_loss_weight=0.1,
+                          use_stylegan_t_disc_warmup=True, use_patchgan_disc_warmup=True,
+                          blur_fade_kimg=100)
+DISCRETE_B = 32
+DISCRETE_STEPS = 3
+# idx_to_f(f_to_idx(x)) against encode's z: the straight-through sum
+# f + (f_hat - f) can round away from f_hat by an fp32 ulp of f (unit-norm
+# chunks: below 2^-23), so the two z's agree within DISCRETE_Z_ABS and their
+# fp32 decodes within DISCRETE_IDX_REL_L1. The bf16 decodes are held to
+# DECODE_REL_L1 instead: a 2e-9 change of z flips bf16 roundings in the
+# decoder and reads 5e-3 (rel-L1) at random weights on an H100, as the
+# 3mm-flash decode against the default one does.
+DISCRETE_Z_ABS = 1e-6
+DISCRETE_IDX_REL_L1 = 1e-3
+
+
+def usage_percent(idx, codes: int) -> float:
+    """The codebooks' mean share of codes used above 1% of uniform
+    (the quantizer's usage figure) from indices (B, num_codebooks, L)."""
+    import torch
+
+    per = []
+    for i in range(idx.shape[1]):
+        counts = torch.bincount(idx[:, i].reshape(-1), minlength=codes).float()
+        prob = counts / counts.sum().clamp_min(1.0)
+        per.append(float((prob > 0.01 / codes).float().mean()) * 100.0)
+    return sum(per) / len(per)
+
+
+def discrete_phase(card: str, tmp: str) -> dict:
+    """The discrete (VQ) tokenizer at flagship width (slice 17).
+
+    Round trip: the flagship SigLIP2-L/16-512 tower with DISCRETE_G (z
+    16 x 16 x 64, eight codebooks of 4096 codes), bf16, seeded random
+    weights with the zero-initialised branches randomised, B=32 encode ->
+    decode by default and under VFM_VAE_ADAPTER_ATTN=3mm-flash (K4-f32 at
+    the adapter's five sites, post_quant's T=256 N=16 d=64 among them),
+    each request's launches against kernel_sites' prediction. Gates: shapes
+    and finiteness; the decode against the plain twins and fp32 (slice_phase's
+    rule, on the first 4 images); f_to_idx's indices equal, bit for bit, to
+    the codes encode took (recovered from its z, each token its own nearest
+    code) and in range; idx_to_f(indices) within DISCRETE_Z_ABS of
+    encode's z, their fp32 decodes within DISCRETE_IDX_REL_L1 and their bf16
+    decodes within DECODE_REL_L1 (K4-f32 at the new site is held and timed
+    with the encode's fp32 sites: POST_QUANT_SITE). Prints usage_pct, img/s at B=32 of the discrete and the continuous
+    flagship, default and 3mm-flash, in turns, and the VQ's device time
+    (eight argmax products, gather, bincount) beside the encode's.
+
+    Training: configs/*stage_0*.yaml with only DISCRETE_YAML_G and
+    DISCRETE_YAML_LOSS changed (and recipe_phase's overrides) through the
+    CLI: DISCRETE_STEPS [D, G] steps and a snapshot, then a call that
+    auto-resumes it and takes one more step. Gates: finite logged losses
+    with the VQ, entropy and codebook usage terms; every trainable G
+    tensor moved; D unchanged while the StyleGAN-T branch waits for its
+    warm-up (its loss is 0); K1-K3 and K3's backward in every G step; the
+    resume strict and the usage EMAs and record counters carried across it.
+    Prints the warm-up machine's state. Returns {"discrete": launches of
+    the requests and CLI calls}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from vfm_vae_tpu_torch.core.config import derive_config, load_config
+    from vfm_vae_tpu_torch.entry import (
+        DISCRETE_G,
+        FLAGSHIP_KWARGS,
+        flagship_generator,
+        kernel_sites,
+    )
+    from vfm_vae_tpu_torch.models.adapter import map_to_tokens
+    from vfm_vae_tpu_torch.models.generator import Generator
+    from vfm_vae_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counts: dict = {}
+
+    def count(fn):
+        """Run `fn` on the main path: its launches go into `counts`."""
+        c0 = kernels.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c1 = kernels.launch_counts()
+        got = {k: c1[k] - c0[k] for k in c1}
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+        return out, got
+
+    Gd = flagship_generator(dev, torch.bfloat16, torch.Generator(device=dev).manual_seed(17),
+                            **DISCRETE_G)
+    randomize_zero_init_branches(Gd, seed=18)
+    ad = Gd.ldm_adapter
+    cb = ad.quantizer.codebooks
+    codes = cb[0].codebook.weight.shape[0]
+    print(f"[discrete] flagship in discrete mode: {sum(p.numel() for p in Gd.parameters()) / 1e6:.1f}"
+          f" M parameters; {len(cb)} codebooks of {codes} codes, "
+          f"{cb[0].codebook.weight.shape[1]} wide; z {ad.z_resolution}x{ad.z_resolution}x"
+          f"{DISCRETE_G['vocab_width']}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(170)
+    img = torch.rand((DISCRETE_B, 256, 256, 3), generator=gen, device=dev)
+    outs, fails = {}, []
+    for name, env in (("default", {"VFM_VAE_ADAPTER_ATTN": None}),
+                      ("3mm-flash", {"VFM_VAE_ADAPTER_ATTN": "3mm-flash"})):
+        with env_vars(dict(NO_SWITCHES, **env)):
+            sites = kernel_sites(Gd, 256)
+            want = forward_counts(sites)
+            (z, x), got = count(lambda: (lambda z: (z, Gd.decode(z)))(Gd.encode(img)))
+        post = [s for s in sites["flash_attention_nonull"] if s["at"] == "post_quant"]
+        outs[name] = (z, x)
+        print(f"[discrete] {name} request B={DISCRETE_B}: launches {got}; predicted {want}",
+              flush=True)
+        if any(got.get(k, 0) != n for k, n in want.items()) or any(
+                n and k not in want for k, n in got.items()):
+            fails.append(f"{name} launches")
+        if (name == "3mm-flash") != (post == [dict(T=256, N=16, D=64, at="post_quant",
+                                                    count=1)]):
+            fails.append(f"{name}: post_quant K4 sites {post}")
+        if tuple(z.shape) != (DISCRETE_B, 16, 16, DISCRETE_G["vocab_width"]) or \
+                tuple(x.shape) != (DISCRETE_B, 256, 256, 3):
+            fails.append(f"{name} shapes {tuple(z.shape)} {tuple(x.shape)}")
+        if not (torch.isfinite(z).all() and torch.isfinite(x).all()):
+            fails.append(f"{name} non-finite")
+    z_k, x_k = outs["default"]
+    print(f"[discrete] 3mm-flash vs default: z rel-L1 {rel_l1(outs['3mm-flash'][0], z_k):.3e}, "
+          f"decode rel-L1 {rel_l1(outs['3mm-flash'][1], x_k):.3e}", flush=True)
+
+    # The indices: f_to_idx against the codes encode took (each quantized
+    # token is its own nearest code), the round trip through idx_to_f.
+    with torch.no_grad():
+        feats = Gd.vfm_encoder.encode_image(img)
+        idx = ad.f_to_idx(feats)
+        tok = map_to_tokens(z_k.float()).chunk(len(cb), dim=-1)
+        took = torch.stack([(t.reshape(-1, t.shape[-1]) @ q.normalized_codebook().t())
+                            .argmax(1).reshape(t.shape[:2]) for t, q in zip(tok, cb)], dim=1)
+        z_idx = ad.quantizer.idx_to_f(idx).reshape(z_k.shape).to(z_k.dtype)
+        x_idx = Gd.decode(z_idx)
+    same = torch.equal(idx, took)
+    in_range = int(idx.min()) >= 0 and int(idx.max()) < codes
+    dz = float((z_idx.float() - z_k.float()).abs().max())
+    idx_rel = rel_l1(x_idx, x_k)
+    usage = usage_percent(idx, codes)
+    print(f"[discrete] indices {tuple(idx.shape)} in [{int(idx.min())}, {int(idx.max())}] of "
+          f"{codes}: f_to_idx == encode's codes {same} ({int((idx != took).sum())} differ); "
+          f"usage_pct {usage:.2f}; idx_to_f(idx) vs encode's z max |diff| {dz:.3e} (limit "
+          f"{DISCRETE_Z_ABS:g}); bf16 decodes rel-L1 {idx_rel:.3e} (tol {DECODE_REL_L1:g})",
+          flush=True)
+    if not (same and in_range and dz <= DISCRETE_Z_ABS and idx_rel <= DECODE_REL_L1):
+        fails.append("indices round trip")
+
+    # The decode against the plain twins and fp32 (slice_phase's rule).
+    zq = z_k[:4]
+    Gd.use_plain_kernels(True)
+    x_p = Gd.decode(zq)
+    Gd.use_plain_kernels(False)
+    G32 = Generator(**dict(FLAGSHIP_KWARGS, **DISCRETE_G), dtype=torch.float32, device=dev)
+    G32.load_state_dict(Gd.state_dict())
+    G32.use_plain_kernels(True)
+    x_32 = G32.decode(zq.float())
+    idx32 = rel_l1(G32.decode(z_idx[:4].float()), x_32)
+    del G32
+    torch.cuda.empty_cache()
+    print(f"[discrete] fp32 decodes of idx_to_f(idx) and of encode's z: rel-L1 {idx32:.3e} "
+          f"(limit {DISCRETE_IDX_REL_L1:g})", flush=True)
+    if idx32 > DISCRETE_IDX_REL_L1:
+        fails.append("indices round trip in fp32")
+    kp, k32, p32 = rel_l1(x_k[:4], x_p), rel_l1(x_k[:4], x_32), rel_l1(x_p, x_32)
+    print(f"[discrete] decode: kernel vs plain rel-L1 {kp:.3e} (tol {DECODE_REL_L1:g}); vs fp32 "
+          f"kernel {k32:.3e} plain {p32:.3e} (limit {TRUTH_FACTOR} x plain)", flush=True)
+    if not (kp <= DECODE_REL_L1 and k32 <= TRUTH_FACTOR * p32 + 1e-6):
+        fails.append("decode vs plain / fp32")
+    if fails:
+        raise SystemExit(f"chip_smoke: discrete phase failed: {fails}")
+    del outs, x_p, x_32, feats, z_idx, x_idx
+
+    # Speed, in turns with the continuous flagship in the same call.
+    Gc = flagship_generator(dev, torch.bfloat16, torch.Generator(device=dev).manual_seed(0))
+    randomize_zero_init_branches(Gc, seed=1)
+    rates: dict = {}
+    for rep in range(2):
+        for env_name, env in (("default", None), ("3mm-flash", "3mm-flash")):
+            with env_vars(dict(NO_SWITCHES, VFM_VAE_ADAPTER_ATTN=env)):
+                order = (("discrete", Gd), ("continuous", Gc))
+                for name, G in (order if rep == 0 else order[::-1]):
+                    rates.setdefault(f"{name} {env_name}", []).append(round_trip_rate(G, img))
+    for key, r in rates.items():
+        print(f"[discrete] round trip B={DISCRETE_B} {key}: "
+              f"{', '.join(f'{x:.2f}' for x in r)} img/s in turns on {card}", flush=True)
+    del Gc
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        x_tok = map_to_tokens(ad.encode(Gd.vfm_encoder.encode_image(img),
+                                        return_z_before_quantize=True))
+    def quantize():
+        with torch.no_grad():
+            return ad.quantizer(x_tok)
+
+    vq_dev, vq_per = device_kernels(quantize)
+    enc_dev = device_ms(lambda: Gd.encode(img), reps=3)
+    share = ("not measured" if vq_dev is None or enc_dev is None
+             else f"{vq_dev / enc_dev:.4f}")
+    print(f"[discrete] VQ device time B={DISCRETE_B}: {ms_text(vq_dev)} ms of the encode's "
+          f"{ms_text(enc_dev)} ms (share {share}); its kernels "
+          + ", ".join(f"{short_kernel_name(n)} {ms:.4f}" for n, ms in list(vq_per.items())[:6]),
+          flush=True)
+    del x_tok, Gd, img, z_k, x_k
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Training through the CLI.
+    shards = os.path.join(tmp, "shards")
+    write_recipe_shards(shards, seed=17)
+    c = load_config(os.path.join(HERE, RECIPE_YAMLS[0]))
+    c.G_kwargs.update(DISCRETE_YAML_G)
+    c.loss_kwargs.update(DISCRETE_YAML_LOSS)
+    c = derive_config(c)
+    c.run_dir = os.path.join(tmp, "run")
+    c.training_set_kwargs.path = shards
+    c.update(batch_size=RECIPE_BATCH, kimg_per_tick=1000, network_snapshot_ticks=1,
+             allow_random_lpips=True)
+    print(f"[discrete] {RECIPE_YAMLS[0]} with G_kwargs {DISCRETE_YAML_G}, loss_kwargs "
+          f"{DISCRETE_YAML_LOSS}; batch_size {RECIPE_BATCH}, --max-steps {DISCRETE_STEPS}",
+          flush=True)
+    probe = recipe_steps()
+    t0 = time.perf_counter()
+    with probe:
+        st = probe.begin("discrete")
+        res = run_recipe_cli(c, os.path.join(tmp, "discrete.yaml"), DISCRETE_STEPS, counts)
+    first_s = time.perf_counter() - t0
+    tr, fsm = res.trainer, res.warmup
+    params = host_copy(named_params(tr))
+    usage0 = host_copy({n: b for n, b in tr.G.named_buffers() if ".quantizer." in n})
+    g_tr = sorted("G." + n for n in tr.g_params)
+    d_tr = sorted("D." + n for n in tr.d_params)
+    unmoved = [n for n in g_tr if torch.equal(params[n], st["before"][n])]
+    d_moved = [n for n in d_tr if not torch.equal(params[n], st["before"][n])]
+    with open(os.path.join(c.run_dir, "stats.jsonl")) as f:
+        entry = json.loads(f.readline())
+    losses = {k: v for k, v in entry.items() if k.startswith("Loss/")}
+    step_ok = all(g.get("fused_convnext_mlp", 0) and g.get("fused_upsample_blur", 0)
+                  and g.get("flash_attention_nullkv", 0)
+                  and g.get("flash_attention_nullkv_bwd_dkv", 0)
+                  and g.get("flash_attention_nullkv_bwd_dq", 0) for g in st["g_launches"])
+    print(f"[discrete] {DISCRETE_STEPS} [D, G] steps in {first_s:.1f} s: D ms "
+          f"{', '.join(f'{x:.1f}' for x in st['d_ms'])}, G ms "
+          f"{', '.join(f'{x:.1f}' for x in st['g_ms'])}; vq {losses.get('Loss/G/vq_loss')} "
+          f"entropy {losses.get('Loss/G/entropy_loss')} codebook_usages "
+          f"{losses.get('Loss/G/codebook_usages')} l1 {losses.get('Loss/G/l1_pixel_loss')} "
+          f"vf {losses.get('Loss/G/vf_loss')} D {losses.get('Loss/D/stylegan_t/loss')}; "
+          f"{len(g_tr) - len(unmoved)}/{len(g_tr)} trainable G tensors moved "
+          f"({unmoved[:4]}), {len(d_moved)}/{len(d_tr)} D tensors moved (StyleGAN-T on: "
+          f"{tr.loss.stylegan_t_on}); G steps' launches {st['g_launches']}", flush=True)
+    print(f"[discrete] warm-up machine after {DISCRETE_STEPS} steps: active {fsm.active}, "
+          f"stylegan_t_on {tr.loss.stylegan_t_on}, patchgan_on {tr.loss.patchgan_on}, pixel "
+          f"window {len(fsm.pixel_window)} (mean "
+          f"{float(np.mean(fsm.pixel_window)) if fsm.pixel_window else float('nan'):.4f}), "
+          f"D window {len(fsm.d_window)}, patience counts {fsm.pixel_cn}/{fsm.d_cn}, "
+          f"freeze_triggered {fsm.freeze_triggered}", flush=True)
+    counters0 = {n: int(b) for n, b in usage0.items() if n.endswith("usage_record_times")}
+    stylegan_on = bool(tr.loss.stylegan_t_on)
+    del res, tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with probe:
+        st2 = probe.begin("discrete resumed")
+        res2 = run_recipe_cli(c, os.path.join(tmp, "discrete.yaml"), 1, counts)
+    loaded = {n: b for n, b in res2.trainer.G.named_buffers() if ".quantizer." in n}
+    counters1 = {n: int(b) for n, b in loaded.items() if n.endswith("usage_record_times")}
+    snap = os.path.join(res2.resume["path"], "G.pt") if res2.resume else None
+    saved = torch.load(snap, map_location="cpu", weights_only=True) if snap else {}
+    carried = all(torch.equal(saved[n], usage0[n]) for n in usage0
+                  if n.endswith("vocab_usage"))
+    print(f"[discrete] resumed {res2.resume and res2.resume['path']} (strict "
+          f"{res2.resume and res2.resume['strict']}, fresh {res2.resume and res2.resume['fresh']}):"
+          f" usage EMAs in the snapshot equal the run's {carried}; record counters "
+          f"{sorted(set(counters0.values()))} -> {sorted(set(counters1.values()))} after one "
+          f"more step", flush=True)
+    if not (all(math.isfinite(v) for v in losses.values())
+            and all(k in losses for k in ("Loss/G/vq_loss", "Loss/G/entropy_loss",
+                                          "Loss/G/codebook_usages"))
+            and losses["Loss/G/vq_loss"] > 0 and not unmoved
+            and not d_moved and not stylegan_on and step_ok
+            and res2.resume is not None and res2.resume["strict"] and not res2.resume["fresh"]
+            and carried and set(counters0.values()) == {DISCRETE_STEPS}
+            and set(counters1.values()) == {DISCRETE_STEPS + 1}):
+        raise SystemExit("chip_smoke: discrete training gates failed")
+    del res2
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[discrete] phase passed in {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{counts}", flush=True)
+    return {"discrete": counts}
+
+
 TOOLS_IMAGES = 72  # two B=32 batches and a B=8 tail
 TOOLS_BATCH = 32
 # InceptionV3 on the card (cuDNN fp32, TF32 off) against the same module on
@@ -4847,12 +5355,12 @@ def main() -> int:
     dw_err = kernel_dwconv_phase(sites)
     enc = encode_sites(G, int8=True)
     summary.update(kernel_int8_phase(enc["int8_matmul"]))
-    summary.update(kernel_flash_phase(enc["flash_attention_nonull"]))
-    for name, per_site in flash_batch_phase(sites["flash_attention_nullkv"],
-                                            enc["flash_attention_nonull"]).items():
+    k4_sites = enc["flash_attention_nonull"] + [POST_QUANT_SITE]
+    summary.update(kernel_flash_phase(k4_sites))
+    for name, per_site in flash_batch_phase(sites["flash_attention_nullkv"], k4_sites).items():
         summary[name]["b32"] = per_site
     bwd_b32 = flash_bwd_batch_phase(sites["flash_attention_nullkv"], enc["flash_attention_nonull"])
-    k4b, k4_fb = k4_backward_phase(enc["flash_attention_nonull"])
+    k4b, k4_fb = k4_backward_phase(k4_sites)
     summary.update(k4b)
     for name, per_site in bwd_b32.items():
         summary[name]["b32"] = per_site
@@ -4878,6 +5386,7 @@ def main() -> int:
     try:
         launches["recipe"], snapshot, stage3_yaml = recipe_phase(card, tmp)
         launches["batch"] = batch_phase(card, os.path.join(tmp, "batch"))
+        launches.update(discrete_phase(card, os.path.join(tmp, "discrete")))
         launches.update(tools_phase(card, snapshot, stage3_yaml, os.path.join(tmp, "tools")))
         launches.update(diffusion_phase(card, snapshot, stage3_yaml, os.path.join(tmp, "tools"),
                                         os.path.join(tmp, "diffusion")))

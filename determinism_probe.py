@@ -3,6 +3,7 @@ determinism_phase on stage 2's configuration). Run on a machine with the
 CUDA toolkit and a card, from the repository's root:
 
     python determinism_probe.py [--chains 3] [--trials 8] [--entry SNAPSHOT]
+                                [--gate-only] [--noise] [--perturb [first] [all]]
 
 Each chain runs the recipe's stages 0, 1 and 2 through the port's CLI as
 chip_smoke.py's recipe phase does (flagship width and depth, B=4, three
@@ -20,7 +21,27 @@ every kernel and K1's backward storing its recomputed hidden in fp32
 at 0 (in all paths). For each path it prints the gate's paired median (the
 median over quantities of the path's relative error vs fp32 over the plain
 path's; the gate holds the all-kernel path to chip_smoke.TRUTH_FACTOR) and
-the synthesis blocks' relative errors.
+the synthesis blocks' relative errors. Each path is read both ways
+(chip_smoke.gate_readings): the gated reading over the loss terms and
+every trainable gradient tensor's relative L2 error, and beside it the
+reading the gate took until slice 17, over the loss terms and the
+per-module gradient norms.
+
+--stage 0 evaluates chip_smoke's stage-0 trainer (entry.flagship_trainer,
+fresh seeded random weights a chain) instead of stage 2.
+
+--gate-only evaluates only the gate's paths (fp32, plain, kernels) on each
+batch and revisits none. --perturb adds a deliberately wrong kernel path:
+the kernel path with one K1 output and one K3 output scaled by 1 + 2^-6
+("first": the first K1 and the first K3 call of every G forward; "all":
+every K1 and K3 call), inside the kernel path only (the twins are not
+touched). The gate must fail it; the end of the run counts the batches on
+which each reading passed or failed, for each path, and how often the
+median and the per-tensor guard (chip_smoke.gate_readings) tripped.
+--noise (with --gate-only) adds the paths with one kernel on its twin and,
+on every batch, each legacy layer's noise_strength gradient and the noise
+map it is the noise-weighted sum of, in fp32 and in each path, with the
+scalar's conditioning (noise_table).
 
 On each chain's first batch, and on every batch whose all-kernel path
 fails the gate, it then (1) evaluates the kernel, plain and fp32 paths
@@ -157,6 +178,47 @@ class site_twins:
         return bad
 
 
+PERTURB = 1.0 + 2.0 ** -6
+
+
+class perturbed_kernels:
+    """For the length of a `with`: K1's and K3's outputs in the kernel path
+    scaled by PERTURB ("first": the first call of each in every forward of
+    `G`; "all": every call). The twins' calls (plain=True) are untouched."""
+
+    def __init__(self, G, which: str):
+        self.G, self.which, self.calls, self.scaled = G, which, {"K1": 0, "K3": 0}, 0
+
+    def __enter__(self):
+        from vfm_vae_tpu_torch.models import convnext, gigagan
+
+        self.saved = (convnext.fused_convnext_mlp, gigagan.dot_product_attention_nullkv)
+        convnext.fused_convnext_mlp = self.wrap("K1", self.saved[0])
+        gigagan.dot_product_attention_nullkv = self.wrap("K3", self.saved[1])
+        self.hook = self.G.register_forward_pre_hook(
+            lambda *_: self.calls.update(K1=0, K3=0))
+        return self
+
+    def __exit__(self, *exc):
+        from vfm_vae_tpu_torch.models import convnext, gigagan
+
+        convnext.fused_convnext_mlp, gigagan.dot_product_attention_nullkv = self.saved
+        self.hook.remove()
+
+    def wrap(self, kind, fn):
+        def scaled(*args, plain=False):
+            out = fn(*args, plain=plain)
+            if plain:
+                return out
+            self.calls[kind] += 1
+            if self.which == "all" or self.calls[kind] == 1:
+                self.scaled += 1
+                return out * PERTURB
+            return out
+
+        return scaled
+
+
 def traced_modules(prefix: str, module) -> dict:
     """The modules whose outputs trace_blocks follows: the encoder, the
     adapter's parts, the mapping, every z injector, synthesis block and its
@@ -236,6 +298,9 @@ class Evaluation:
         import torch
 
         self.tr, self.state, self.label, self.grads = tr, state, label, None
+        self.plain_grads = self.exact_grads = self.maps = None
+        self.plain_maps = self.exact_maps = None
+        self.counts = {}
         self.dev = next(tr.G.parameters()).device
         self.bufs = {"G": {k: v.clone() for k, v in tr.G.named_buffers()},
                      "D": {k: v.clone() for k, v in tr.D.named_buffers()}}
@@ -265,65 +330,109 @@ class Evaluation:
                 m.plain = k in which
 
     def run(self, fp32: bool, img, eq) -> dict:
-        from vfm_vae_tpu_torch.train.loss import G_TERMS
-
+        """The gate's quantities of one path (chip_smoke.determinism_run);
+        its gradients by parameter go into self.grads."""
         t, st = (self.tr32, self.state32) if fp32 else (self.tr, self.state)
-        for mod, key in ((t.G, "G"), (t.D, "D")):
-            for k, v in mod.named_buffers():
-                v.copy_(self.bufs[key][k])
-        t.record_grad_norms, t.grad_norms = True, {}
-        d_grads, d_total, _ = t.d_gradients(st, img, eq)
-        g_grads, terms, _, _, g_total = t.g_gradients(st, img, eq, update_buffers=False)
-        t.record_grad_norms = False
-        # The last run's gradients by parameter, as the gate's norms name them.
-        self.grads = {**{"D." + n: g.detach().float() for n, g in zip(t.d_params, d_grads)},
-                      **{"G." + n: g.detach().float() for n, g in zip(t.g_params, g_grads)}}
-        out = {"D total": float(d_total), "G total": float(g_total)}
-        out.update({"G " + n: float(v) for n, v in zip(G_TERMS, terms) if float(v) != 0.0})
-        groups = {}
-        for n, v in t.grad_norms.items():
-            key = ".".join(n.split(".")[:4])
-            groups[key] = groups.get(key, 0.0) + v * v
-        out.update({"|grad| " + k: math.sqrt(v) for k, v in groups.items()})
+        out, self.grads, self.maps = cs.determinism_run(t, st, img, eq, self.bufs)
         return out
 
-    def median(self, name, got, plain, exact, trial, eq) -> float:
-        keys = [k for k in exact if exact[k] != 0.0 and k in got and k in plain]
-        eg = {k: abs(got[k] - exact[k]) / abs(exact[k]) for k in keys}
-        ep = {k: abs(plain[k] - exact[k]) / abs(exact[k]) for k in keys}
-        med = statistics.median(max(eg[k], 1e-6) / max(ep[k], 1e-6) for k in keys)
-        synth = [k for k in keys if "synthesis.blocks" in k]
-        print(f"[{self.label}] trial {trial} eq={eq} {name}: paired median {med:.3f} over "
-              f"{len(keys)} quantities (limit {cs.TRUTH_FACTOR}); synthesis blocks rel vs "
-              f"fp32 " + " ".join(f"{eg[k]:.2e}" for k in synth)
-              + "; plain " + " ".join(f"{ep[k]:.2e}" for k in synth), flush=True)
-        return med
+    def median(self, name, got, plain, exact, trial, eq, grads=None, key=None) -> float:
+        """The gated reading (gate_readings) of path `name` on this batch,
+        with the old reading beside it; `grads` holds {"kernels", "plain",
+        "fp32"} gradient dicts (default: the last run's as the path's, the
+        kept plain and fp32 ones, with their noise maps). Returns the gated
+        median; the old one goes into self.old. Each reading is counted
+        under `key` (default `name`): the median past the limit, the guard
+        tripped."""
+        g = grads or dict(kernels=self.grads, plain=self.plain_grads, fp32=self.exact_grads)
+        maps = None if grads else dict(kernels=self.maps, plain=self.plain_maps,
+                                       fp32=self.exact_maps)
+        r = cs.gate_readings(got, plain, exact, g["kernels"], g["plain"], g["fp32"], maps)
+        c = self.counts.setdefault(key or name, dict(
+            batches=0, median=0, guard=0, scalar_guard=0))
+        c["batches"] += 1
+        c["median"] += r["median"] > cs.TRUTH_FACTOR
+        c["guard"] += bool(r["guard"])
+        c["scalar_guard"] += bool(r["scalar_guard"])
+        synth = [k for k in r["old_keys"] if "synthesis.blocks" in k]
+        print(f"[{self.label}] trial {trial} eq={eq} {name}: {cs.gate_text(r)}; synthesis "
+              f"blocks' norms rel vs fp32 " + " ".join(f"{r['rel'][k][0]:.2e}" for k in synth)
+              + "; plain " + " ".join(f"{r['rel'][k][1]:.2e}" for k in synth), flush=True)
+        self.old = r["old_median"]
+        return r["median"]
 
-    def trial(self, trial: int) -> dict:
-        """{path: paired median} on batch `trial`, every path."""
+    def trial(self, trial: int, gate_only: bool = False, perturb=(), noise: bool = False) -> dict:
+        """{path: (gated median, old median)} on batch `trial`: every path,
+        or (gate_only) the kernel path, and for each mode in `perturb` the
+        perturbed kernel path; with `noise` (and gate_only) also the paths
+        with one kernel on its twin, and every legacy layer's noise_strength
+        gradient and noise map in each path (noise_table)."""
         img, eq = self.batch(trial)
         out = {}
-        for no_ssim in (False, True):
+        for no_ssim in ((False,) if gate_only else (False, True)):
             self.tr.loss.ssim_loss_weight = 0.0 if no_ssim else self.ssim_w[0]
             self.tr32.loss.ssim_loss_weight = 0.0 if no_ssim else self.ssim_w[1]
             exact = self.run(True, img, eq)
+            self.exact_grads, self.exact_maps = self.grads, self.maps
             self.set_plain(KINDS)
             plain = self.run(False, img, eq)
-            paths = {"kernels no-SSIM": ()} if no_ssim else dict({"kernels": ()}, **SINGLE,
-                                                                **PAIRS)
+            self.plain_grads, self.plain_maps = self.grads, self.maps
+            paths = ({"kernels no-SSIM": ()} if no_ssim
+                     else dict({"kernels": ()}, **SINGLE) if gate_only and noise
+                     else {"kernels": ()} if gate_only
+                     else dict({"kernels": ()}, **SINGLE, **PAIRS))
+            table = {}
             for name, twins in paths.items():
                 self.set_plain(twins)
-                out[name] = self.median(name, self.run(False, img, eq), plain, exact, trial, eq)
+                out[name] = (self.median(name, self.run(False, img, eq), plain, exact, trial,
+                                         eq), self.old)
+                table[name] = (self.grads, self.maps)
+            for mode in ([] if no_ssim else perturb):
+                self.set_plain(())
+                with perturbed_kernels(self.tr.G, mode) as pk:
+                    got = self.run(False, img, eq)
+                name = f"kernels, K1+K3 outputs x (1 + 2^-6) ({mode}: {pk.scaled} calls)"
+                out[f"perturbed ({mode})"] = (self.median(name, got, plain, exact, trial, eq,
+                                                          key=f"perturbed ({mode})"), self.old)
+            if noise and not no_ssim:
+                self.noise_table(trial, eq, table)
+            if gate_only:
+                break
             if not no_ssim:
                 with cs.env_vars({"VFM_VAE_MLP_BWD_BF16": "0"}):
                     for name, twins in (("kernels, K1 bwd fp32 hidden", ()),
                                         ("plain, K1 bwd fp32 hidden", KINDS)):
                         self.set_plain(twins)
-                        out[name] = self.median(name, self.run(False, img, eq), plain, exact,
-                                                trial, eq)
+                        out[name] = (self.median(name, self.run(False, img, eq), plain, exact,
+                                                 trial, eq), self.old)
             self.set_plain(())
         self.tr.loss.ssim_loss_weight, self.tr32.loss.ssim_loss_weight = self.ssim_w
         return out
+
+    def noise_table(self, trial: int, eq, table: dict) -> None:
+        """Every legacy layer's noise_strength gradient in fp32 and in each
+        path of `table` ({path: (gradients, noise maps)}; the plain path's
+        first), each path's relative error against fp32 for the scalar and
+        for the noise map it is the weighted sum of, and the scalar's
+        conditioning (sum |terms| / |sum| of fp32's map times the noise)."""
+        table = dict(plain=(self.plain_grads, self.plain_maps), **table)
+        tag = f"[{self.label} trial {trial} noise]"
+        for layer, (m32, unit) in self.exact_maps.items():
+            pname = layer + ".noise_strength"
+            if pname not in self.exact_grads:
+                continue
+            g32 = float(self.exact_grads[pname])
+            terms = unit * m32
+            cond = float(terms.abs().sum()) / max(abs(float(terms.sum())), 1e-30)
+            check = abs(float(terms.sum()) - g32) / max(abs(g32), 1e-30)
+            parts = []
+            for path, (grads, maps) in table.items():
+                g = float(grads[pname])
+                mrel = float((maps[layer][0] - m32).norm() / m32.norm().clamp_min(1e-30))
+                parts.append(f"{path} {g:.4e} (rel {abs(g - g32) / max(abs(g32), 1e-30):.2e}, "
+                             f"map rel {mrel:.2e})")
+            print(f"{tag} {layer} on {eq}: fp32 {g32:.4e} (map sum vs it {check:.1e}, "
+                  f"conditioning {cond:.3g}); " + "; ".join(parts), flush=True)
 
     def revisit(self, trial: int) -> list:
         """Batch `trial` again on the same weights: the kernel, plain and
@@ -332,8 +441,10 @@ class Evaluation:
         img, eq = self.batch(trial)
         for rep in (1, 2):
             exact = self.run(True, img, eq)
+            self.exact_grads, self.exact_maps = self.grads, self.maps
             self.set_plain(KINDS)
             plain = self.run(False, img, eq)
+            self.plain_grads, self.plain_maps = self.grads, self.maps
             self.set_plain(())
             self.median(f"kernels (repeat {rep})", self.run(False, img, eq), plain, exact,
                         trial, eq)
@@ -411,6 +522,8 @@ class Evaluation:
 
     def close(self) -> None:
         del self.tr32, self.state32
+        self.grads = self.plain_grads = self.exact_grads = None
+        self.maps = self.plain_maps = self.exact_maps = None
         gc.collect()
         self.torch.cuda.empty_cache()
 
@@ -421,6 +534,18 @@ def main(argv=None) -> int:
     ap.add_argument("--trials", type=int, default=8)
     ap.add_argument("--entry", default=None,
                     help="a stage-2 entry snapshot (stage 1's) to resume instead of stages 0-1")
+    ap.add_argument("--stage", type=int, choices=(0, 2), default=2,
+                    help="2: the recipe's stage 2 (stages 0-2 through the CLI a chain); 0: "
+                         "the stage-0 flagship trainer of chip_smoke's training phase, fresh "
+                         "random weights a chain")
+    ap.add_argument("--gate-only", action="store_true",
+                    help="only the gate's paths on each batch, no revisits")
+    ap.add_argument("--noise", action="store_true",
+                    help="with --gate-only: also the paths with one kernel on its twin, and "
+                         "every legacy noise_strength gradient and noise map in each path")
+    ap.add_argument("--perturb", choices=("first", "all"), nargs="*", default=(),
+                    help="add the kernel path with K1 and K3 outputs scaled by 1 + 2^-6 "
+                         "(first: one call of each a G forward; all: every call)")
     args = ap.parse_args(argv)
 
     import torch
@@ -429,6 +554,7 @@ def main(argv=None) -> int:
         raise SystemExit("determinism probe: no CUDA device")
 
     from vfm_vae_tpu_torch.core.config import derive_config, load_config
+    from vfm_vae_tpu_torch.entry import flagship_trainer
     from vfm_vae_tpu_torch.ops.kernels._build import library
     from vfm_vae_tpu_torch.train.loop import build_trainer
 
@@ -438,46 +564,67 @@ def main(argv=None) -> int:
     overrides = dict(batch_size=cs.RECIPE_BATCH, kimg_per_tick=1000, network_snapshot_ticks=1,
                      allow_random_lpips=True)
     chains = 1 if args.entry else args.chains
-    failing, bad_sites = [], []
+    failing, bad_sites, readings, totals = [], [], {}, {}
+    dev = torch.device("cuda")
     for chain in range(chains):
         t0 = time.perf_counter()
         tmp = tempfile.mkdtemp(prefix="vfm_det_")
+        label = f"chain {chain}"
         try:
-            shards = os.path.join(tmp, "shards")
-            cs.write_recipe_shards(shards)
-            prev = args.entry
-            for i in ((2,) if args.entry else (0, 1, 2)):
-                c = derive_config(load_config(os.path.join(ROOT, cs.RECIPE_YAMLS[i])))
-                c.run_dir = os.path.join(tmp, f"stage{i}")
-                c.training_set_kwargs.path = shards
-                c.update(overrides, resume_path=prev, resume_kimg=0)
-                res = cs.run_recipe_cli(c, os.path.join(tmp, f"stage{i}.yaml"), cs.RECIPE_STEPS,
-                                        {})
-                if i == 2:
-                    break
-                prev = res.snapshot["path"]
-                del res
-                gc.collect()
-                torch.cuda.empty_cache()
-            label = f"chain {chain}"
-            print(f"[{label}] stages trained in {time.perf_counter() - t0:.1f} s; stage 2 "
-                  f"entered from {prev}", flush=True)
-            kw = {k: c[k] for k in ("G_kwargs", "D_kwargs", "loss_kwargs", "G_opt_kwargs",
-                                    "D_opt_kwargs")}
-            ev = Evaluation(res.trainer, res.state, lambda: build_trainer(
-                **kw, device="cuda", compute_dtype="float32", batch_size=cs.RECIPE_BATCH,
-                allow_random_lpips=True), label)
+            if args.stage == 0:
+                tr = flagship_trainer(dev, cs.RECIPE_BATCH,
+                                      torch.Generator(device=dev).manual_seed(100 + chain),
+                                      allow_random_lpips=True)
+                cs.randomize_zero_init_branches(tr.G, seed=200 + chain)
+                ev = Evaluation(tr, tr.init_state(), lambda: flagship_trainer(
+                    dev, cs.RECIPE_BATCH, torch.Generator(device=dev).manual_seed(0),
+                    dtype=torch.float32, allow_random_lpips=True), label)
+                res = tr
+            else:
+                shards = os.path.join(tmp, "shards")
+                cs.write_recipe_shards(shards)
+                prev = args.entry
+                for i in ((2,) if args.entry else (0, 1, 2)):
+                    c = derive_config(load_config(os.path.join(ROOT, cs.RECIPE_YAMLS[i])))
+                    c.run_dir = os.path.join(tmp, f"stage{i}")
+                    c.training_set_kwargs.path = shards
+                    c.update(overrides, resume_path=prev, resume_kimg=0)
+                    res = cs.run_recipe_cli(c, os.path.join(tmp, f"stage{i}.yaml"),
+                                            cs.RECIPE_STEPS, {})
+                    if i == 2:
+                        break
+                    prev = res.snapshot["path"]
+                    del res
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                print(f"[{label}] stages trained in {time.perf_counter() - t0:.1f} s; stage 2 "
+                      f"entered from {prev}", flush=True)
+                kw = {k: c[k] for k in ("G_kwargs", "D_kwargs", "loss_kwargs", "G_opt_kwargs",
+                                        "D_opt_kwargs")}
+                ev = Evaluation(res.trainer, res.state, lambda: build_trainer(
+                    **kw, device="cuda", compute_dtype="float32", batch_size=cs.RECIPE_BATCH,
+                    allow_random_lpips=True), label)
             medians = {}
             for trial in range(args.trials):
-                for name, med in ev.trial(trial).items():
+                for name, med in ev.trial(trial, args.gate_only, args.perturb,
+                                          args.noise).items():
                     medians.setdefault(name, []).append(med)
-            print(f"[{label}] on {card}: median over {args.trials} trials of each path's paired "
-                  "median: " + "; ".join(f"{n} {statistics.median(v):.3f} (max {max(v):.3f})"
-                                         for n, v in medians.items()), flush=True)
-            fails = [t for t, m in enumerate(medians["kernels"]) if m > cs.TRUTH_FACTOR]
+            print(f"[{label}] on {card}: median over {args.trials} trials of each path's gated "
+                  "median: " + "; ".join(
+                      f"{n} {statistics.median(m[0] for m in v):.3f} (max "
+                      f"{max(m[0] for m in v):.3f}; old reading {statistics.median(m[1] for m in v):.3f},"
+                      f" max {max(m[1] for m in v):.3f})" for n, v in medians.items()), flush=True)
+            for name, v in medians.items():
+                for t, m in enumerate(v):
+                    readings.setdefault(name, []).append((chain, t) + m)
+            fails = [t for t, m in enumerate(medians["kernels"]) if m[0] > cs.TRUTH_FACTOR]
             failing += [(chain, t) for t in fails]
-            for trial in sorted({0, *fails}):
+            for trial in ([] if args.gate_only else sorted({0, *fails})):
                 bad_sites += [(chain, trial, s) for s in ev.revisit(trial)]
+            for name, c in ev.counts.items():
+                counts = totals.setdefault(name, dict.fromkeys(c, 0))
+                for k, v in c.items():
+                    counts[k] += v
             ev.close()
             del ev, res
             gc.collect()
@@ -488,6 +635,21 @@ def main(argv=None) -> int:
     print(f"[determinism-probe] on {card}: (chain, trial) failing the gate: {failing} of "
           f"{chains} x {args.trials}; kernel calls past a twin's bound on the revisited "
           f"batches: {len(bad_sites)}", flush=True)
+    for name, c in totals.items():
+        print(f"[determinism-probe] {name} on {card}: {c['batches']} readings; the median "
+              f"past {cs.TRUTH_FACTOR} on {c['median']}, the guard (noise_strength through "
+              f"its map) on {c['guard']}, the guard on the scalars themselves on "
+              f"{c['scalar_guard']}", flush=True)
+    lim = cs.TRUTH_FACTOR
+    for name, rows in readings.items():
+        new_fail = [r[:2] for r in rows if r[2] > lim]
+        old_fail = [r[:2] for r in rows if r[3] > lim]
+        print(f"[determinism-probe] {name} on {card}: {len(rows)} batches; gated reading (loss "
+              f"terms, gradient tensors) failed {len(new_fail)} {new_fail}, median "
+              f"{statistics.median(r[2] for r in rows):.3f}, max {max(r[2] for r in rows):.3f}; "
+              f"old reading (loss terms, per-module gradient norms) failed {len(old_fail)} "
+              f"{old_fail}, median {statistics.median(r[3] for r in rows):.3f}, max "
+              f"{max(r[3] for r in rows):.3f}", flush=True)
     return 0
 
 

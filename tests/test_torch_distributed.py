@@ -15,6 +15,11 @@ not the suite's clock. Each process writes what it saw to rank<r>.pt.
   package, so this holds world 2 against JAX by transitivity. Both Adams
   run with eps = 1, so that the update is smooth in the gradient (see
   tests/test_torch_accumulation.py).
+- The same step in discrete mode (the VQ with its entropy loss): the
+  codebooks' usage EMAs and record counters equal on both processes and
+  equal world 1's on the same global batch (the per-code counts are summed
+  over the processes), and the parameters as above (the entropy loss's
+  codebook term takes the global batch's mean probability).
 - The safe-loss check sees the mean of the processes' terms: every
   process takes the same skip decision, whatever its own terms say.
 - sync_across_processes sums the moments; check_replica_consistency
@@ -67,6 +72,20 @@ def build(c):
                                               "G_opt_kwargs", "D_opt_kwargs")},
                          device="cpu", compute_dtype="float32", allow_random_lpips=True,
                          batch_size=GLOBAL_BATCH)
+
+
+def discrete_config(root):
+    """step_config in discrete mode: four codebooks of 16 codes, 4 wide, the
+    entropy loss on and weighted."""
+    c = step_config(root)
+    c.G_kwargs.update(compression_mode="discrete", vocab_width=16, vocab_size=64,
+                      num_codebooks=4, use_entropy_loss=True)
+    c.loss_kwargs.update(compression_mode="discrete", entropy_loss_weight=0.1)
+    return c
+
+
+def usage_buffers(G) -> dict:
+    return {n: b.clone() for n, b in G.named_buffers() if ".quantizer." in n}
 
 
 def global_batch():
@@ -138,6 +157,11 @@ def worker(rank: int, root: str) -> None:
         mesh.broadcast_modules([tr.G, tr.D])
         out["step"] = stage0_step(tr, mesh.rank_slice(global_batch()))
         mesh.check_replica_consistency(out["step"]["params"])
+        tr = build(discrete_config(root))
+        mesh.broadcast_modules([tr.G, tr.D])
+        out["discrete"] = stage0_step(tr, mesh.rank_slice(global_batch()))
+        out["discrete"]["usage"] = usage_buffers(tr.G)
+        mesh.check_replica_consistency({**out["discrete"]["params"], **out["discrete"]["usage"]})
 
         # The safe-loss check on per-process terms: l1 1.0 here and 3.0 on
         # the other process; its previous value 0.25 makes 10x that 2.5, so
@@ -206,8 +230,10 @@ def world(tmp_path_factory):
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(WORLD)]
     try:
+        disc = build(discrete_config(root))
         ref = dict(step=stage0_step(build(step_config(root)), global_batch()),
-                   dit=dit_step(*dit_batch()))
+                   discrete=stage0_step(disc, global_batch()), dit=dit_step(*dit_batch()))
+        ref["discrete"]["usage"] = usage_buffers(disc.G)
         deadline = time.monotonic() + JOIN_TIMEOUT_S
         logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0].decode()
                 for p in procs]
@@ -231,15 +257,16 @@ def test_ranks_joined_one_world(world):
     assert [r["rank_and_world"] for r in world["results"]] == [(0, WORLD), (1, WORLD)]
 
 
-def test_world2_stage0_step_matches_world1(world):
-    ref = world["ref"]["step"]
+@pytest.mark.parametrize("case", ("step", "discrete"))
+def test_world2_stage0_step_matches_world1(world, case):
+    ref = world["ref"][case]
     assert ref["cur_nimg"] == GLOBAL_BATCH
-    before = build(step_config(world["root"]))
+    before = build((step_config if case == "step" else discrete_config)(world["root"]))
     start = {"G." + n: p.detach() for n, p in before.g_params.items()}
     start.update({"D." + n: p.detach() for n, p in before.d_params.items()})
     assert len(start) > 100
     for res in world["results"]:
-        got = res["step"]
+        got = res[case]
         assert got["cur_nimg"] == GLOBAL_BATCH  # kimg accounting is global
         assert torch.equal(got["skipped"], ref["skipped"])
         np.testing.assert_allclose(got["totals"], ref["totals"], rtol=1e-5)
@@ -256,8 +283,23 @@ def test_world2_stage0_step_matches_world1(world):
                 torch.testing.assert_close(de, ref["ema"][n[2:]] - start[n], rtol=0, atol=atol,
                                            msg="ema " + n)
     # Replicas, bit for bit (the worker's check_replica_consistency passed too).
-    a, b = (r["step"]["params"] for r in world["results"])
+    a, b = (r[case]["params"] for r in world["results"])
     assert all(torch.equal(a[n], b[n]) for n in a)
+
+
+def test_world2_usage_buffers_match_world1(world):
+    """The VQ usage EMAs after one [D, G] step (the G phase moves them once):
+    equal on both processes, and world 1's on the same 16 images."""
+    ref = world["ref"]["discrete"]["usage"]
+    a, b = (r["discrete"]["usage"] for r in world["results"])
+    assert sorted(ref) == sorted(a) and len(ref) == 8  # 4 codebooks x (EMA, counter)
+    for n in ref:
+        assert torch.equal(a[n], b[n]), n
+        torch.testing.assert_close(a[n], ref[n], rtol=0, atol=1e-6, msg=n)
+        if n.endswith("usage_record_times"):
+            assert int(a[n]) == 1
+        else:
+            assert float(a[n].sum()) == pytest.approx(1.0)  # the first record: alpha 1
 
 
 def test_skip_decision_is_the_worlds(world):

@@ -189,7 +189,11 @@ def test_flagship_kwargs_match_the_jax_entry(monkeypatch):
 def test_unported_configurations_raise(slice_pair):
     kw = dict(slice_pair["kw"])
     with pytest.raises(NotImplementedError):
-        Generator(**dict(kw, compression_mode="discrete"))
+        Generator(**dict(kw, use_cross_attn=True))
+    with pytest.raises(ValueError):  # discrete and conv are ported; these values are not modes
+        Generator(**dict(kw, compression_mode="binary"))
+    with pytest.raises(ValueError):
+        Generator(**dict(kw, how_to_process_concat_z="nearest"))
     with pytest.raises(TypeError):
         Generator(**dict(kw, no_such_option=1))
 

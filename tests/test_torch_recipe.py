@@ -244,10 +244,11 @@ def test_cli_and_loop_refuse_what_is_unported(rig, tmp_path):
     for key, value in (("fused_phases", True),):
         with pytest.raises(NotImplementedError, match=key):
             run_cli(tmp_path, dict(c, **{key: value}), key)
+    # (The discriminator warm-ups are ported: tests/test_torch_warmup.py.)
     warm = stage_config(rig, 0)
     warm.run_dir = str(tmp_path / "run")
-    warm.loss_kwargs["use_patchgan_disc_warmup"] = True
-    with pytest.raises(NotImplementedError, match="use_patchgan_disc_warmup"):
+    warm.loss_kwargs["clip_loss_weight"] = 0.5
+    with pytest.raises(NotImplementedError, match="clip_loss_weight"):
         run_cli(tmp_path, warm, "warm")
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):

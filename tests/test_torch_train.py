@@ -327,10 +327,13 @@ def test_unported_configurations_raise(port_rig):
         TotalLoss(G, D, vfm_name="siglip2", lpips_module=L, **dict(LOSS_KW, clip_loss_weight=0.5))
     with pytest.raises(NotImplementedError):
         TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
-                  **dict(LOSS_KW, use_stylegan_t_disc_warmup=True))
-    with pytest.raises(NotImplementedError):
-        TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
-                  **dict(LOSS_KW, use_patchgan_disc_warmup=True))
+                  **dict(LOSS_KW, matching_aware_loss_weight=0.5))
+    # The warm-ups, the discrete mode and the D-input blur are ported
+    # (tests/test_torch_warmup.py, tests/test_torch_discrete.py).
+    warm = TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
+                     **dict(LOSS_KW, use_stylegan_t_disc_warmup=True,
+                            use_patchgan_disc_warmup=True))
+    assert not warm.stylegan_t_on and not warm.patchgan_on
     # Accumulation is ported; a batch that num_accumulation does not divide
     # is refused, as the JAX package's assert B % n == 0 (train_step.py:72).
     acc = Trainer(tr.loss, set(tr.g_params), set(tr.d_params), num_accumulation=3)
@@ -342,7 +345,8 @@ def test_unported_configurations_raise(port_rig):
         ProjectedDiscriminator(c_dim=10, dino_kwargs=TINY_DINO)
     with pytest.raises(NotImplementedError):
         trainable_path_predicates("train_text_encoder")
-    with pytest.raises(NotImplementedError):
-        tr.loss.d_loss(torch.zeros(2, RES, RES, 3), BUCKETS[0], 0, blur_sigma=1.0)
+    with pytest.raises(ValueError):
+        TotalLoss(G, D, vfm_name="siglip2", lpips_module=L,
+                  **dict(LOSS_KW, compression_mode="binary"))
     with pytest.raises(RuntimeError):
         build_lpips("cpu")

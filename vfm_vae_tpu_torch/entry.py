@@ -12,6 +12,11 @@ configuration: the frozen tower mirrored to int8 and calibrated (W8A8
 through K6), the decoder in bf16 (vfm_vae_tpu/ops/quantized.py:
 enable_int8_tower).
 
+The discrete (VQ) tokenizer is the flagship with DISCRETE_G's overrides,
+`flagship_generator(dev, **DISCRETE_G)`; its stage-0 loss takes
+DISCRETE_LOSS over STAGE0_LOSS (the stage YAMLs' loss_kwargs, through the
+CLI).
+
 `flagship_trainer` builds stage 0 of the staged recipe
 (configs/vfm_vae_f16d32_siglip2_stage_0_strong_alignment.yaml) on the same
 generator: the StyleGAN-T projected discriminator, LPIPS, the loss, Adam
@@ -113,6 +118,14 @@ STAGE0_LOSS = dict(
     feature_matching_loss_weight=0.0, use_stylegan_t_disc_warmup=False,
     use_patchgan_disc_warmup=False, use_equivariance_regularization=True,
 )
+# Discrete mode (configs/vfm_vae_details.yaml:34, :44-50): the multi-codebook
+# VQ in place of the diagonal Gaussian, z 16x16x64 (eight codebooks of 4096
+# codes, 8 wide). Overrides of FLAGSHIP_KWARGS and STAGE0_LOSS; the loss's
+# VQ and entropy weights are the JAX TotalLoss's defaults (the YAMLs name
+# neither).
+DISCRETE_G = dict(compression_mode="discrete", vocab_width=64, vocab_size=32768,
+                  vocab_beta=0.25, use_entropy_loss=False, entropy_temp=0.01, num_codebooks=8)
+DISCRETE_LOSS = dict(compression_mode="discrete", vq_loss_weight=1.0, entropy_loss_weight=0.0)
 # G_opt_kwargs / D_opt_kwargs (lines 98-108) and the EMA (lines 116-117).
 STAGE0_OPT = dict(lr=1e-4, betas=(0.0, 0.99), eps=1e-8)
 STAGE0_EMA = dict(ema_kimg=160.0, ema_rampup=0.05)
@@ -251,8 +264,9 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
     quants.append((ad.final_quant, (grid * ad.z_resolution // ad.patch_resolutions[0]) ** 2))
     variant = os.environ.get("VFM_VAE_ADAPTER_ATTN", "3mm-xla")
     prefer = variant == "3mm-flash" or not variant.startswith("3mm")
-    # post_quant decodes the z of an `hw`-pixel decode (32-wide heads at the
-    # flagship: never admitted there).
+    # post_quant decodes the z of an `hw`-pixel decode (32-wide heads in the
+    # continuous flagship, never admitted; 64-wide in discrete mode, T=256
+    # N=16 at the full image).
     quants.append((ad.post_quant, (hw * ad.z_resolution // top) ** 2))
     for proj, tokens in quants:
         at = "post_quant" if proj is ad.post_quant else "adapter"

@@ -1,9 +1,12 @@
-"""LDM adapter, continuous + attnproj (port of vfm_vae_tpu/models/adapter.py:
-PlainAttention, GeGluMlp, AttnProjectionBlock, AttnProjection,
-EquivarianceTransform, LDMAdapter encode/decode and its training encode
-with the VF and KL losses). The VQ path is not ported. Parameter keys
-follow the reference (ldm_utils.py): patch_quants.N.0.blocks.M.*,
-final_quant.*, post_quant.*, linear_proj.weight."""
+"""LDM adapter (port of vfm_vae_tpu/models/adapter.py: PlainAttention,
+GeGluMlp, AttnProjectionBlock, AttnProjection, EquivarianceTransform,
+LDMAdapter encode/decode and its training encode). Both compression modes:
+continuous (the diagonal Gaussian, with the KL loss) and discrete (the
+multi-codebook VQ of models/quantize.py, with the VQ and entropy losses);
+both compress and decompress forms: attnproj (attention projections) and
+conv (1x1 convolutions on the tokens). Parameter keys follow the reference
+(ldm_utils.py): patch_quants.N.0.*, final_quant.*, post_quant.*,
+quantizer.codebooks.J.*, linear_proj.weight."""
 
 from __future__ import annotations
 
@@ -19,8 +22,12 @@ import torch.nn.functional as F
 from ..ops.attention import dot_product_attention
 from ..ops.pixelshuffle import pixel_unshuffle
 from ..ops.resize import _adaptive_matrix, adaptive_avg_pool2d
+from .dataclasses import EncodeOutput
 from .distributions import DiagonalGaussianDistribution
 from .layers import TRUNC02, Conv2d, LayerNormFp32, Linear, Module, holder, l2_normalize, param
+from .quantize import VectorQuantizerM
+
+XAVIER05 = ("xavier_normal", 0.5)
 
 
 def tokens_to_map(x: torch.Tensor) -> torch.Tensor:
@@ -183,34 +190,62 @@ class LDMAdapter(Module):
                  attnproj_post_quant_layers: int = 1, z_resolution: int = 16,
                  z_dimension: int = 32, use_vf_loss: bool = False, use_kl_loss: bool = False,
                  distmat_margin: float = 0.0, cos_margin: float = 0.0,
-                 distmat_weight: float = 1.0, cos_weight: float = 1.0, device=None):
+                 distmat_weight: float = 1.0, cos_weight: float = 1.0,
+                 compression_mode: str = "continuous", how_to_compress: str = "attnproj",
+                 how_to_decompress: str = "attnproj", vocab_width: int = 64,
+                 vocab_size: int = 32768, vocab_beta: float = 0.25,
+                 use_entropy_loss: bool = False, entropy_temp: float = 0.01,
+                 num_codebooks: int = 8, device=None):
         super().__init__()
+        for name, v, ok in (("compression_mode", compression_mode, ("continuous", "discrete")),
+                            ("how_to_compress", how_to_compress, ("attnproj", "conv")),
+                            ("how_to_decompress", how_to_decompress, ("attnproj", "conv"))):
+            if v not in ok:
+                raise ValueError(f"LDMAdapter: {name} {v!r} is not one of {ok}")
         self.patch_resolutions = list(patch_resolutions)
         self.z_resolution = z_resolution
+        self.discrete = compression_mode == "discrete"
+        self.how_to_compress = how_to_compress
         self.use_vf_loss, self.use_kl_loss = use_vf_loss, use_kl_loss
         self.distmat_margin, self.cos_margin = distmat_margin, cos_margin
         self.distmat_weight, self.cos_weight = distmat_weight, cos_weight
         self.vf_index = list(patch_from_layers).index(-1) if use_vf_loss else None
         final_in = sum(dout * (res // z_resolution) ** 2 if res > z_resolution else dout
                        for res, dout in zip(patch_resolutions, patch_out_dimensions))
-        final_out = 2 * z_dimension
+        final_out = vocab_width if self.discrete else 2 * z_dimension
+
+        def compress(din, dout):
+            if how_to_compress == "conv":  # a 1x1 convolution on tokens is a product
+                return Conv2d(din, dout, 1, weight_init=XAVIER05, bias_init="zeros",
+                              device=device)
+            return AttnProjection(din, dout, max(1, din // dout), attnproj_quant_layers, True,
+                                  device=device)
+
         self.patch_quants = nn.ModuleList(
-            holder(**{"0": AttnProjection(din, dout, max(1, din // dout), attnproj_quant_layers,
-                                          True, device=device)})
+            holder(**{"0": compress(din, dout)})
             for din, dout in zip(patch_in_dimensions, patch_out_dimensions))
-        self.final_quant = AttnProjection(final_in, final_out, max(1, final_in // final_out),
-                                          attnproj_quant_layers, True, device=device)
-        out_ch = z_dimension * decompress_factor
-        self.post_quant = AttnProjection(z_dimension, out_ch, max(1, out_ch // z_dimension),
-                                         attnproj_post_quant_layers, False, device=device)
+        self.final_quant = compress(final_in, final_out)
+        in_ch = vocab_width if self.discrete else z_dimension
+        out_ch = in_ch * decompress_factor
+        if how_to_decompress == "conv":
+            self.post_quant = Conv2d(in_ch, out_ch, 1, weight_init=XAVIER05, bias_init="zeros",
+                                     device=device)
+        else:
+            self.post_quant = AttnProjection(in_ch, out_ch, max(1, out_ch // in_ch),
+                                             attnproj_post_quant_layers, False, device=device)
+        if self.discrete:
+            self.quantizer = VectorQuantizerM(vocab_size, vocab_width, vocab_beta,
+                                              use_entropy_loss, entropy_temp, num_codebooks,
+                                              device=device)
         if use_vf_loss:
             vf_dim = patch_in_dimensions[list(patch_from_layers).index(-1)]
-            self.linear_proj = Conv2d(z_dimension, vf_dim, 1, bias=False,
-                                      weight_init=("xavier_normal", 0.5), device=device)
+            self.linear_proj = Conv2d(in_ch, vf_dim, 1, bias=False, weight_init=XAVIER05,
+                                      device=device)
 
     def moments(self, patch_features: List[torch.Tensor]) -> torch.Tensor:
-        """Features -> the (mean || logvar) map (B, zr, zr, 2 z_dim); a smaller
-        EQ-prior grid gives a proportionally smaller zr."""
+        """Features -> final_quant's map (B, zr, zr, C): the (mean || logvar)
+        moments in continuous mode, z before quantization in discrete mode;
+        a smaller EQ-prior grid gives a proportionally smaller zr."""
         mids = []
         for x, pq, res in zip(patch_features, self.patch_quants, self.patch_resolutions):
             x = getattr(pq, "0")(x)
@@ -219,35 +254,48 @@ class LDMAdapter(Module):
             mids.append(x)
         return tokens_to_map(self.final_quant(torch.cat(mids, dim=-1)))
 
+    def _latent(self, x_map: torch.Tensor, generator: Optional[torch.Generator],
+                update_buffers: bool):
+        """final_quant's map -> (z, kl_loss, vq_loss, entropy_loss, usage_pct);
+        the losses a mode does not have are zero scalars."""
+        zero = x_map.new_zeros(())
+        if self.discrete:
+            z, vq, ent, usage = self.quantizer(map_to_tokens(x_map), update_buffers)
+            return tokens_to_map(z), zero, vq, ent, usage
+        dist = DiagonalGaussianDistribution(x_map)
+        z = dist.mode() if generator is None else dist.sample(generator)
+        kl = dist.kl().mean() if self.use_kl_loss else zero
+        return z, kl, zero, zero, zero
+
     def encode(self, patch_features: List[torch.Tensor],
                generator: Optional[torch.Generator] = None,
                return_z_before_quantize: bool = False) -> torch.Tensor:
-        """Features -> z (B, zr, zr, z_dim): the posterior mode, or a sample
-        drawn with `generator`; or the (mean || logvar) moments."""
-        moments = self.moments(patch_features)
+        """Features -> z (B, zr, zr, z_dim): the posterior mode or a sample
+        drawn with `generator` (continuous), the quantized tokens (discrete;
+        the usage buffers do not move); or final_quant's map."""
+        x_map = self.moments(patch_features)
         if return_z_before_quantize:
-            return moments
-        dist = DiagonalGaussianDistribution(moments)
-        return dist.mode() if generator is None else dist.sample(generator)
+            return x_map
+        return self._latent(x_map, generator, False)[0]
 
     def encode_train(self, patch_features: List[torch.Tensor],
-                     generator: Optional[torch.Generator] = None):
-        """Training encode (adapter.py:350-404): z (the mode, or a posterior
-        sample drawn with `generator`), the VF loss against the detached
-        last-layer features and the mean KL; each loss is a zero scalar when
-        its flag is off."""
-        dist = DiagonalGaussianDistribution(self.moments(patch_features))
-        z = dist.mode() if generator is None else dist.sample(generator)
-        zero = z.new_zeros(())
-        kl_loss = dist.kl().mean() if self.use_kl_loss else zero
-        vf_loss = zero
+                     generator: Optional[torch.Generator] = None,
+                     update_buffers: bool = False) -> EncodeOutput:
+        """Training encode (adapter.py:350-404): z (continuous: the mode, or
+        a posterior sample drawn with `generator`; discrete: the quantized
+        tokens, the usage buffers updated with `update_buffers`), the VF loss
+        against the detached last-layer features, and the mode's losses;
+        each loss is a zero scalar when off."""
+        z, kl_loss, vq_loss, entropy_loss, usage = self._latent(
+            self.moments(patch_features), generator, update_buffers)
+        vf_loss = z.new_zeros(())
         if self.use_vf_loss:
             aux_map = tokens_to_map(patch_features[self.vf_index].detach())
             ht = z.shape[1]
             if aux_map.shape[1] != ht:
                 aux_map = adaptive_avg_pool2d(aux_map, (ht, ht))
             vf_loss = self.vf_loss(self.linear_proj(z), aux_map)
-        return z, vf_loss, kl_loss
+        return EncodeOutput(z, vf_loss, kl_loss, vq_loss, entropy_loss, usage)
 
     def vf_loss(self, z_map: torch.Tensor, aux_map: torch.Tensor) -> torch.Tensor:
         """Pairwise channel-cosine distance matrix + per-pixel cosine
@@ -260,7 +308,19 @@ class LDMAdapter(Module):
         loss_2 = torch.relu(1.0 - self.cos_margin - (z_n * aux_n).sum(-1)).mean()
         return loss_1 * self.distmat_weight + loss_2 * self.cos_weight
 
+    def vf_anchor(self) -> torch.nn.Parameter:
+        """The adaptive VF weight's anchor (adapter.py:406-413): final_quant's
+        weight (conv), else the last final-quant block's GeGLU output projection."""
+        if self.how_to_compress == "conv":
+            return self.final_quant.weight
+        return self.final_quant.blocks[-1].mlp.w2.weight
+
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, H, W, z_dim) -> (B, H, W, z_dim * decompress_factor)."""
         B, H, W, _ = z.shape
         return self.post_quant(map_to_tokens(z)).reshape(B, H, W, -1)
+
+    @torch.no_grad()
+    def f_to_idx(self, patch_features: List[torch.Tensor]) -> torch.Tensor:
+        """Features -> code indices (B, num_codebooks, zr * zr) (adapter.py:420-425)."""
+        return self.quantizer.f_to_idx(map_to_tokens(self.moments(patch_features)))

@@ -2,9 +2,10 @@
 
 `state_dict_from_jax` turns the JAX Generator's (params, buffers) pytrees
 into a flat reference-layout torch state_dict of numpy arrays: the inverse
-of vfm_vae_tpu/models/convert.py:convert_generator for the slice's modules
-(SigLIP vision tower, continuous attnproj adapter, mapping, ConvNeXt
-synthesis). Numpy only. Layout rules, inverted from that file:
+of vfm_vae_tpu/models/convert.py:convert_generator for the port's modules
+(SigLIP vision tower, the adapter in either compression mode and either
+form, with the VQ codebooks and usage EMAs, mapping, ConvNeXt synthesis).
+Numpy only. Layout rules, inverted from that file:
 
   ours (in, out)              -> torch Linear (out, in)       : W.T
   ours HWIO (kh, kw, I, O)    -> torch Conv2d (O, I, kh, kw)  : transpose(3, 2, 0, 1)
@@ -163,15 +164,34 @@ def _attn_projection(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
         j += 1
 
 
-def _adapter(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+def _compress(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
+    """An attnproj stack, or a conv-mode Linear (a 1x1 convolution in the reference)."""
+    if "weight" in p:
+        sd[prefix + "weight"] = _pw(p["weight"])
+        sd[prefix + "bias"] = _arr(p["bias"])
+    else:
+        _attn_projection(sd, p, prefix)
+
+
+def _adapter(sd: SD, p: Mapping[str, Any], prefix: str,
+             b: Optional[Mapping[str, Any]] = None) -> None:
     i = 0
     while f"patch_quant_{i}" in p:
-        _attn_projection(sd, p[f"patch_quant_{i}"], prefix + f"patch_quants.{i}.0.")
+        _compress(sd, p[f"patch_quant_{i}"], prefix + f"patch_quants.{i}.0.")
         i += 1
-    _attn_projection(sd, p["final_quant"], prefix + "final_quant.")
-    _attn_projection(sd, p["post_quant"], prefix + "post_quant.")
+    _compress(sd, p["final_quant"], prefix + "final_quant.")
+    _compress(sd, p["post_quant"], prefix + "post_quant.")
     if "linear_proj" in p:
         sd[prefix + "linear_proj.weight"] = _pw(p["linear_proj"]["weight"])
+    # The discrete mode's codebooks and usage EMAs (convert.py:313-325); the
+    # usage record counter is not in the reference layout.
+    q, qb = p.get("quantizer", {}), (b or {}).get("quantizer", {})
+    j = 0
+    while f"codebook_{j}" in q:
+        cp = prefix + f"quantizer.codebooks.{j}."
+        sd[cp + "codebook.weight"] = _arr(q[f"codebook_{j}"]["codebook"])
+        sd[cp + "vocab_usage"] = _arr(qb[f"codebook_{j}"]["vocab_usage"])
+        j += 1
 
 
 def _style_split(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
@@ -263,7 +283,7 @@ def state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any], *
         _siglip_vision(sd, params["vfm_encoder"]["tower"], _TOWER)
     if int8 and "vfm_encoder" in int8:
         _siglip_int8(sd, int8["vfm_encoder"]["tower"])
-    _adapter(sd, params["ldm_adapter"], "ldm_adapter.")
+    _adapter(sd, params["ldm_adapter"], "ldm_adapter.", buffers.get("ldm_adapter", {}))
     for fc, q in params["mapping"]["mlp"].items():
         _linear(sd, q, f"mapping.mlp.{fc}.")
     if "x_avg" in buffers.get("mapping", {}):

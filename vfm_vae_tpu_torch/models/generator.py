@@ -1,16 +1,19 @@
 """VFM-VAE Generator (port of vfm_vae_tpu/models/generator.py): the
 tokenizer API `encode` and `decode` (frozen SigLIP encoder -> LDM adapter ->
-diagonal Gaussian z; z -> adapter decompress -> mapping -> ConvNeXt
-synthesis), the training `forward` with equivariance regularisation and the
-adapter's VF and KL losses, and the train_mode freezing rules
-(`trainable_path_predicates`, `trainable_names`).
+z, the diagonal Gaussian's or the multi-codebook VQ's; z -> adapter
+decompress -> mapping -> ConvNeXt synthesis), the training `forward` with
+equivariance regularisation and the adapter's VF, KL, VQ and entropy
+losses, and the train_mode freezing rules (`trainable_path_predicates`,
+`trainable_names`).
 
-Constructor keywords are the JAX Generator's. The slice ports the
-unconditional, continuous, attnproj, ConvNeXt, multiscale configuration;
-other values raise. Keywords that no computation of the port's Generator
-reads (num_fp16_res, conv_clamp, label_dim; use_adaptive_vf_loss, which the
-loss reads; train_mode and the equivariance settings, which the training
-loop reads) are accepted.
+Constructor keywords are the JAX Generator's. The port covers the
+unconditional, ConvNeXt, multiscale configuration with either compression
+mode (continuous, discrete), either adapter form (attnproj, conv) and
+either concat-z injector (unshuffle, pooling); other values raise.
+Keywords that no computation of the port's Generator reads (num_fp16_res,
+conv_clamp, label_dim; use_adaptive_vf_loss, which the loss reads;
+train_mode and the equivariance settings, which the training loop reads)
+are accepted.
 """
 
 from __future__ import annotations
@@ -73,6 +76,12 @@ class Generator(Module):
         synthesis_kwargs: Optional[Dict[str, Any]] = None,
         use_vf_loss: bool = False,
         use_kl_loss: bool = False,
+        vocab_width: int = 64,
+        vocab_size: int = 32768,
+        vocab_beta: float = 0.25,
+        use_entropy_loss: bool = False,
+        entropy_temp: float = 0.01,
+        num_codebooks: int = 8,
         distmat_margin: float = 0.0,
         cos_margin: float = 0.0,
         distmat_weight: float = 1.0,
@@ -89,13 +98,9 @@ class Generator(Module):
             raise TypeError(f"Generator: unknown keywords {sorted(unknown)}")
         unsupported = {
             "conditional": conditional, "label_type": label_type != "cls2text",
-            "compression_mode": compression_mode != "continuous",
-            "how_to_compress": how_to_compress != "attnproj",
-            "how_to_decompress": how_to_decompress != "attnproj",
             "use_cross_attn": use_cross_attn, "use_convnext": not use_convnext,
             "use_multiscale_output": not use_multiscale_output,
             "use_gaussian_blur": not use_gaussian_blur,
-            "how_to_process_concat_z": how_to_process_concat_z != "unshuffle",
             "concat_z_mapped_dims": bool(concat_z_block_indices) and not concat_z_mapped_dims,
             "architecture": (synthesis_kwargs or {}).get("architecture", "skip") != "skip",
         }
@@ -109,7 +114,9 @@ class Generator(Module):
         self.remat = remat_policy(remat)
         self.z_pooled_resolution = z_pooled_resolution
         z_resolution = img_resolution // resolution_compression_factor
-        z_dim_concat = z_dimension * decompress_factor
+        # z's width: the Gaussian's channels, or the VQ token width (generator.py:105-110).
+        z_dim = vocab_width if compression_mode == "discrete" else z_dimension
+        z_dim_concat = z_dim * decompress_factor
 
         self.vfm_encoder = VFMEncoder(vfm_name, scale_factor, patch_from_layers, dtype, device,
                                       remat=self.remat is not None)
@@ -121,7 +128,11 @@ class Generator(Module):
             patch_from_layers, [patch_res] * len(patch_from_layers), patch_in_dimensions,
             patch_out_dimensions, decompress_factor, attnproj_quant_layers,
             attnproj_post_quant_layers, z_resolution, z_dimension, use_vf_loss, use_kl_loss,
-            distmat_margin, cos_margin, distmat_weight, cos_weight, device=device,
+            distmat_margin, cos_margin, distmat_weight, cos_weight,
+            compression_mode=compression_mode, how_to_compress=how_to_compress,
+            how_to_decompress=how_to_decompress, vocab_width=vocab_width,
+            vocab_size=vocab_size, vocab_beta=vocab_beta, use_entropy_loss=use_entropy_loss,
+            entropy_temp=entropy_temp, num_codebooks=num_codebooks, device=device,
         )
         self.synthesis = SynthesisNetwork(
             w_dim=z_dim_for_mapping_mlp_output, img_resolution=img_resolution,
@@ -130,6 +141,7 @@ class Generator(Module):
             num_res_blocks=sk.get("num_res_blocks", 3), z_resolution=z_resolution,
             z_dim=z_dim_concat, concat_z_block_indices=concat_z_block_indices,
             concat_z_mapped_dims=concat_z_mapped_dims,
+            how_to_process_concat_z=how_to_process_concat_z,
             activation_for_concat_z=activation_for_concat_z,
             attn_block_indices=attn_block_indices if use_self_attn else (),
             attn_depths=attn_depths if use_self_attn else (),
@@ -148,7 +160,8 @@ class Generator(Module):
     def encode(self, img: torch.Tensor, generator: Optional[torch.Generator] = None,
                return_z_before_quantize: bool = False) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] -> z (B, zr, zr, z_dim) NHWC: the posterior
-        mode, or a sample drawn with `generator`."""
+        mode, or a sample drawn with `generator`; in discrete mode the
+        quantized tokens."""
         feats = self.vfm_encoder.encode_image(img)
         return self.ldm_adapter.encode(feats, generator, return_z_before_quantize)
 
@@ -166,10 +179,12 @@ class Generator(Module):
         eq = (scale, rot90 angle, is_prior) from EquivarianceTransform. A prior
         bucket shrinks the tower's input; a latent bucket resizes and rotates
         z. `generator` draws the posterior sample (None: the mode).
-        update_buffers advances the mapping's x_avg, as the G phase does."""
+        update_buffers advances the mapping's x_avg and the VQ usage
+        telemetry, as the G phase does."""
         scale, angle, prior = eq
         feats = self.vfm_encoder.encode_image(img, scale if prior else 1.0, prior)
-        z, vf_loss, kl_loss = self.ldm_adapter.encode_train(feats, generator)
+        enc = self.ldm_adapter.encode_train(feats, generator, update_buffers)
+        z = enc.z
         if not prior:
             if scale != 1.0:
                 z = resize_bilinear(z, scale_factor=scale)
@@ -177,12 +192,12 @@ class Generator(Module):
         z = self.ldm_adapter.decode(z)
         ws = self.mapping(pooled_z(z, self.z_pooled_resolution), update_x_avg=update_buffers)
         gen_img, gen_ms = self.synthesis(z, ws, return_multiscale=True)
-        return GeneratorForwardOutput(gen_img, gen_ms, vf_loss, kl_loss, scale, angle)
+        return GeneratorForwardOutput(gen_img, gen_ms, enc.vf_loss, enc.kl_loss, enc.vq_loss,
+                                      enc.entropy_loss, enc.codebook_usages, scale, angle)
 
     def vf_anchor(self) -> torch.nn.Parameter:
-        """The adaptive VF weight's anchor (adapter.py:406-412): the last
-        final-quant block's GeGLU output projection."""
-        return self.ldm_adapter.final_quant.blocks[-1].mlp.w2.weight
+        """The adaptive VF weight's anchor (adapter.py:406-413)."""
+        return self.ldm_adapter.vf_anchor()
 
     def use_plain_kernels(self, plain: bool = True) -> None:
         """Route every kernel site (K1-K6, K9) to its plain PyTorch twin (comparison runs)."""

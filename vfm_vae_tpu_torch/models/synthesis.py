@@ -159,18 +159,22 @@ def _conv1x1(cin: int, cout: int, device) -> nn.Module:
 
 
 class ZConv(Module):
-    """Concat-z injector for one block (generator.py:726-784, 839-868):
-    unshuffle -> 3x3 -> 1x1 below 2x the z resolution, 3x3 -> 1x1 at it,
-    3x3 -> shuffle -> 1x1 above it."""
+    """Concat-z injector for one block (generator.py:726-784, 839-868;
+    synthesis.py:416-460): below 2x the z resolution, pixel unshuffle
+    ("unshuffle") or adaptive average pooling ("pooling") -> 3x3 -> 1x1; at
+    it 3x3 -> 1x1; above it 3x3 -> shuffle -> 1x1."""
 
     def __init__(self, z_dim: int, out_dim: int, block_resolution: int, z_resolution: int,
-                 activation: str = "gelu", device=None):
+                 how: str = "unshuffle", activation: str = "gelu", device=None):
         super().__init__()
-        self.activation = activation
+        if how not in ("unshuffle", "pooling"):
+            raise ValueError(f"ZConv: how_to_process_concat_z {how!r} is not unshuffle or pooling")
+        self.activation, self.how = activation, how
         res, zres = block_resolution, z_resolution
         if res < zres * 2:
             self.kind, self.r = "down", int(zres / res * 2)
-            self.add_module("1", _conv3x3(z_dim * self.r ** 2, out_dim, device))
+            cin = z_dim * self.r ** 2 if how == "unshuffle" else z_dim
+            self.add_module("1", _conv3x3(cin, out_dim, device))
             self.add_module("2", _conv1x1(out_dim, out_dim, device))
         elif res == zres * 2:
             self.kind, self.r = "same", 1
@@ -192,7 +196,12 @@ class ZConv(Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         if self.kind == "down":
-            z = self._conv("1", pixel_unshuffle(z, self.r), True)
+            if self.how == "unshuffle":
+                z = pixel_unshuffle(z, self.r)
+            else:
+                z = adaptive_avg_pool2d(z, (max(1, int(z.shape[1] / self.r)),
+                                            max(1, int(z.shape[2] / self.r))))
+            z = self._conv("1", z, True)
             return self._conv("2", z, False)
         if self.kind == "same":
             return self._conv("1", self._conv("0", z, True), False)
@@ -278,7 +287,8 @@ class SynthesisNetwork(Module):
                  channel_base: int = 32768, channel_max: int = 512, num_blocks: int = 6,
                  num_res_blocks: int = 3, z_resolution: int = 16, z_dim: int = 8,
                  concat_z_block_indices: Sequence[int] = (),
-                 concat_z_mapped_dims: Sequence[int] = (), activation_for_concat_z: str = "gelu",
+                 concat_z_mapped_dims: Sequence[int] = (),
+                 how_to_process_concat_z: str = "unshuffle", activation_for_concat_z: str = "gelu",
                  attn_block_indices: Sequence[int] = (), attn_depths: Sequence[int] = (),
                  add_additional_convnext: bool = False,
                  legacy: bool = False, dtype: torch.dtype = torch.float32, remat=None,
@@ -295,7 +305,8 @@ class SynthesisNetwork(Module):
                 zc = list(concat_z_mapped_dims)[idx]
                 in_ch += zc
                 zconvs[str(idx)] = ZConv(z_dim, zc, block_res[idx], z_resolution,
-                                         activation=activation_for_concat_z, device=device)
+                                         how_to_process_concat_z, activation_for_concat_z,
+                                         device=device)
             depth = (list(attn_depths)[list(attn_block_indices).index(idx)]
                      if idx in list(attn_block_indices) else 0)
             blocks.append(SynthesisBlock(

@@ -129,6 +129,28 @@ def mean_across(t: torch.Tensor) -> torch.Tensor:
     return all_reduce_mean([t])[0]
 
 
+def sum_across(t: torch.Tensor) -> torch.Tensor:
+    """One tensor's sum over the processes, without gradient (itself at world 1)."""
+    if not active():
+        return t
+    with torch.no_grad():
+        t = t.clone()
+        dist.all_reduce(t)
+    return t
+
+
+def mean_across_with_grad(t: torch.Tensor) -> torch.Tensor:
+    """One tensor's mean over the processes as a differentiable function of
+    this process's `t` (itself at world 1). Its backward all-reduces the
+    incoming gradient, so a loss built on the mean and averaged over the
+    processes with the gradients gets the global batch's gradient."""
+    if not active():
+        return t
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t) / dist.get_world_size()
+
+
 def rank_slice(x: torch.Tensor) -> torch.Tensor:
     """This process's contiguous slice of a global batch (the leading axis
     split into world equal parts, rank r taking the r-th): the part that

@@ -5,7 +5,8 @@ discovery, :230-264 key-report loading).
 A snapshot is a directory `network-snapshot-{kimg:08d}` holding one
 `torch.save` file per top-level entry of the state dict the loop gives
 (G, D, G_ema, both Adam states keyed by parameter name, the loss state,
-cur_nimg). It is written under a temporary name and renamed into place, so
+cur_nimg; G_counters, the VQ usage record counters that the reference
+state_dict layout lacks, beside G's usage EMAs in G). It is written under a temporary name and renamed into place, so
 a directory with the snapshot's name is always whole.
 """
 

@@ -28,8 +28,16 @@ groups each microbatch by virtual_bs, so a split batch matches the unsplit
 one where every process's microbatch is a multiple of it.
 
 G's `remat` defaults as in the JAX loop (loop.py:146-149): "dots" up to 12
-images per process and microbatch, "full" above. Not ported, and refused
-before anything is built: fused phases and the discriminator warm-ups.
+images per process and microbatch, "full" above.
+
+The discriminator warm-ups (train/warmup.py) take each step's pixel and
+StyleGAN-T generator loss means, summed over the processes first, while a
+warm-up waits (loop.py:375-379, 472-481). Each step's D input blur is the
+loss's blur_sigma at the step's cur_nimg (the reference's schedule; the
+JAX loop leaves it at 0). In discrete mode the snapshot's `G_counters`
+entry carries the VQ usage record counters, which are not in the
+reference state_dict layout. Not ported, and refused before anything is
+built: fused phases.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from .checkpoint import (
 from .loss import LossState
 from .optim import adam
 from .train_step import Trainer, TrainState
+from .warmup import WarmupFSM
 
 
 def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1), grid_wh=None) -> None:
@@ -177,6 +186,12 @@ def build_trainer(G_kwargs: Dict[str, Any], D_kwargs: Dict[str, Any],
 # ------------------------------------------------------------------ state
 
 
+def g_counters(G: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """G's buffers outside the reference state_dict layout that training
+    moves: the VQ codebooks' usage record counters (none in continuous mode)."""
+    return {n: b for n, b in G.named_buffers() if n.endswith("usage_record_times")}
+
+
 def adam_state_by_name(opt: torch.optim.Adam, params: Dict[str, torch.nn.Parameter]) -> dict:
     """Adam's per-parameter state keyed by parameter name (torch keys it by index)."""
     return {n: dict(opt.state[p]) for n, p in params.items() if p in opt.state}
@@ -189,6 +204,7 @@ def snapshot_state(trainer: Trainer, state: TrainState) -> dict:
     g = trainer.G.state_dict()
     return {
         "G": g,
+        "G_counters": g_counters(trainer.G),
         "D": trainer.D.state_dict(),
         "G_ema": {**g, **state.ema},
         "g_opt": adam_state_by_name(state.g_opt, trainer.g_params),
@@ -214,6 +230,7 @@ def _template(trainer: Trainer, state: TrainState) -> dict:
 
     return {
         "G": g,
+        "G_counters": {k: _meta(v) for k, v in g_counters(trainer.G).items()},
         "D": {k: _meta(v) for k, v in trainer.D.state_dict().items()},
         "G_ema": dict(g),
         "g_opt": opt(trainer.g_params),
@@ -253,6 +270,10 @@ def resume_from(trainer: Trainer, state: TrainState, path: str,
         for k, v in merged[key].items():
             if not _is_fresh(v):
                 own[k].copy_(v)
+    counters = g_counters(trainer.G)
+    for k, v in merged["G_counters"].items():
+        if not _is_fresh(v):
+            counters[k].copy_(v)
     for n, e in state.ema.items():
         v = merged["G_ema"][n]
         if not _is_fresh(v):
@@ -325,16 +346,32 @@ def in_loop_metrics(metrics, trainer: Trainer, state: TrainState, data_iter, bat
         wandb_sink.log_metrics(res["results"], step=step)
 
 
+def warmup_inputs(g_stats) -> tuple:
+    """The warm-up machine's inputs from a G step's stats (loop.py:472-481):
+    the pixel loss's and the StyleGAN-T generator loss's means, over every
+    process (so every process flips at the same step)."""
+    names = ("Loss/G/l1_pixel_loss", "Loss/G/l2_pixel_loss", "Loss/G/stylegan_t/loss")
+    synced = sync_across_processes({n: g_stats[n] for n in names if n in g_stats})
+    pix = synced.get(names[0], synced.get(names[1]))
+    dgan = synced.get(names[2])
+
+    def mean(m):
+        return float(m[1] / max(float(m[0]), 1)) if m is not None else 0.0
+
+    return mean(pix), mean(dgan)
+
+
 @dataclass
 class LoopResult:
     """What training_loop returns: the trainer (its modules hold the trained
     parameters) and its state, the resume report (None without a resume)
-    and the last snapshot ({path, bytes, seconds})."""
+    and the last snapshot ({path, bytes, seconds}), and the warm-up machine."""
 
     trainer: Trainer
     state: TrainState
     resume: Optional[dict] = None
     snapshot: Optional[dict] = None
+    warmup: Optional[WarmupFSM] = None
 
 
 # ------------------------------------------------------------------ loop
@@ -376,14 +413,8 @@ def training_loop(
 ) -> LoopResult:
     start_time = time.time()
     rank, num_processes = process_index(), process_count()
-    unported = {
-        "fused_phases": bool(fused_phases),
-        "use_stylegan_t_disc_warmup": bool(loss_kwargs.get("use_stylegan_t_disc_warmup")),
-        "use_patchgan_disc_warmup": bool(loss_kwargs.get("use_patchgan_disc_warmup")),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"training_loop: not ported for {bad}")
+    if fused_phases:
+        raise NotImplementedError("training_loop: not ported for ['fused_phases']")
     dev = local_device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training_loop: no CUDA device; pass device='cpu' to train on the CPU")
@@ -435,6 +466,7 @@ def training_loop(
                    + (f"fresh: {grouped_keys(fresh, show=len(fresh))}" if fresh else "none fresh"))
 
         eq_transform = make_eq_transform(G_kwargs, loss_kwargs)
+        warmup_fsm = WarmupFSM(trainer.loss)
 
         os.makedirs(os.path.join(run_dir, "train_samples"), exist_ok=True)
         stats_file = open(os.path.join(run_dir, "stats.jsonl"), "a") if rank == 0 else None
@@ -475,12 +507,15 @@ def training_loop(
                                 drange=(0, 1))
                 first_batch_saved = True
 
+            blur = trainer.loss.blur_sigma(cur_nimg)
             eq_d = draw_eq()
             with timer.phase("Timing/D"):
-                state, d_stats, _ = trainer.d_step(state, real, eq_d, draws)
+                state, d_stats, _ = trainer.d_step(state, real, eq_d, draws, blur)
             eq_g = draw_eq()
             with timer.phase("Timing/G"):
-                state, g_stats, _ = trainer.g_step(state, real, eq_g, draws)
+                state, g_stats, _ = trainer.g_step(state, real, eq_g, draws, blur)
+            if warmup_fsm.active:
+                warmup_fsm.update(*warmup_inputs(g_stats), cur_nimg / 1000)
 
             step_count += 1
             cur_nimg += images.shape[0] * num_processes
@@ -588,4 +623,4 @@ def training_loop(
         if hasattr(data_iter, "close"):
             data_iter.close()
     print0(f"Done. Total time: {format_time(time.time() - start_time)}")
-    return LoopResult(trainer, state, resume, snapshot)
+    return LoopResult(trainer, state, resume, snapshot, warmup_fsm)

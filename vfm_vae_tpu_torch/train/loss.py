@@ -8,10 +8,15 @@ gradients of the rec-weighted sum and of the VF term at the adapter anchor.
 The safe-loss checks are tensor operations, as in the JAX package. Value
 ranges: real images in [0, 1], generated in [-1, 1].
 
-Stage 2 adds SSIM, stage 3 the PatchGAN terms and feature matching. Not
-ported, and refused at construction: the CLIP and matching-aware losses,
-the discriminator warm-up state machine, the discrete (VQ) mode and the
-blur schedule (a blur sigma above 0).
+Stage 2 adds SSIM, stage 3 the PatchGAN terms and feature matching. The
+compression mode picks the adapter's terms: the KL loss (continuous), or
+the VQ and entropy losses with the codebook usage stat (discrete). Every
+image D sees is blurred by `blur_image` at the step's `blur_sigma`, whose
+schedule fades from blur_init_sigma to 0 over blur_fade_kimg. The
+discriminator warm-ups (train/warmup.py) start with their branch off
+(`stylegan_t_on`, `patchgan_on`) and flip these flags and the loss weights
+between steps. Not ported, and refused at construction: the CLIP and
+matching-aware losses.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import stats as tstats
 from ..ops.resize import resize_bicubic, resize_bilinear, rot90
@@ -71,11 +78,22 @@ def init_loss_state(device) -> LossState:
 
 
 def blur_image(img: torch.Tensor, blur_sigma: float) -> torch.Tensor:
-    """The 2^-x blur of loss.py:224-231 at sigma 0 (the identity); larger
-    sigmas belong to the unported blur schedule."""
-    if int(blur_sigma * 3) > 0:
-        raise NotImplementedError("blur_sigma > 0 is not ported")
-    return img
+    """The 2^-x blur of loss.py:83-89 (reference loss.py:224-231) on an NHWC
+    batch: taps exp2(-(i / sigma)^2) for |i| <= floor(3 sigma), normalized,
+    run down the columns and then along the rows with zero padding (the JAX
+    filter2d's separable upfirdn2d). The identity below sigma 1/3."""
+    blur_size = int(np.floor(blur_sigma * 3))
+    if blur_size <= 0:
+        return img
+    f = np.exp2(-((np.arange(-blur_size, blur_size + 1) / blur_sigma) ** 2))
+    taps = torch.tensor((f / f.sum()).astype(np.float32), dtype=img.dtype, device=img.device)
+    C = img.shape[-1]
+    x = img.permute(0, 3, 1, 2)
+    x = F.conv2d(x, taps.view(1, 1, -1, 1).expand(C, 1, -1, 1), padding=(blur_size, 0),
+                 groups=C)
+    x = F.conv2d(x, taps.view(1, 1, 1, -1).expand(C, 1, 1, -1), padding=(0, blur_size),
+                 groups=C)
+    return x.permute(0, 2, 3, 1)
 
 
 def hinge_d_loss(logits: torch.Tensor, kind: str) -> torch.Tensor:
@@ -184,6 +202,8 @@ class TotalLoss:
         matching_aware_loss_weight: float = 0.0,
         compression_mode: str = "continuous",
         kl_loss_weight: float = 1e-6,
+        entropy_loss_weight: float = 0.0,
+        vq_loss_weight: float = 1.0,
         stylegan_t_discriminator_loss_weight: float = 1.0,
         patchgan_discriminator_loss_weight: float = 0.0,
         patchgan_discriminator_loss_type: str = "mse",
@@ -195,19 +215,19 @@ class TotalLoss:
         unsupported = {
             "clip_loss_weight": clip_loss_weight > 0,
             "matching_aware_loss_weight": matching_aware_loss_weight > 0,
-            "use_stylegan_t_disc_warmup": use_stylegan_t_disc_warmup,
-            "use_patchgan_disc_warmup": use_patchgan_disc_warmup,
-            "compression_mode": compression_mode != "continuous",
-            "blur_fade_kimg": blur_fade_kimg > 1,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(f"TotalLoss: not ported for {bad}")
+        if compression_mode not in ("continuous", "discrete"):
+            raise ValueError(f"TotalLoss: compression_mode {compression_mode!r}")
         self.G, self.D, self.lpips = G, D, lpips_module
         name = vfm_name.lower()
         interp = "bicubic" if any(k in name for k in ("qwen", "dino", "eva")) else "bilinear"
         self.img_transform = ImageTransform(use_equivariance_regularization, interp)
         self.resume_kimg = resume_kimg
+        self.blur_init_sigma, self.blur_fade_kimg = blur_init_sigma, blur_fade_kimg
+        self.compression_mode = compression_mode
         self.l1_pixel_loss_weight = l1_pixel_loss_weight
         self.l2_pixel_loss_weight = l2_pixel_loss_weight
         self.perceptual_loss_weight = perceptual_loss_weight
@@ -219,17 +239,37 @@ class TotalLoss:
         self.vf_loss_weight = vf_loss_weight
         self.use_adaptive_vf_loss = use_adaptive_vf_loss
         self.kl_loss_weight = kl_loss_weight
+        self.entropy_loss_weight, self.vq_loss_weight = entropy_loss_weight, vq_loss_weight
         self.stylegan_t_discriminator_loss_weight = stylegan_t_discriminator_loss_weight
         self.patchgan_discriminator_loss_weight = patchgan_discriminator_loss_weight
         self.patchgan_discriminator_loss_type = patchgan_discriminator_loss_type
         self.feature_matching_loss_weight = feature_matching_loss_weight
-        self.stylegan_t_on = stylegan_t_discriminator_loss_weight > 0
-        self.patchgan_on = patchgan_discriminator_loss_weight > 0
-        self.feature_matching_on = self.patchgan_on and feature_matching_loss_weight > 0
+        self.use_stylegan_t_disc_warmup = use_stylegan_t_disc_warmup
+        self.use_patchgan_disc_warmup = use_patchgan_disc_warmup
+        # The flags the warm-up machine flips (loss.py:283-288): a branch
+        # under warm-up starts off.
+        self.stylegan_t_on = (stylegan_t_discriminator_loss_weight > 0
+                              and not use_stylegan_t_disc_warmup)
+        self.patchgan_on = (patchgan_discriminator_loss_weight > 0
+                            and not use_patchgan_disc_warmup)
         self.pixel_loss_on = l1_pixel_loss_weight > 0 or l2_pixel_loss_weight > 0
         self.perceptual_loss_on = perceptual_loss_weight > 0
         self.ssim_loss_on = ssim_loss_weight > 0
         self.multiscale_pixel_loss_on = sum(self.multiscale_pixel_loss_weights) > 0
+
+    @property
+    def feature_matching_on(self) -> bool:
+        return (self.patchgan_on and self.feature_matching_loss_weight > 0
+                and self.patchgan_discriminator_loss_weight > 0)
+
+    def blur_sigma(self, cur_nimg: int) -> float:
+        """D's input blur at `cur_nimg` (loss.py:293-299): blur_init_sigma
+        fading linearly to 0 over blur_fade_kimg, rounded to 0.25 steps; 0
+        when blur_fade_kimg <= 1."""
+        if self.blur_fade_kimg > 1:
+            s = max(1 - cur_nimg / (self.blur_fade_kimg * 1e3), 0) * self.blur_init_sigma
+            return round(s * 4) / 4
+        return 0.0
 
     # ------------------------------------------------------------ G terms
 
@@ -249,12 +289,13 @@ class TotalLoss:
         d_out = None
         if self.stylegan_t_on or self.patchgan_on:
             d_out = self.D(blur_image(gen_img, blur_sigma), generator)
-        if self.stylegan_t_on:
+        if self.stylegan_t_on and self.stylegan_t_discriminator_loss_weight > 0:
             logits = d_out.stylegan_t_logits
             terms["stylegan_t_gen_loss"] = (-logits).mean()
             tstats.report(stats, "Loss/G/stylegan_t/fake_scores", logits)
             tstats.report(stats, "Loss/G/stylegan_t/fake_signs", torch.sign(logits))
-        if self.patchgan_on and d_out.patchgan_logits:
+        if self.patchgan_on and self.patchgan_discriminator_loss_weight > 0 \
+                and d_out.patchgan_logits:
             terms["patchgan_gen_loss"] = patchgan_g_loss(d_out.patchgan_logits,
                                                          self.patchgan_discriminator_loss_type)
 
@@ -295,7 +336,12 @@ class TotalLoss:
 
         if self.vf_loss_weight > 0:
             terms["vf_loss"] = gen_out.vf_loss
-        terms["kl_loss"] = gen_out.kl_loss
+        if self.compression_mode == "continuous":
+            terms["kl_loss"] = gen_out.kl_loss
+        else:
+            terms["vq_loss"] = gen_out.vq_loss
+            terms["entropy_loss"] = gen_out.entropy_loss
+            tstats.report(stats, "Loss/G/codebook_usages", gen_out.codebook_usages)
         aux = {"stats": stats, "gen_img": gen_img.detach()}
         return [terms[name] for name in G_TERMS], aux
 
@@ -308,7 +354,11 @@ class TotalLoss:
         if self.patchgan_on:
             w[G_TERMS.index("patchgan_gen_loss")] = self.patchgan_discriminator_loss_weight
             w[G_TERMS.index("feature_matching_loss")] = self.feature_matching_loss_weight
-        w[G_TERMS.index("kl_loss")] = self.kl_loss_weight
+        if self.compression_mode == "continuous":
+            w[G_TERMS.index("kl_loss")] = self.kl_loss_weight
+        else:
+            w[G_TERMS.index("vq_loss")] = self.vq_loss_weight
+            w[G_TERMS.index("entropy_loss")] = self.entropy_loss_weight
         w[G_TERMS.index("vf_loss")] = vf
         return w
 
@@ -368,14 +418,15 @@ class TotalLoss:
         gen_d, real_d = gen_out.stylegan_t_logits, real_out.stylegan_t_logits
         zero = gen_d.new_zeros(())
         terms = {name: zero for name in D_TERMS}
-        if self.stylegan_t_on:
+        if self.stylegan_t_on and self.stylegan_t_discriminator_loss_weight > 0:
             terms["stylegan_t_gen_loss"] = hinge_d_loss(gen_d, "fake")
             terms["stylegan_t_real_loss"] = hinge_d_loss(real_d, "real")
             tstats.report(stats, "Loss/D/stylegan_t/fake_scores", gen_d)
             tstats.report(stats, "Loss/D/stylegan_t/fake_signs", torch.sign(gen_d))
             tstats.report(stats, "Loss/D/stylegan_t/real_scores", real_d)
             tstats.report(stats, "Loss/D/stylegan_t/real_signs", torch.sign(real_d))
-        if self.patchgan_on and gen_out.patchgan_logits:
+        if self.patchgan_on and self.patchgan_discriminator_loss_weight > 0 \
+                and gen_out.patchgan_logits:
             kind = self.patchgan_discriminator_loss_type
             terms["patchgan_gen_loss"] = patchgan_d_loss(gen_out.patchgan_logits, "fake", kind)
             terms["patchgan_real_loss"] = patchgan_d_loss(real_out.patchgan_logits, "real", kind)

@@ -10,8 +10,10 @@ parameters, the loss state and cur_nimg.
 Gradient accumulation (num_accumulation = n): the batch splits into n
 contiguous chunks, each chunk's gradients are taken as above and summed
 (the JAX package sums, it does not average), the sum is cleaned once and
-Adam steps once. D's spectral-norm buffers, G's x_avg and the loss state
-thread through the chunks in order; the adaptive VF weight, the safe-loss
+Adam steps once. D's spectral-norm buffers, G's buffers (x_avg and, in
+discrete mode, the VQ usage EMAs and their record counters, which only
+the G phase moves, as JAX threads g_bufs) and the loss state thread
+through the chunks in order; the adaptive VF weight, the safe-loss
 check and the skip gate are per chunk; the stats merge; the returned total
 is the chunks' mean.
 
@@ -81,6 +83,15 @@ def microbatches(x: torch.Tensor, n: int) -> List[torch.Tensor]:
         raise ValueError(f"batch {B} is not divisible into {n} microbatches")
     m = B // n
     return [x[i * m:(i + 1) * m] for i in range(n)]
+
+
+def _grads(total: torch.Tensor, params: Sequence[torch.Tensor]) -> Sequence:
+    """d total / d params (None where unused). A total that no parameter
+    reaches, as D's while every adversarial branch waits for its warm-up,
+    has none."""
+    if not total.requires_grad:
+        return [None] * len(params)
+    return torch.autograd.grad(total, params, allow_unused=True)
 
 
 def _add(a: Optional[List[torch.Tensor]], b: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -166,7 +177,7 @@ class Trainer:
         update (train_step.py:180-192): (gradients, total, aux)."""
         params = list(self.d_params.values())
         d_total, aux = self.loss.d_loss(real_img, eq, state.cur_nimg, generator, blur_sigma)
-        grads = torch.autograd.grad(d_total, params, allow_unused=True)
+        grads = _grads(d_total, params)
         gate = 1.0 - aux["skip"].float()
         grads = [gate * (g if g is not None else torch.zeros_like(p))
                  for g, p in zip(grads, params)]
@@ -231,7 +242,7 @@ class Trainer:
         weights = self.loss.g_weights(cur_vf_w)
         gate = 1.0 - skip.float()
         total = (weights * stacked).sum()
-        grads = torch.autograd.grad((weights * gate * stacked).sum(), params, allow_unused=True)
+        grads = _grads((weights * gate * stacked).sum(), params)
         grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, params)]
         self._record("G.", self.g_params, grads)
 
