@@ -181,6 +181,21 @@
    discrete mode with both discriminator warm-ups and the D-input blur
    through the CLI, a snapshot and an auto-resumed step (discrete_phase).
 
+13. Towers phase (after int8 serving; towers_phase): the DINOv2-L/14,
+   ViT-MAE-L/16, EVA-02-L/14-448 and Qwen2.5-VL-7B vision towers at full
+   width on seeded random weights, B=32 at the resolution the tokenizer
+   feeds them (256 px x 1.75, MAE x 0.875): shapes under layers [0, 12, -1],
+   finite values, each feature against the fp32 tower (TOWER_BF16_REL);
+   the int8 scope dynamic and, after calibration, static, with every K6
+   call held to its twin bit for bit and the launches against the tower's
+   Linears; K6 at its tail shapes (K6_TAILS: K or N 2730 and 3420, a partial
+   tile) against its twin and timed beside cuBLAS bf16 and the bound, with
+   the aligned SigLIP shapes beside them; the DINOv2 tokenizer's round trip
+   at B=32 (K1-K3 per decode, K4-f32 at the adapter's sites under the flash
+   switches) and its img/s in turns with the SigLIP flagship; the stage-0
+   trainer on the DINOv2 tower over the forced EQ buckets under
+   train_steps' gates. launches_by_path gains "towers".
+
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
 """
@@ -401,6 +416,31 @@ def device_kernels(fn, reps: int = 10):
 def device_ms(fn, reps: int = 10):
     """Device time per call of `fn` (device_kernels), or None."""
     return device_kernels(fn, reps)[0]
+
+
+def device_ms_per_launch(fn, reps: int = 10):
+    """Device time of a call of `fn` whose kernels each run once a call: the
+    sum over its kernels of their mean time a launch, from the profiler's
+    own launch counts. CUPTI can drop a window's events late in a long run,
+    which lowers device_ms (a total over `reps` calls) but not a mean over
+    the launches it recorded. Returns (ms or None, the fewest launches seen
+    of a kernel over `reps`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total and e.count]
+    if not kern:
+        return None, 0
+    return (sum(e.self_device_time_total / e.count for e in kern) / 1e3,
+            min(e.count for e in kern) / reps)
 
 
 def device_launches(fn, reps: int = 5, windows: int = 6) -> dict:
@@ -1859,6 +1899,266 @@ def int8_serving_phase(G, card: str) -> dict:
     with serving_env(int8=True):
         profile_device(lambda: G.encode(img), f"int8 encode B={img.shape[0]}")
     return {"int8_serving": launches, "int8_ceiling_probe": probe_launches}
+
+
+# The towers phase (towers_phase): every other frozen tower at full width on
+# seeded random weights, each encoding TOWER_B images at the resolution the
+# tokenizer feeds it (256 px x scale_factor).
+TOWER_PRESETS = (("dinov2-large", 1.75), ("vit-mae-large", 0.875),
+                 ("eva02-large-patch14-448", 1.75), ("qwen2.5-vl-7b", 1.75))
+TOWER_B = 32
+TOWER_LAYERS = [0, 12, -1]
+# bf16 tower against the same tower in fp32 (plain SDPA, TF32 off), relative
+# L2 error of each feature: 24-32 blocks of bf16 roundings (2^-9 relative
+# each) add up to a few 1e-2 in the residual stream; a wrong path reads ~1.
+TOWER_BF16_REL = 0.1
+# The int8 tower against fp32: int8 activations (per row or per tensor) and
+# weights (per channel) through every Linear; a sanity bound, the per-site
+# check (every K6 call against its twin, bit for bit) is the gate.
+TOWER_INT8_REL = 0.5
+# K6's shapes off its multiples (K % 32, N % 8: EVA-02-L's SwiGLU 2730,
+# Qwen2.5-VL-7B's MLP 3420) at the towers' B=32 rows and at a partial tile,
+# beside the aligned SigLIP-L shapes (PERF.md: 0.408-0.493 of the bound).
+K6_TAILS = ((32 * 1025, 1024, 2730), (32 * 1025, 2730, 1024), (32 * 1024, 1280, 3420),
+            (32 * 1024, 3420, 1280), (300, 2730, 1024), (300, 1280, 3420))
+K6_ALIGNED = ((32 * 1024, 1024, 4096), (32 * 1024, 4096, 1024))
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def count_launches(fn):
+    """fn()'s result and the kernel launches it made (counts set to 0 first)."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def k6_tails(card: str) -> dict:
+    """K6 (dynamic, static) at K6_TAILS and K6_ALIGNED: bit for bit its twin
+    (bf16_ulps 0) and bit-identical on repeat; device time (profiler, a mean
+    a launch: device_ms_per_launch) of both modes, static in turns with
+    cuBLAS bf16 at the same shape (events and device), the bound
+    (int8_bound) and its fraction."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1818)
+    out, failed = {}, []
+    for M, K, N in K6_TAILS + K6_ALIGNED:
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand(N, generator=gen, device=dev) * 2e-4 + 1e-4
+        b = torch.randn(N, generator=gen, device=dev) * 0.1
+        a_s = (x.float().abs().amax() / 127 * 0.75).reshape(())
+        w_bf = torch.randn(N, K, generator=gen, device=dev).to(torch.bfloat16)
+        row = dict(M=M, K=K, N=N, tail=(M, K, N) in K6_TAILS)
+        for mode, extra in (("dynamic", ()), ("static", (a_s,))):
+            k6 = lambda: kernels.int8_matmul(x, wq, ws, b, *extra)  # noqa: E731
+            got, again = k6(), k6()
+            ref = kernels.int8_matmul(x, wq, ws, b, *extra, plain=True)
+            torch.cuda.synchronize()
+            ulps = bf16_ulps(got, ref)
+            ok = ulps == 0 and torch.equal(got, again) and bool(torch.isfinite(got).all())
+            if not ok:
+                failed.append(f"{mode} M={M} K={K} N={N}: {ulps:g} ulps")
+            row[f"{mode}_ulps"] = ulps
+            row[f"{mode}_device_ms"], seen = device_ms_per_launch(k6)
+            row["launches_seen"] = min(row.get("launches_seen", 1.0), seen)
+            if mode == "static":
+                row["ms"], row["bf16_ms"] = in_turns(k6, lambda: x @ w_bf.t())
+                row["bf16_device_ms"], seen = device_ms_per_launch(lambda: x @ w_bf.t())
+                row["launches_seen"] = min(row["launches_seen"], seen)
+        bnd, by = int8_bound(M, K, N)
+        row.update(bound_ms=bnd, bound_by=by)
+        dms = row["static_device_ms"] or row["ms"]
+        row["fraction_of_bound"] = bnd / dms
+        print(f"[towers-k6] M={M} K={K} N={N}{' (tail)' if row['tail'] else ''}: twin "
+              f"{row['dynamic_ulps']:g} / {row['static_ulps']:g} ulps (dynamic / static), repeat "
+              f"identical; device dynamic {ms_text(row['dynamic_device_ms'])}, static "
+              f"{ms_text(row['static_device_ms'])} ms ({row['fraction_of_bound']:.3f} of the "
+              f"bound {bnd:.4f} ms, {by}); in turns static {row['ms']:.4f} vs cuBLAS bf16 "
+              f"{row['bf16_ms']:.4f} ms (device {ms_text(row['bf16_device_ms'])}), "
+              f"kernel/bf16 {row['ms'] / row['bf16_ms']:.3f}; the profiler saw "
+              f"{row['launches_seen']:.1f} of each kernel's launches a call at least; on {card}",
+              flush=True)
+        out[f"{M}x{K}x{N}"] = row
+        del x, wq, w_bf
+    if failed:
+        raise SystemExit(f"chip_smoke: towers K6 tails FAILED at {failed}")
+    return out
+
+
+def tower_encode(name: str, scale: float, card: str, path: dict) -> dict:
+    """One preset at full width (bf16, seeded random weights): shapes under
+    TOWER_LAYERS, finite values, each feature against the fp32 tower
+    (TOWER_BF16_REL); then the int8 scope, dynamic and, after calibration on
+    8 images, static: every K6 call against its twin (site_checks), the
+    launches against tower_linears, the features against fp32
+    (TOWER_INT8_REL); encode times of the three. The counted launches go to
+    `path`."""
+    import torch
+
+    from vfm_vae_tpu_torch.entry import configure_precision, tower_linears
+    from vfm_vae_tpu_torch.models import layers
+    from vfm_vae_tpu_torch.models.vfm import VFMEncoder
+    from vfm_vae_tpu_torch.ops import kernels, quantized
+
+    configure_precision()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(180)
+    t0 = time.perf_counter()
+    enc = VFMEncoder(name, scale, TOWER_LAYERS, dtype=torch.bfloat16, device=dev)
+    layers.init_parameters(enc, gen)
+    img = torch.rand((TOWER_B, 256, 256, 3), generator=gen, device=dev)
+    calib = torch.rand((8, 256, 256, 3), generator=gen, device=dev)
+    px = int(256 * scale)
+    grid = px // enc.patch_size
+    lins = tower_linears(enc, grid)
+    flops = sum(2 * M * m.weight.shape[0] * m.weight.shape[1] for m, M in lins)
+    n_par = sum(p.numel() for p in enc.parameters())
+
+    feats = enc.encode_image(img)
+    torch.cuda.synchronize()
+    n = enc.preset["num_layers"]
+    tokens = grid * grid
+    want = [(TOWER_B, tokens, enc.preset["hidden_size"])] * 2 + [
+        (TOWER_B, tokens // 4, enc.preset["out_hidden_size"]) if enc.family == "qwen"
+        else (TOWER_B, tokens, enc.preset["hidden_size"])]
+    shapes = [tuple(f.shape) for f in feats]
+    if shapes != want or not all(bool(torch.isfinite(f).all()) for f in feats):
+        raise SystemExit(f"chip_smoke: {name}: features {shapes} (expected {want}) or not finite")
+    enc.dtype = torch.float32
+    f32 = enc.encode_image(img)
+    enc.dtype = torch.bfloat16
+    errs = [rel_l2(a, b) for a, b in zip(feats, f32)]
+    ms_bf16 = cuda_time_ms(lambda: enc.encode_image(img), reps=3, warmup=1)
+    print(f"[towers] {name}: {n_par / 1e6:.1f} M parameters, {n} blocks, {px} px -> "
+          f"{grid} x {grid} grid{' + CLS' if enc.has_cls_prefix else ''}, features {shapes}; "
+          f"GEMMs {flops / 1e12:.4f} TFLOP/image over {len(lins)} Linears; built and run in "
+          f"{time.perf_counter() - t0:.1f} s; bf16 vs fp32 rel-L2 by layer {TOWER_LAYERS}: "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" (bound {TOWER_BF16_REL:g}); bf16 encode "
+          f"B={TOWER_B} {ms_bf16:.1f} ms, {TOWER_B / ms_bf16 * 1e3:.2f} img/s, "
+          f"{flops * TOWER_B / ms_bf16 / 1e9:.1f} TFLOP/s of GEMMs on {card}", flush=True)
+    if max(errs) > TOWER_BF16_REL:
+        raise SystemExit(f"chip_smoke: {name}: bf16 tower {max(errs):.3e} from fp32")
+
+    row = dict(tflop_per_image=flops / 1e12, bf16_ms=ms_bf16, bf16_rel_l2=errs,
+               linears=len(lins))
+    quantized.prequantize_linears(enc)
+    for mode in ("dynamic", "static"):
+        if mode == "static":
+            quantized.calibrate_int8_act_scales(enc.encode_image, calib)
+        with site_checks() as sc, layers.int8_linear_scope(True):
+            q, counts = count_launches(lambda: enc.encode_image(img))
+        add_counts(path, counts)
+        bad = sc.failures()
+        statics = {st for st, *_ in sc.k6}
+        errs = [rel_l2(a, b) for a, b in zip(q, f32)]
+        with layers.int8_linear_scope(True):
+            ms = cuda_time_ms(lambda: enc.encode_image(img), reps=3, warmup=1)
+        tail = sorted({shape for _, shape, *_ in sc.k6 if shape[0] % 8 or shape[1] % 32})
+        print(f"[towers] {name} int8 {mode}: K6 launches {counts['int8_matmul']} (tower "
+              f"Linears {len(lins)}), {len(sc.k6)} sites held to the twin ({len(bad)} off, "
+              f"0 ulps each), tail (N, K) {tail}; vs fp32 rel-L2 "
+              + ", ".join(f"{e:.3e}" for e in errs) + f" (bound {TOWER_INT8_REL:g}); encode "
+              f"{ms:.1f} ms, {TOWER_B / ms * 1e3:.2f} img/s on {card}", flush=True)
+        row[f"int8_{mode}_ms"], row[f"int8_{mode}_rel_l2"] = ms, errs
+        others = {k: v for k, v in counts.items() if k != "int8_matmul" and v}
+        if (bad or counts["int8_matmul"] != len(lins) or others
+                or statics != {mode == "static"} or max(errs) > TOWER_INT8_REL
+                or not all(bool(torch.isfinite(f).all()) for f in q)):
+            raise SystemExit(f"chip_smoke: {name} int8 {mode}: {bad[:3]}, launches {counts}, "
+                             f"rel-L2 {errs}")
+    del enc, feats, f32, q
+    torch.cuda.empty_cache()
+    return row
+
+
+def towers_phase(G, card: str) -> tuple:
+    """Slice 18: the DINOv2, MAE, EVA-02 and Qwen2.5-VL towers (tower_encode),
+    K6 at their tail shapes (k6_tails), the DINOv2 tokenizer's round trip at
+    B=32 (K1-K3 per decode as PER_DECODE, K4-f32 at the adapter's sites
+    under the flash switches, img/s in turns with the SigLIP flagship `G`)
+    and the stage-0 trainer on the DINOv2 tower (train_steps' gates over the
+    forced EQ buckets). Returns (the path's launches, the K6 tail rows)."""
+    import torch
+
+    from vfm_vae_tpu_torch.entry import (
+        DINOV2_G, dinov2_generator, flagship_trainer, kernel_sites)
+
+    t_phase = time.perf_counter()
+    path: dict = {}
+    rows = {}
+    with env_vars(dict(NO_SWITCHES, VFM_VAE_INT8_VFM=None)):
+        for name, scale in TOWER_PRESETS:
+            rows[name] = tower_encode(name, scale, card, path)
+        tails = k6_tails(card)
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(181)
+        Gd = dinov2_generator(dev, torch.bfloat16, gen)
+        randomize_zero_init_branches(Gd, seed=3)
+        img = torch.rand((TOWER_B, 256, 256, 3), generator=gen, device=dev)
+        def round_trip():
+            z = Gd.encode(img)
+            return z, Gd.decode(z)
+
+        with env_vars(FLASH_SWITCHES):
+            sites = kernel_sites(Gd, 256)
+            (z, x), counts = count_launches(round_trip)
+        add_counts(path, counts)
+        want = {k: v for k, v in forward_counts(sites).items() if v}
+        k4 = [s for s in sites["flash_attention_nonull"] if s["at"] == "adapter"]
+        print(f"[towers] DINOv2 round trip B={TOWER_B} (flash switches): launches {counts}; "
+              f"kernel_sites {want}; K4-f32 adapter sites {k4}", flush=True)
+        if ({k: v for k, v in counts.items() if v} != want
+                or any(counts[k] != v for k, v in PER_DECODE.items()) or not k4
+                or counts["flash_attention_nonull"] != sum(s["count"] for s in k4)):
+            raise SystemExit("chip_smoke: the DINOv2 round trip's launches differ from "
+                             "kernel_sites' prediction")
+        if (tuple(z.shape) != (TOWER_B, 16, 16, 32) or tuple(x.shape) != (TOWER_B, 256, 256, 3)
+                or not (torch.isfinite(z).all() and torch.isfinite(x).all())):
+            raise SystemExit(f"chip_smoke: DINOv2 round trip: {tuple(z.shape)} "
+                             f"{tuple(x.shape)} or not finite")
+        rates = [round_trip_rate(g, img) for g in (Gd, G, G, Gd)]
+        print(f"[towers] round trip B={TOWER_B} in turns (DINOv2, SigLIP, SigLIP, DINOv2): "
+              + " / ".join(f"{r:.2f}" for r in rates) + f" img/s; DINOv2/SigLIP "
+              f"{(rates[0] + rates[3]) / (rates[1] + rates[2]):.3f} on {card}", flush=True)
+        profile_round_trip(Gd, img)
+        del Gd, z, x, img
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        tr = flagship_trainer(dev, 4, torch.Generator(device=dev).manual_seed(182),
+                              allow_random_lpips=True, **DINOV2_G)
+        randomize_zero_init_branches(tr.G, seed=4)
+        print(f"[towers] stage-0 trainer on the DINOv2 tower built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        res = tr.G.synthesis.block_resolutions[-1]
+        reals = [torch.rand((4, res, res, 3), generator=gen, device=dev) for _ in FORCED_BUCKETS]
+        _, counts = train_steps(tr, tr.init_state(), FORCED_BUCKETS, reals, gen, card,
+                                "towers-train")
+        add_counts(path, counts)
+        del tr, reals
+        torch.cuda.empty_cache()
+    print(f"[towers] phase passed in {time.perf_counter() - t_phase:.1f} s; launches {path}",
+          flush=True)
+    return path, dict(tails=tails, towers=rows)
 
 
 def hinge_count_bias(name: str) -> bool:
@@ -5375,6 +5675,8 @@ def main() -> int:
     for name, s in probe.items():
         summary[name] = dict(max_abs_err=dw_err[name], **s)
     launches.update(int8_serving_phase(G, card))
+    launches["towers"], towers = towers_phase(G, card)
+    summary["int8_matmul"]["towers"] = towers
     del G
     torch.cuda.empty_cache()
     tr, state, real, launches["train_step"] = train_phase(card)

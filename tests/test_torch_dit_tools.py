@@ -278,10 +278,33 @@ def test_alignment_chain(rig, dit_run, reg_run, tmp_path):
                                                "--topk", "3", "--biased"]))
 
 
-def test_vfm_mode_refuses_other_towers(tmp_path):
-    with pytest.raises(NotImplementedError, match="only the SigLIP family"):
-        alignment_extract.main(["vfm", "--model", "dinov2-large", "--images", str(tmp_path),
-                                "--out", str(tmp_path / "f"), "--device", "cpu"])
+def test_vfm_mode_serves_other_towers(tmp_path):
+    """The vfm mode on a tiny DINOv2 (a local config.json with mlp_ratio):
+    one row a image, the mean over the layer's patch tokens (the CLS token
+    stripped) of the encoder the tool builds. tests/test_torch_towers.py
+    holds it against JAX's extractor."""
+    from vfm_vae_tpu_torch.models.vfm import VFMEncoder
+    from vfm_vae_tpu_torch.tools._dit import init_model
+
+    model = tmp_path / "dinov2-tiny"
+    model.mkdir()
+    (model / "config.json").write_text(json.dumps(dict(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=4, mlp_ratio=1.5,
+        patch_size=8, image_size=32)))
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    r = np.random.default_rng(5)
+    x = r.integers(0, 256, (2, 48, 48, 3), dtype=np.uint8)
+    for i in range(2):
+        PIL.Image.fromarray(x[i]).save(imgs / f"image_{i:06d}.png")
+    out = alignment_extract.main(["vfm", "--model", str(model), "--images", str(imgs),
+                                  "--out", str(tmp_path / "f"), "--resolution", "48",
+                                  "--device", "cpu"])
+    got = np.load(out["features"])["features"]
+    enc = init_model(VFMEncoder(str(model), 1.0, [-1]), 0, "cpu")
+    want = enc.encode_image(torch.from_numpy(x).float() / 255)[0]
+    assert want.shape == (2, 36, 32) and got.shape == (2, 32)
+    np.testing.assert_allclose(got, want.mean(1).numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_trainers_refuse_several_processes(rig, monkeypatch):

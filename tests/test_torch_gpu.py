@@ -135,11 +135,15 @@ def test_functions_differentiate_through_the_kernels_on_gpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(2048, 1024, 1024), (77, 4096, 1024), (300, 96, 136)])
+@pytest.mark.parametrize("M,K,N", [(2048, 1024, 1024), (77, 4096, 1024), (300, 96, 136),
+                                   (300, 1024, 2730), (77, 2730, 1024), (300, 1280, 3420),
+                                   (300, 3420, 1280), (33, 45, 17)])
 def test_int8_matmul_matches_twin_on_gpu(cuda, M, K, N):
     """K6 (dynamic and static) and K10 against their twins, bit for bit: the
     same quantize, exact int32 sums and the same epilogue order. Shapes off
-    the tiles exercise the ragged rows, columns and K stages."""
+    the tiles exercise the ragged rows, columns and K stages; K and N off 32
+    and 8 the padding pre-pass and the direct-store epilogue (K10 runs where
+    it takes the shape)."""
     g = torch.Generator(device=cuda).manual_seed(M)
     x = (torch.randn(M, K, generator=g, device=cuda) * 2).to(torch.bfloat16)
     wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
@@ -152,8 +156,10 @@ def test_int8_matmul_matches_twin_on_gpu(cuda, M, K, N):
         torch.cuda.synchronize()
         assert torch.equal(got, ref), len(args)
     assert kernels.int8_matmul.launches == before + 3
-    xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
-    assert torch.equal(kernels.int8_matmul_raw(xq, wq), kernels.int8_matmul_raw(xq, wq, plain=True))
+    if K % 32 == 0 and N % 8 == 0:
+        xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+        assert torch.equal(kernels.int8_matmul_raw(xq, wq),
+                           kernels.int8_matmul_raw(xq, wq, plain=True))
 
 
 def _int8_inputs(dev, M, K, N, seed):
@@ -211,27 +217,29 @@ def test_int8_plan_mirror_matches_the_c_export_on_gpu(cuda, M, K, N):
 
 @pytest.mark.gpu
 def test_int8_matmul_refuses_what_it_does_not_take_on_gpu(cuda):
-    """K % 32 != 0 and N % 8 != 0 raise before any launch, through the
-    wrappers and at the C entry point."""
+    """K10: K % 32 != 0 and N % 8 != 0 raise before any launch, through the
+    wrapper and at the C entry point, as does K6 at a K off 32 through the
+    unpadded entry point. K6 takes those shapes through its wrapper (the
+    padding pre-pass, the direct-store epilogue), bit for bit its twin's."""
     from vfm_vae_tpu_torch.ops.kernels._build import library
 
     x, wq, ws, b, _, xq = _int8_inputs(cuda, 64, 96, 64, 3)
-    before = (kernels.int8_matmul.launches, kernels.int8_matmul_raw.launches)
-    with pytest.raises(ValueError):
-        kernels.int8_matmul(x[:, :80].contiguous(), wq[:, :80].contiguous(), ws, b)
-    with pytest.raises(ValueError):
-        kernels.int8_matmul(x, wq[:60].contiguous(), ws[:60].contiguous(), b[:60].contiguous())
+    before = kernels.int8_matmul_raw.launches
     with pytest.raises(ValueError):
         kernels.int8_matmul_raw(xq[:, :80].contiguous(), wq[:, :80].contiguous())
     with pytest.raises(ValueError):
         kernels.int8_matmul_raw(xq, wq[:60].contiguous())
-    assert (kernels.int8_matmul.launches, kernels.int8_matmul_raw.launches) == before
+    assert kernels.int8_matmul_raw.launches == before
+    for args in ((x[:, :80].contiguous(), wq[:, :80].contiguous(), ws, b),
+                 (x, wq[:60].contiguous(), ws[:60].contiguous(), b[:60].contiguous())):
+        assert torch.equal(kernels.int8_matmul(*args), kernels.int8_matmul(*args, plain=True))
     lib = library()
     out = torch.empty(64, 64, dtype=torch.int8, device=cuda)
+    a_s = torch.empty(64, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    for M, N, K in ((64, 64, 80), (64, 60, 96)):
-        err = lib.lib.vfm_int8_matmul(xq.data_ptr(), wq.data_ptr(), None, None, None,
-                                      out.data_ptr(), M, N, K, 2, stream)
+    for M, N, K, mode in ((64, 64, 80, 2), (64, 60, 96, 2), (64, 64, 80, 0)):
+        err = lib.lib.vfm_int8_matmul(xq.data_ptr(), wq.data_ptr(), ws.data_ptr(), None,
+                                      a_s.data_ptr(), out.data_ptr(), M, N, K, mode, stream)
         assert err != 0
         with pytest.raises(RuntimeError):
             lib.check(err, "int8_matmul")

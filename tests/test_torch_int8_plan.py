@@ -25,7 +25,8 @@ MODES = ("dynamic", "static", "raw")
 
 
 def _check(p, M, K, N, mode):
-    stage = p["tile_m"] * p["stage_k"] * (1 if mode == "raw" else 2) + p["tile_n"] * p["stage_k"]
+    int8_a = mode == "raw" or p["pad"]  # K10, or K6 after the quantize pre-pass
+    stage = p["tile_m"] * p["stage_k"] * (1 if int8_a else 2) + p["tile_n"] * p["stage_k"]
     tiles = -(-M // p["tile_m"]) * -(-N // p["tile_n"])
     assert (p["tile_m"], p["stage_k"], p["consumers"], p["threads"]) == (128, 128, 2, 384)
     assert p["tile_n"] in (128, 256)
@@ -35,7 +36,8 @@ def _check(p, M, K, N, mode):
     assert p["smem_bytes"] <= 232448
     # One more stage would not fit beside the epilogue buffers.
     assert p["smem_bytes"] + stage + 16 > 232448
-    assert p["prepass"] == (mode == "dynamic")
+    assert p["pad"] == (mode != "raw" and K % 32 != 0)
+    assert p["prepass"] == (mode == "dynamic" or p["pad"])
     assert p["direct_store"] == (mode == "raw" and N % 16 != 0)
 
 
@@ -73,11 +75,36 @@ def test_direct_store_only_for_raw_rows_off_16_bytes():
 
 
 def test_plan_refuses_shapes_the_kernel_does_not_take():
-    for M, N, K in ((64, 64, 80), (64, 60, 96), (0, 64, 64)):
+    """K10 takes K % 32 == 0 and N % 8 == 0 only; K6 (dynamic, static) any
+    K and N > 0; no mode takes M == 0 or another mode name."""
+    for M, N, K in ((64, 64, 80), (64, 60, 96)):
         with pytest.raises(ValueError):
-            mod.plan(M, N, K, "static")
+            mod.plan(M, N, K, "raw")
+        for mode in ("dynamic", "static"):
+            _check(mod.plan(M, N, K, mode, SMS), M, K, N, mode)
+    for mode in MODES:
+        with pytest.raises(ValueError):
+            mod.plan(0, 64, 64, mode)
     with pytest.raises(ValueError):
         mod.plan(64, 64, 64, "int4")
+
+
+# The towers' Linears off K6's tiles (EVA-02-L's SwiGLU, Qwen2.5-VL-7B's MLP)
+# at B=32 with a CLS token (M = 32 x 1025) and at a partial tile.
+TAILS = [(32 * 1025, 1024, 2730), (32 * 1025, 2730, 1024), (32 * 1024, 1280, 3420),
+         (32 * 1024, 3420, 1280), (300, 2730, 1024), (77, 45, 17)]
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+@pytest.mark.parametrize("M,K,N", TAILS)
+def test_k6_plan_quantizes_k_tails_and_stores_n_tails_by_tma(M, K, N, mode):
+    """A K off 32 runs the quantize pre-pass (int8 x of K' = 32 ceil(K / 32)
+    columns) and the GEMM reads int8 stages; an N off 8 still stores by TMA
+    (into rows of a multiple of 8)."""
+    p = mod.plan(M, N, K, mode, SMS)
+    _check(p, M, K, N, mode)
+    assert p["pad"] == (K % 32 != 0) and not p["direct_store"]
+    assert mod.padded_k(K) % 32 == 0 and 0 <= mod.padded_k(K) - K < 32
 
 
 def test_plan_constants_match_the_kernel_source():

@@ -119,8 +119,9 @@ def test_siglip_vision_tower_matches_jax(size):
     x = randn(5, 2, size, size, 3)
     params, _ = init_jax(jm, jnp.asarray(x))
     hs, last, _ = apply_jax(jm, {"params": params}, jnp.asarray(x))
-    pm = load(tvit.SigLIPVisionTower(**geo), lambda sd, p: convert._siglip_vision(sd, p, ""), params)
-    hidden, got_last = pm(torch.from_numpy(x))
+    pm = load(tvit.SigLIPVisionTower(**geo),
+              lambda sd, p: sd.update(convert.tower_state_dict_from_jax(p)), params)
+    hidden, got_last, _ = pm(torch.from_numpy(x))
     for i in range(3):
         np.testing.assert_allclose(hidden[i].numpy(), np.asarray(hs[i]), rtol=1e-4, atol=1e-4)
     # fp32 through two transformer blocks; summation order differs.

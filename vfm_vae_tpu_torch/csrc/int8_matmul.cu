@@ -61,6 +61,21 @@
 //   a scheduler issue ~5 a value (probes/int8_matmul.py).
 // - Dynamic mode needs the row's absmax before any value is quantized: a
 //   pre-pass kernel in the same call writes s[m] to the caller's M floats.
+// - K6 at a K that is not a multiple of 32 (the EVA-02 SwiGLU's 2730, the
+//   Qwen2.5-VL MLP's 3420; vfm_int8_matmul_tails): TMA needs row strides of
+//   16-byte multiples, which such an x (2K bytes a row) and weight (K bytes)
+//   do not have. The caller gives the weight K' = 32 ceil(K / 32) columns,
+//   zero past K, once per weight. A pre-pass (quantize_rows_kernel, one warp
+//   a row) quantizes x with the formulas above (dynamic: the row's absmax
+//   first, its second read from L1) into an int8 scratch of K' columns,
+//   zero past K; the GEMM then reads that by TMA, as K10 does (wgmma SS,
+//   modes kDynamicQ and kStaticQ), with K6's epilogue. The zeros add 0 to
+//   every sum and leave every absmax as it was: the twin's result at K, bit
+//   for bit. Cost: one read of x and one write of M K' bytes in the
+//   pre-pass, against a main loop that reads int8 and quantizes nothing.
+// - K6 at an N that is not a multiple of 8 (2730, 3420): the bf16 output
+//   rows are stored by TMA into a buffer of ldo = 8 ceil(N / 8) columns,
+//   which TMA clips at N; the caller hands on its first N columns.
 // - Epilogue: the accumulators are rescaled (K6) or shifted (K10), written
 //   to a swizzled shared chunk of 64 rows x 128 bytes and stored by TMA
 //   (two chunk buffers a consumer warpgroup, so the stores overlap the next
@@ -71,7 +86,9 @@
 // Layouts: x (M, K) bf16 (raw: int8); wq (N, K) int8, K contiguous (the
 // transpose of the JAX package's (K, N)); ws, b (N,) fp32 (b may be null);
 // a_s: static, () fp32 on the device; dynamic, (M,) fp32 that the pre-pass
-// writes; out (M, N) bf16 (raw: int8). x, wq and out 16-byte aligned.
+// writes; out (M, N) bf16 (raw: int8). x, wq and out 16-byte aligned. The
+// tails entry: x (M, K) bf16 2-byte aligned where K % 32 != 0, wq (N, K'),
+// out rows of ldo bf16.
 #include <algorithm>
 #include <atomic>
 #include <type_traits>
@@ -82,7 +99,14 @@ namespace {
 
 using vfm::bf16;
 
-enum Mode { kDynamic = 0, kStatic = 1, kRaw = 2 };
+// The API's modes, and two more of the GEMM: K6's dynamic and static
+// epilogue over an int8 x that the quantize pre-pass wrote (a K off 32).
+enum Mode { kDynamic = 0, kStatic = 1, kRaw = 2, kDynamicQ = 3, kStaticQ = 4 };
+
+__host__ __device__ constexpr bool bf16_a(int mode) { return mode == kDynamic || mode == kStatic; }
+__host__ __device__ constexpr bool dynamic_scale(int mode) {
+  return mode == kDynamic || mode == kDynamicQ;
+}
 
 constexpr int kBM = 128;                       // rows per tile: two warpgroups of 64
 constexpr int kBK = 128;                       // K values per stage (one swizzle row of int8)
@@ -98,32 +122,37 @@ constexpr float kRint = 12582912.f;            // 1.5 * 2^23
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-__host__ __device__ constexpr int a_bytes(int mode) { return kBM * kBK * (mode == kRaw ? 1 : 2); }
+__host__ __device__ constexpr int a_bytes(int mode) { return kBM * kBK * (bf16_a(mode) ? 2 : 1); }
 __host__ __device__ constexpr int stage_bytes(int mode, int bn) { return a_bytes(mode) + bn * kBK; }
 
 // The launch plan (vfm_int8_matmul_plan exports it; ops/kernels/int8_matmul.py
 // mirrors it).
 struct Plan {
-  int bn, stages, tiles, ctas, smem, direct, prepass;
+  int bn, stages, tiles, ctas, smem, direct, prepass, pad;
 };
 
-Plan make_plan(int M, int N, int mode, int sms) {
+int padded_k(int K) { return cdiv(K, 32) * 32; }
+
+// `mode` is the API's; K6 at a K off 32 runs the quantize pre-pass and the
+// GEMM's int8-A mode (pad).
+Plan make_plan(int M, int N, int K, int mode, int sms) {
   Plan p;
   const int m_tiles = cdiv(M, kBM);
   p.bn = 2LL * m_tiles * cdiv(N, 256) >= sms ? 256 : 128;
-  const int stage = stage_bytes(mode, p.bn);
+  p.pad = mode != kRaw && K % 32 != 0;
+  const int stage = stage_bytes(p.pad ? mode + kDynamicQ : mode, p.bn);
   p.stages = (kSmemMax - kEpiBytes - kSlack) / (stage + 16);
   p.tiles = m_tiles * cdiv(N, p.bn);
   p.ctas = std::min(p.tiles, sms);
   p.smem = p.stages * (stage + 16) + kEpiBytes + kSlack;
   p.direct = mode == kRaw && N % 16 != 0;
-  p.prepass = mode == kDynamic;
+  p.prepass = mode == kDynamic || p.pad;
   return p;
 }
 
 template <int MODE, int BN>
 struct Cfg {
-  static constexpr bool kBf16A = MODE != kRaw;
+  static constexpr bool kBf16A = bf16_a(MODE);
   static constexpr int kA = a_bytes(MODE);
   static constexpr int kStage = stage_bytes(MODE, BN);
   static constexpr int kAcc = BN / 2;               // s32 accumulators a thread
@@ -338,6 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
     hi2 = clamp_bound(inv) * 0x10001u;
     lo2 = hi2 | 0x80008000u;
   }
+  if constexpr (MODE == kStaticQ) as_val = *a_s;
   auto sync_wg = [&] { wg == 0 ? vfm::named_sync<1, 128>() : vfm::named_sync<2, 128>(); };
   const uint32_t my_epi = epi + wg * 2 * kEpiBox;
   int s = 0, chunk_seq = 0;
@@ -348,7 +378,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int m0 = (tile / n_tn) * kBM, n0 = (tile % n_tn) * BN;
     float f0 = inv, f1 = inv;
-    if constexpr (MODE == kDynamic) {
+    if constexpr (dynamic_scale(MODE)) {
       f0 = m0 + r0 < M ? a_s[m0 + r0] : 1.f;
       f1 = m0 + r0 + 8 < M ? a_s[m0 + r0 + 8] : 1.f;
     }
@@ -416,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
               b1 = bv.y;
             }
           }
-          if constexpr (MODE == kStatic) {
+          if constexpr (MODE == kStatic || MODE == kStaticQ) {
             w0 = __fmul_rn(as_val, w0);
             w1 = __fmul_rn(as_val, w1);
           }
@@ -435,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
                          : "memory");
           } else {
             float y0, y1;
-            if constexpr (MODE == kDynamic) {
+            if constexpr (dynamic_scale(MODE)) {
               const float sr = h ? f1 : f0;
               y0 = __fmul_rn(__fmul_rn(__int2float_rn(c0), sr), w0);
               y1 = __fmul_rn(__fmul_rn(__int2float_rn(c1), sr), w1);
@@ -488,15 +518,78 @@ __global__ void __launch_bounds__(256) row_scale_kernel(const bf16* __restrict__
   if (lane == 0) s[row] = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
 }
 
-// A row-major (rows, cols) matrix of `es`-byte elements as a 2-D tensor map
-// with boxes of (box_cols, box_rows) in the 128-byte swizzle; elements past
-// the matrix read as 0 and are not written.
+// The pre-pass of a K off 32: x (M, K) bf16 quantized into xq (M, Kp) int8
+// with zeros past K, as the GEMM's register quantize would (DYN: s[m] =
+// max(amax / 127, 1e-8), written out, q = rint(x / s); static: q =
+// clip(rint(x * (1 / max(as, 1e-8))), -127, 127)). One warp a row, eight
+// columns a lane and step; `pairs`: x and its rows 4-byte aligned (K even),
+// so two values a load.
+template <bool DYN>
+__global__ void __launch_bounds__(256) quantize_rows_kernel(const bf16* __restrict__ x,
+                                                            int8_t* __restrict__ xq,
+                                                            float* __restrict__ s,
+                                                            const float* __restrict__ a_s, int M,
+                                                            int K, int Kp, int pairs) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const bf16* src = x + (size_t)row * K;
+  auto load8 = [&](int c, float (&v)[8]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = c + 2 * i;
+      uint32_t w;
+      if (pairs && k + 1 < K) {
+        w = *reinterpret_cast<const uint32_t*>(src + k);
+      } else {
+        w = (k < K ? __bfloat16_as_ushort(src[k]) : 0u) |
+            ((k + 1 < K ? __bfloat16_as_ushort(src[k + 1]) : 0u) << 16);
+      }
+      const float2 p = vfm::unpack_bf16(w);
+      v[2 * i] = p.x;
+      v[2 * i + 1] = p.y;
+    }
+  };
+  float f;
+  if constexpr (DYN) {
+    float amax = 0.f;
+    for (int c = lane * 8; c < K; c += 32 * 8) {
+      float v[8];
+      load8(c, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    f = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+    if (lane == 0) s[row] = f;
+  } else {
+    f = __fdiv_rn(1.f, fmaxf(*a_s, 1e-8f));
+  }
+  for (int c = lane * 8; c < Kp; c += 32 * 8) {
+    float v[8];
+    load8(c, v);
+    uint32_t q[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float r = DYN ? rintf(__fdiv_rn(v[e], f)) : fminf(fmaxf(rintf(__fmul_rn(v[e], f)),
+                                                                    -127.f), 127.f);
+      q[e] = static_cast<uint32_t>(static_cast<int>(r)) & 0xffu;
+    }
+    *reinterpret_cast<uint2*>(xq + (size_t)row * Kp + c) =
+        make_uint2(q[0] | (q[1] << 8) | (q[2] << 16) | (q[3] << 24),
+                   q[4] | (q[5] << 8) | (q[6] << 16) | (q[7] << 24));
+  }
+}
+
+// A row-major (rows, cols) matrix of `es`-byte elements, `ld` elements a row,
+// as a 2-D tensor map with boxes of (box_cols, box_rows) in the 128-byte
+// swizzle; elements past the matrix read as 0 and are not written.
 cudaError_t map_2d(CUtensorMap* map, const void* ptr, int es, int rows, int cols, int box_cols,
-                   int box_rows) {
+                   int box_rows, int ld = 0) {
   const vfm::EncodeTiled fn = vfm::encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * es};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld ? ld : cols) * es};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r =
@@ -508,38 +601,48 @@ cudaError_t map_2d(CUtensorMap* map, const void* ptr, int es, int rows, int cols
 }
 
 template <int MODE, int BN>
-cudaError_t launch(const Plan& p, const void* x, const void* wq, const float* ws,
-                   const float* bias, const float* a_s, void* out, int M, int N, int K,
+cudaError_t launch(const Plan& p, const void* x, void* xq, const void* wq, const float* ws,
+                   const float* bias, const float* a_s, void* out, int M, int N, int K, int ldo,
                    cudaStream_t stream) {
   using C = Cfg<MODE, BN>;
   static std::atomic<unsigned long long> attr_done{0};
   cudaError_t err = vfm::smem_limit_once(int8_gemm_kernel<MODE, BN>, kSmemMax, attr_done);
   if (err != cudaSuccess) return err;
+  constexpr bool kQ = MODE == kDynamicQ || MODE == kStaticQ;
   const int es_in = C::kBf16A ? 2 : 1, es_out = MODE == kRaw ? 1 : 2;
+  const int kg = kQ ? padded_k(K) : K;  // the GEMM's K
   CUtensorMap tx, tw, tout;
-  if ((err = map_2d(&tx, x, es_in, M, K, C::kBf16A ? 64 : 128, kBM)) != cudaSuccess) return err;
-  if ((err = map_2d(&tw, wq, 1, N, K, 128, BN)) != cudaSuccess) return err;
+  if ((err = map_2d(&tx, kQ ? xq : x, es_in, M, kg, C::kBf16A ? 64 : 128, kBM)) != cudaSuccess)
+    return err;
+  if ((err = map_2d(&tw, wq, 1, N, kg, 128, BN)) != cudaSuccess) return err;
   if (p.direct) {
     tout = tw;  // unused
-  } else if ((err = map_2d(&tout, out, es_out, M, N, C::kChunkCols, 64)) != cudaSuccess) {
+  } else if ((err = map_2d(&tout, out, es_out, M, N, C::kChunkCols, 64, ldo)) != cudaSuccess) {
     return err;
   }
-  if (MODE == kDynamic) {
+  if constexpr (kQ) {
+    const int pairs = K % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+    quantize_rows_kernel<MODE == kDynamicQ><<<cdiv(M, 8), 256, 0, stream>>>(
+        static_cast<const bf16*>(x), static_cast<int8_t*>(xq), const_cast<float*>(a_s), a_s, M,
+        K, kg, pairs);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  } else if (MODE == kDynamic) {
     row_scale_kernel<<<cdiv(M, 8), 256, 0, stream>>>(static_cast<const bf16*>(x),
                                                      const_cast<float*>(a_s), M, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   int8_gemm_kernel<MODE, BN><<<p.ctas, kThreads, p.smem, stream>>>(
-      tx, tw, tout, ws, bias, a_s, out, M, N, K, p.stages, p.direct);
+      tx, tw, tout, ws, bias, a_s, out, M, N, kg, p.stages, p.direct);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t dispatch(const Plan& p, const void* x, const void* wq, const float* ws,
-                     const float* bias, const float* a_s, void* out, int M, int N, int K,
+cudaError_t dispatch(const Plan& p, const void* x, void* xq, const void* wq, const float* ws,
+                     const float* bias, const float* a_s, void* out, int M, int N, int K, int ldo,
                      cudaStream_t stream) {
-  if (p.bn == 256) return launch<MODE, 256>(p, x, wq, ws, bias, a_s, out, M, N, K, stream);
-  return launch<MODE, 128>(p, x, wq, ws, bias, a_s, out, M, N, K, stream);
+  if (p.bn == 256)
+    return launch<MODE, 256>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, stream);
+  return launch<MODE, 128>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, stream);
 }
 
 bool valid(int M, int N, int K, int mode) {
@@ -547,11 +650,30 @@ bool valid(int M, int N, int K, int mode) {
          mode <= kRaw;
 }
 
+int run(const void* x, void* xq, const void* wq, const float* ws, const float* bias,
+        const float* a_s, void* out, int M, int N, int K, int ldo, int mode, void* stream) {
+  const Plan p = make_plan(M, N, K, mode, vfm::sm_count());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = p.pad ? mode + kDynamicQ : mode;
+#define VFM_INT8_CASE(M_)                                                                 \
+  case M_:                                                                                \
+    return (int)dispatch<M_>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, s);
+  switch (m) {
+    VFM_INT8_CASE(kDynamic)
+    VFM_INT8_CASE(kStatic)
+    VFM_INT8_CASE(kDynamicQ)
+    VFM_INT8_CASE(kStaticQ)
+    default: return (int)dispatch<kRaw>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, s);
+  }
+#undef VFM_INT8_CASE
+}
+
 }  // namespace
 
 // mode 0 dynamic (a_s: M fp32 of scratch for the row scales), 1 static (a_s:
 // the fp32 scale), 2 raw (K10: x and out int8; ws, bias and a_s unused). One
-// call launches the pre-pass (dynamic) and the GEMM.
+// call launches the pre-pass (dynamic) and the GEMM. K % 32 == 0, N % 8 == 0
+// (K6 at other K or N: vfm_int8_matmul_tails).
 extern "C" int vfm_int8_matmul(const void* x, const void* wq, const float* ws, const float* bias,
                                const float* a_s, void* out, int M, int N, int K, int mode,
                                void* stream) {
@@ -559,25 +681,43 @@ extern "C" int vfm_int8_matmul(const void* x, const void* wq, const float* ws, c
                                  reinterpret_cast<uintptr_t>(out)) & 15) ||
       (mode != kRaw && (ws == nullptr || a_s == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(M, N, mode, vfm::sm_count());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kDynamic: return (int)dispatch<kDynamic>(p, x, wq, ws, bias, a_s, out, M, N, K, s);
-    case kStatic: return (int)dispatch<kStatic>(p, x, wq, ws, bias, a_s, out, M, N, K, s);
-    default: return (int)dispatch<kRaw>(p, x, wq, ws, bias, a_s, out, M, N, K, s);
-  }
+  return run(x, nullptr, wq, ws, bias, a_s, out, M, N, K, N, mode, stream);
+}
+
+// K6 (mode 0 dynamic, 1 static) at any K and N. A K off 32: x (M, K) bf16,
+// 2-byte aligned, is quantized by the pre-pass into xq (M, Kp) int8 scratch,
+// Kp = 32 ceil(K / 32), and wq is (N, Kp) int8 with zeros past K; otherwise x
+// and wq (N, K) are read as vfm_int8_matmul reads them (16-byte aligned, xq
+// unused). out: rows of ldo bf16, ldo >= N a multiple of 8 (columns N.. are
+// not written). ws, bias, a_s as vfm_int8_matmul.
+extern "C" int vfm_int8_matmul_tails(const void* x, void* xq, const void* wq, const float* ws,
+                                     const float* bias, const float* a_s, void* out, int M,
+                                     int N, int K, int ldo, int mode, void* stream) {
+  const bool pad = K % 32 != 0;
+  if (M <= 0 || N <= 0 || K <= 0 || ldo < N || ldo % 8 || (mode != kDynamic && mode != kStatic) ||
+      ws == nullptr || a_s == nullptr || (pad && xq == nullptr) ||
+      (reinterpret_cast<uintptr_t>(x) & (pad ? 1 : 15)) ||
+      ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wq) |
+        reinterpret_cast<uintptr_t>(out)) & 15))
+    return (int)cudaErrorInvalidValue;
+  return run(x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, mode, stream);
 }
 
 // The launch plan for (M, N, K, mode) on a card with `sms` SMs: plan[0] rows
 // per tile, [1] columns per tile, [2] K values per stage, [3] ring stages,
 // [4] consumer warpgroups, [5] CTAs, [6] threads per CTA, [7] dynamic shared
 // memory in bytes, [8] 1 if the epilogue stores directly (else TMA), [9] 1 if
-// the row-scale pre-pass runs, [10] tiles.
+// a pre-pass runs (dynamic mode's row scales, or the quantize of a K off
+// 32), [10] tiles, [11] 1 if x is quantized to K' = 32 ceil(K / 32) columns
+// by the pre-pass (K6 at a K off 32). K10 takes K % 32 == 0 and N % 8 == 0,
+// K6 any K and N.
 extern "C" int vfm_int8_matmul_plan(int M, int N, int K, int mode, int sms, int* plan) {
-  if (!valid(M, N, K, mode) || sms <= 0) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(M, N, mode, sms);
-  const int vals[11] = {kBM, p.bn, kBK, p.stages, kConsumers, p.ctas, kThreads,
-                        p.smem, p.direct, p.prepass, p.tiles};
-  for (int i = 0; i < 11; ++i) plan[i] = vals[i];
+  if (M <= 0 || N <= 0 || K <= 0 || mode < kDynamic || mode > kRaw ||
+      (mode == kRaw && !valid(M, N, K, mode)) || sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(M, N, K, mode, sms);
+  const int vals[12] = {kBM, p.bn, kBK, p.stages, kConsumers, p.ctas, kThreads,
+                        p.smem, p.direct, p.prepass, p.tiles, p.pad};
+  for (int i = 0; i < 12; ++i) plan[i] = vals[i];
   return 0;
 }

@@ -7,6 +7,10 @@ SigLIP2-L/16-512 tower, the attnproj adapter reads layers 0, 12 and -1,
 z is 16x16x32, and six ConvNeXt synthesis blocks decode 8 -> 256 px), with
 random weights drawn from an explicit torch.Generator.
 
+`dinov2_generator` is the flagship with the frozen DINOv2-L/14 tower in
+place of SigLIP2 (DINOV2_G); the other families build the same way, by
+`vfm_name`.
+
 `int8_serving_generator` is the flagship with the README's fast serving
 configuration: the frozen tower mirrored to int8 and calibrated (W8A8
 through K6), the decoder in bf16 (vfm_vae_tpu/ops/quantized.py:
@@ -126,6 +130,10 @@ STAGE0_LOSS = dict(
 DISCRETE_G = dict(compression_mode="discrete", vocab_width=64, vocab_size=32768,
                   vocab_beta=0.25, use_entropy_loss=False, entropy_temp=0.01, num_codebooks=8)
 DISCRETE_LOSS = dict(compression_mode="discrete", vq_loss_weight=1.0, entropy_loss_weight=0.0)
+# The DINOv2 tokenizer: the flagship with the DINOv2-L/14 tower
+# (configs/vfm_vae_details.yaml:28 names the family) at the scale that gives
+# the flagship's 32 x 32 grid (256 x 1.75 / 14).
+DINOV2_G = dict(vfm_name="dinov2-large", scale_factor=1.75)
 # G_opt_kwargs / D_opt_kwargs (lines 98-108) and the EMA (lines 116-117).
 STAGE0_OPT = dict(lr=1e-4, betas=(0.0, 0.99), eps=1e-8)
 STAGE0_EMA = dict(ema_kimg=160.0, ema_rampup=0.05)
@@ -146,6 +154,14 @@ def flagship_generator(device, dtype: torch.dtype = torch.bfloat16,
     return Generator(**kwargs, dtype=dtype, device=device, generator=generator).eval()
 
 
+def dinov2_generator(device, dtype: torch.dtype = torch.bfloat16,
+                     generator: Optional[torch.Generator] = None, **overrides) -> Generator:
+    """The flagship tokenizer on a DINOv2-L/14 tower (DINOV2_G): a 256 px
+    image resized x1.75 to 448 px, a 32 x 32 grid of 1024-wide tokens, so
+    the adapter and the decoder are the flagship's."""
+    return flagship_generator(device, dtype, generator, **dict(DINOV2_G, **overrides))
+
+
 def int8_serving_generator(device, calib_imgs: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
                            generator: Optional[torch.Generator] = None,
                            **overrides) -> Generator:
@@ -161,14 +177,15 @@ def int8_serving_generator(device, calib_imgs: torch.Tensor, dtype: torch.dtype 
 
 def flagship_trainer(device, batch_size: int, generator: torch.Generator,
                      dtype: torch.dtype = torch.bfloat16, lpips_path: Optional[str] = None,
-                     allow_random_lpips: bool = False) -> Trainer:
-    """The stage-0 trainer on `device`: the flagship G (train_all: the SigLIP
-    tower frozen), the StyleGAN-T D with a frozen DINO ViT-S/16, LPIPS (a
-    local vgg.pth, or seeded random weights behind allow_random_lpips), the
-    loss, Adam for G and D and the EMA, all drawn from `generator`.
-    `batch_size` sets the EMA horizon's batch."""
+                     allow_random_lpips: bool = False, **overrides) -> Trainer:
+    """The stage-0 trainer on `device`: the flagship G (train_all: the
+    tower frozen; `overrides` of FLAGSHIP_KWARGS, such as DINOV2_G), the
+    StyleGAN-T D with a frozen DINO ViT-S/16, LPIPS (a local vgg.pth, or
+    seeded random weights behind allow_random_lpips), the loss, Adam for G
+    and D and the EMA, all drawn from `generator`. `batch_size` sets the EMA
+    horizon's batch."""
     configure_precision()
-    G = Generator(**FLAGSHIP_KWARGS, **STAGE0_G, dtype=dtype,
+    G = Generator(**dict(FLAGSHIP_KWARGS, **overrides), **STAGE0_G, dtype=dtype,
                   device=device, generator=generator)
     D = ProjectedDiscriminator(vfm_name=G.vfm_encoder.model_name, compute_dtype=dtype,
                                dino_kwargs=STAGE0_DINO, device=device, generator=generator,
@@ -181,6 +198,18 @@ def flagship_trainer(device, batch_size: int, generator: torch.Generator,
     d_trainable = {n for n, _ in D.named_parameters() if not n.startswith("dino.")}
     return Trainer(loss, g_trainable, d_trainable, STAGE0_OPT, STAGE0_OPT,
                    batch_size=batch_size, **STAGE0_EMA)
+
+
+def tower_linears(enc, grid: int) -> List[tuple]:
+    """(Linear, rows per image) of every tower Linear that one encode_image
+    of a `grid` x `grid` patch grid runs: 1 + grid^2 rows with a CLS token,
+    a quarter of grid^2 at Qwen's merger (one row a 2 x 2 merge unit);
+    SigLIP's MAP head only runs for the pooled output, and is left out."""
+    T = grid * grid + int(enc.has_cls_prefix)
+    unit = enc.preset.get("spatial_merge_size", 2) ** 2
+    return [(m, T // unit if name.startswith("merger.") else T)
+            for name, m in enc.tower.named_modules()
+            if isinstance(m, layers.Linear) and not name.startswith("head.")]
 
 
 def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
@@ -197,7 +226,8 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
       upsamples' folded GroupNorm, and a bf16 GroupNorm after block 0's
       upsample (the z injectors normalize in the adapter's fp32, which
       takes the two-pass form);
-    - the encode's K6 ("int8_matmul", M = tokens per image) at every tower
+    - the encode's K6 ("int8_matmul", M = tokens per image: 1 + grid^2
+      with a CLS token, a quarter of the grid at Qwen's merger) at every tower
       Linear when the tower's int8 path is on (VFM_VAE_INT8_VFM=1, or a
       caller's int8 scope), and K4 ("flash_attention_nonull") at every
       tower and adapter attention that the flash rule admits (the flash
@@ -248,19 +278,18 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
 
     enc = G.vfm_encoder
     grid = int(hw * enc.scale_factor) // enc.patch_size
-    T = grid * grid
-    int8_on = int8_vfm_enabled() or layers._INT8_SCOPE[0]
-    for m in enc.tower.encoder.layers.modules():
-        if isinstance(m, MultiHeadSelfAttention):
-            d = m.q_proj.weight.shape[0] // m.num_heads
-            if flash_eligible_shape(T, T, d, False):
-                add("flash_attention_nonull",
-                    (("T", T), ("N", m.num_heads), ("D", d), ("at", "tower")))
-        elif int8_on and isinstance(m, layers.Linear):
-            add("int8_matmul", (("M", T), ("K", m.weight.shape[1]), ("N", m.weight.shape[0]),
+    T = grid * grid + int(enc.has_cls_prefix)
+    for m in enc.tower.modules():
+        if isinstance(m, MultiHeadSelfAttention) and flash_eligible_shape(T, T, m.head_dim,
+                                                                          False):
+            add("flash_attention_nonull",
+                (("T", T), ("N", m.num_heads), ("D", m.head_dim), ("at", "tower")))
+    if int8_vfm_enabled() or layers._INT8_SCOPE[0]:
+        for m, M in tower_linears(enc, grid):
+            add("int8_matmul", (("M", M), ("K", m.weight.shape[1]), ("N", m.weight.shape[0]),
                                 ("static", m._buffers["as"] is not None)))
     ad = G.ldm_adapter
-    quants = [(getattr(pq, "0"), T) for pq in ad.patch_quants]
+    quants = [(getattr(pq, "0"), grid * grid) for pq in ad.patch_quants]  # the CLS stripped
     quants.append((ad.final_quant, (grid * ad.z_resolution // ad.patch_resolutions[0]) ** 2))
     variant = os.environ.get("VFM_VAE_ADAPTER_ATTN", "3mm-xla")
     prefer = variant == "3mm-flash" or not variant.startswith("3mm")

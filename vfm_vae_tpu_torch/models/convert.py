@@ -3,8 +3,13 @@
 `state_dict_from_jax` turns the JAX Generator's (params, buffers) pytrees
 into a flat reference-layout torch state_dict of numpy arrays: the inverse
 of vfm_vae_tpu/models/convert.py:convert_generator for the port's modules
-(SigLIP vision tower, the adapter in either compression mode and either
-form, with the VQ codebooks and usage EMAs, mapping, ConvNeXt synthesis).
+(the vision tower of any family, the adapter in either compression mode
+and either form, with the VQ codebooks and usage EMAs, mapping, ConvNeXt
+synthesis). `tower_state_dict_from_jax` does it for a tower alone, by the
+tables TOWER_MODULES and TOWER_LEAVES; the port's names there are each
+tower's checkpoint layout, which the JAX package's importers read
+(convert_dinov2, convert_mae, eva.convert_eva_timm, HF Qwen2.5-VL's
+`visual`), so such a checkpoint loads into the port as it is.
 Numpy only. Layout rules, inverted from that file:
 
   ours (in, out)              -> torch Linear (out, in)       : W.T
@@ -25,8 +30,9 @@ checkpoints that store vectors as (1, C, 1, 1) load as well.
 The JAX package keeps the int8 tower mirror in a separate 'int8' collection
 (ops/quantized.py: wq (K, N) int8, ws (N,), as () at each tower Linear's
 path); `state_dict_from_jax(..., int8=)` carries it into the port's Linear
-buffers (wq transposed to (N, K)), `load_state_dict_numpy` creates those
-buffers, and `int8_collection_from_state_dict` is the inverse.
+buffers (wq transposed to (N, K)) for every family, `load_state_dict_numpy`
+creates those buffers, and `int8_collection_from_state_dict` is the
+inverse.
 
 `dit_state_dict_from_jax` does it for the latent DiT (models/dit.py) and
 the REG trainer's REPA projector: every Linear kernel is (in, out) in JAX
@@ -35,6 +41,8 @@ the REG trainer's REPA projector: every Linear kernel is (in, out) in JAX
 
 from __future__ import annotations
 
+import functools
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -71,34 +79,46 @@ def _norm(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
     sd[prefix + "bias"] = _arr(p["bias"])
 
 
-def _siglip_vision(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
-    sd[prefix + "embeddings.patch_embedding.weight"] = _conv(p["patch_embedding_weight"])
-    sd[prefix + "embeddings.patch_embedding.bias"] = _arr(p["patch_embedding_bias"])
-    sd[prefix + "embeddings.position_embedding.weight"] = _arr(p["position_embedding"])
-    i = 0
-    while f"layers_{i}" in p:
-        lp, q = prefix + f"encoder.layers.{i}.", p[f"layers_{i}"]
-        _norm(sd, q["norm1"], lp + "layer_norm1.")
-        _norm(sd, q["norm2"], lp + "layer_norm2.")
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _linear(sd, q["attn"][proj], lp + f"self_attn.{proj}.")
-        for fc in ("fc1", "fc2"):
-            _linear(sd, q["mlp"][fc], lp + f"mlp.{fc}.")
-        i += 1
-    _norm(sd, p["post_layernorm"], prefix + "post_layernorm.")
-    if "head" in p:
-        h = p["head"]
-        sd[prefix + "head.probe"] = _arr(h["probe"])
-        sd[prefix + "head.attention.in_proj_weight"] = _arr(h["in_proj_weight"])
-        sd[prefix + "head.attention.in_proj_bias"] = _arr(h["in_proj_bias"])
-        _linear(sd, h["out_proj"], prefix + "head.attention.out_proj.")
-        _norm(sd, h["layernorm"], prefix + "head.layernorm.")
-        _linear(sd, h["mlp"]["fc1"], prefix + "head.mlp.fc1.")
-        _linear(sd, h["mlp"]["fc2"], prefix + "head.mlp.fc2.")
-
-
-_TOWER = "vfm_encoder.encoder.vision_model.vision_model."
-INT8_LEAVES = ("wq", "ws", "as")
+# Each tower's modules: JAX module path -> the port's module name under the
+# tower, "{i}" a block index. A mapped module's leaves keep their names; a
+# 2-D "weight" (a Linear kernel, (in, out) in JAX) is transposed. The port's
+# names are each checkpoint's own: HF SiglipVisionTransformer, HF
+# Dinov2Model and ViTMAEModel (vfm_vae_tpu/models/convert.py:329, :365),
+# EVA-02 as vfm_vae_tpu/models/eva.py:convert_eva_timm reads it, HF
+# Qwen2.5-VL's vision tower (tests/test_qwen.py:convert_qwen).
+_HF_ATTN = (("layers_{i}/attn/q_proj", "encoder.layer.{i}.attention.attention.query"),
+            ("layers_{i}/attn/k_proj", "encoder.layer.{i}.attention.attention.key"),
+            ("layers_{i}/attn/v_proj", "encoder.layer.{i}.attention.attention.value"),
+            ("layers_{i}/attn/out_proj", "encoder.layer.{i}.attention.output.dense"),
+            ("layernorm", "layernorm"))
+TOWER_MODULES = {
+    "siglip": tuple((f"layers_{{i}}/{a}", f"encoder.layers.{{i}}.{b}") for a, b in (
+        ("norm1", "layer_norm1"), ("norm2", "layer_norm2"), ("attn/q_proj", "self_attn.q_proj"),
+        ("attn/k_proj", "self_attn.k_proj"), ("attn/v_proj", "self_attn.v_proj"),
+        ("attn/out_proj", "self_attn.out_proj"), ("mlp/fc1", "mlp.fc1"), ("mlp/fc2", "mlp.fc2")))
+    + (("post_layernorm", "post_layernorm"), ("head/out_proj", "head.attention.out_proj"),
+       ("head/layernorm", "head.layernorm"), ("head/mlp/fc1", "head.mlp.fc1"),
+       ("head/mlp/fc2", "head.mlp.fc2")),
+    "dinov2": _HF_ATTN + (("layers_{i}/norm1", "encoder.layer.{i}.norm1"),
+                          ("layers_{i}/norm2", "encoder.layer.{i}.norm2"),
+                          ("layers_{i}/mlp/fc1", "encoder.layer.{i}.mlp.fc1"),
+                          ("layers_{i}/mlp/fc2", "encoder.layer.{i}.mlp.fc2")),
+    "mae": _HF_ATTN + (("layers_{i}/norm1", "encoder.layer.{i}.layernorm_before"),
+                       ("layers_{i}/norm2", "encoder.layer.{i}.layernorm_after"),
+                       ("layers_{i}/mlp/fc1", "encoder.layer.{i}.intermediate.dense"),
+                       ("layers_{i}/mlp/fc2", "encoder.layer.{i}.output.dense")),
+    "eva": tuple((f"blocks_{{i}}/{a}", f"blocks.{{i}}.{b}") for a, b in (
+        ("norm1", "norm1"), ("norm2", "norm2"), ("attn/q_proj", "attn.q_proj"),
+        ("attn/k_proj", "attn.k_proj"), ("attn/v_proj", "attn.v_proj"), ("attn/norm", "attn.norm"),
+        ("attn/proj", "attn.proj"), ("mlp/w1", "mlp.w1"), ("mlp/w2", "mlp.w2"),
+        ("mlp/norm", "mlp.ffn_ln"), ("mlp/w3", "mlp.w3"))),
+    "qwen": tuple((f"blocks_{{i}}/{a}", f"blocks.{{i}}.{b}") for a, b in (
+        ("norm1", "norm1"), ("norm2", "norm2"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
+        ("gate_proj", "mlp.gate_proj"), ("up_proj", "mlp.up_proj"),
+        ("down_proj", "mlp.down_proj")))
+    + (("merger_ln_q", "merger.ln_q"), ("merger_fc1", "merger.mlp.0"),
+       ("merger_fc2", "merger.mlp.2")),
+}
 
 
 def _leaves(tree: Mapping[str, Any], path: tuple = ()):
@@ -109,39 +129,122 @@ def _leaves(tree: Mapping[str, Any], path: tuple = ()):
             yield path + (k,), v
 
 
-def _port_linear(path: tuple) -> str:
-    """JAX path of a tower Linear ('layers_3', 'attn', 'q_proj') -> the
-    port's module name under the tower."""
-    if path[0] == "head":
-        return "head.attention.out_proj" if path[1] == "out_proj" else "head.mlp." + path[2]
-    block = "self_attn" if path[1] == "attn" else "mlp"
-    return f"encoder.layers.{path[0].split('_')[1]}.{block}.{path[2]}"
+def _with_batch_axis(w) -> np.ndarray:
+    return _arr(w)[None]
 
 
-def _jax_linear(name: str) -> tuple:
-    """The inverse of _port_linear."""
-    p = name.split(".")
-    if p[0] == "head":
-        return ("head", "out_proj") if p[1] == "attention" else ("head", "mlp", p[2])
-    return (f"layers_{p[2]}", "attn" if p[3] == "self_attn" else "mlp", p[4])
+# Leaves whose name or layout differs between the packages.
+_PATCH = ("patch_embedding_weight", "patch_embedding_bias")
+TOWER_LEAVES = {
+    "siglip": ((_PATCH[0], "embeddings.patch_embedding.weight", _conv),
+               (_PATCH[1], "embeddings.patch_embedding.bias", _arr),
+               ("position_embedding", "embeddings.position_embedding.weight", _arr),
+               ("head/probe", "head.probe", _arr),
+               ("head/in_proj_weight", "head.attention.in_proj_weight", _arr),
+               ("head/in_proj_bias", "head.attention.in_proj_bias", _arr)),
+    "dinov2": ((_PATCH[0], "embeddings.patch_embeddings.projection.weight", _conv),
+               (_PATCH[1], "embeddings.patch_embeddings.projection.bias", _arr),
+               ("cls_token", "embeddings.cls_token", _arr),
+               ("position_embeddings", "embeddings.position_embeddings", _with_batch_axis),
+               ("layers_{i}/ls1", "encoder.layer.{i}.layer_scale1.lambda1", _arr),
+               ("layers_{i}/ls2", "encoder.layer.{i}.layer_scale2.lambda1", _arr)),
+    "mae": ((_PATCH[0], "embeddings.patch_embeddings.projection.weight", _conv),
+            (_PATCH[1], "embeddings.patch_embeddings.projection.bias", _arr),
+            ("cls_token", "embeddings.cls_token", _arr),
+            # A buffer in JAX (the fixed sin-cos table).
+            ("position_embeddings", "embeddings.position_embeddings", _with_batch_axis)),
+    "eva": ((_PATCH[0], "patch_embed.proj.weight", _conv),
+            (_PATCH[1], "patch_embed.proj.bias", _arr),
+            ("cls_token", "cls_token", _arr),
+            ("pos_embed", "pos_embed", _with_batch_axis)),
+    # (C tp p p, D) -> (D, C tp p p); loading reshapes it to the Conv3d weight.
+    "qwen": (("patch_embed", "patch_embed.proj.weight", _t),),
+}
+_TOWER = "vfm_encoder.encoder.vision_model.vision_model."
+_TOWERS = "vfm_encoder.encoder."
+INT8_LEAVES = ("wq", "ws", "as")
+# Keys only one tower's tree has, in JAX and in the port.
+_FAMILY_MARKS = (("siglip", "post_layernorm/weight", "post_layernorm.weight"),
+                 ("qwen", "merger_ln_q/weight", "merger.ln_q.weight"),
+                 ("eva", "pos_embed", "pos_embed"),
+                 ("dinov2", "layers_0/ls1", "encoder.layer.0.layer_scale1.lambda1"),
+                 ("mae", "layers_0/norm1/weight", "encoder.layer.0.layernorm_before.weight"))
 
 
-def _siglip_int8(sd: SD, tower: Mapping[str, Any]) -> None:
-    for path, v in _leaves(tower):
-        leaf = path[-1]
-        sd[_TOWER + _port_linear(path[:-1]) + "." + leaf] = _t(v) if leaf == "wq" else _arr(v)
+@functools.lru_cache(maxsize=None)
+def _template(t: str) -> "re.Pattern":
+    return re.compile(re.escape(t).replace(r"\{i\}", r"(\d+)") + "$")
+
+
+def _rename(pairs, name: str, reverse: bool = False) -> Optional[str]:
+    """`name` through the first (src, dst) template pair that matches it."""
+    for src, dst in pairs:
+        if reverse:
+            src, dst = dst, src
+        m = _template(src).match(name)
+        if m:
+            return dst.replace("{i}", m.group(1)) if m.groups() else dst
+    return None
+
+
+def tower_family(tree_or_keys) -> str:
+    """The tower family of a JAX tower tree (its leaves' "/" paths) or of
+    the port's tower keys."""
+    keys = ({"/".join(p) for p, _ in _leaves(tree_or_keys)}
+            if isinstance(tree_or_keys, Mapping) else set(tree_or_keys))
+    for family, jax_key, port_key in _FAMILY_MARKS:
+        if jax_key in keys or port_key in keys:
+            return family
+    raise ValueError("not a VFM tower's parameters")
+
+
+def tower_state_dict_from_jax(params: Mapping[str, Any], buffers: Optional[Mapping[str, Any]]
+                              = None, prefix: str = "",
+                              int8: Optional[Mapping[str, Any]] = None) -> SD:
+    """A JAX tower's (params, buffers) -> the port tower's state_dict
+    (numpy), keys under `prefix`; `int8` (the tower's subtree of the JAX
+    'int8' collection) becomes the Linears' wq (transposed), ws and as.
+    DINOv2's mask token, which no JAX path reads, is zero."""
+    family = tower_family(params)
+    sd: SD = {}
+    for path, v in list(_leaves(params)) + list(_leaves(buffers or {})):
+        key = "/".join(path)
+        for src, dst, fn in TOWER_LEAVES[family]:
+            m = _template(src).match(key)
+            if m:
+                sd[prefix + (dst.replace("{i}", m.group(1)) if m.groups() else dst)] = fn(v)
+                break
+        else:
+            name = _rename(TOWER_MODULES[family], "/".join(path[:-1]))
+            if name is None:
+                raise KeyError(f"{family} tower: no port name for {key}")
+            leaf = path[-1]
+            sd[prefix + name + "." + leaf] = _t(v) if leaf == "weight" and np.ndim(v) == 2 \
+                else _arr(v)
+    if family == "dinov2":
+        sd[prefix + "embeddings.mask_token"] = np.zeros((1, sd[prefix + "layernorm.weight"].size),
+                                                        np.float32)
+    for path, v in _leaves(int8 or {}):
+        name = _rename(TOWER_MODULES[family], "/".join(path[:-1]))
+        sd[prefix + name + "." + path[-1]] = _t(v) if path[-1] == "wq" else _arr(v)
+    return sd
 
 
 def int8_collection_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
     """The port's int8 buffers (wq, ws, as of the tower's Linears) -> the JAX
     'int8' collection {'vfm_encoder': {'tower': ...}}, numpy leaves."""
+    prefix = _TOWER if any(k.startswith(_TOWER) for k in sd) else _TOWERS
+    names = [k[len(prefix):] for k in sd if k.startswith(prefix)]
+    if not names:
+        return {}
+    family = tower_family(names)
     tower: Dict[str, Any] = {}
     for key, val in sd.items():
         name, _, leaf = key.rpartition(".")
-        if not key.startswith(_TOWER) or leaf not in INT8_LEAVES:
+        if not key.startswith(prefix) or leaf not in INT8_LEAVES:
             continue
         node = tower
-        for k in _jax_linear(name[len(_TOWER):]):
+        for k in _rename(TOWER_MODULES[family], name[len(prefix):], reverse=True).split("/"):
             node = node.setdefault(k, {})
         node[leaf] = _t(val) if leaf == "wq" else _arr(val)
     return {"vfm_encoder": {"tower": tower}} if tower else {}
@@ -280,9 +383,11 @@ def state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any], *
     buffers = buffers or {}
     sd: SD = {}
     if "vfm_encoder" in params:
-        _siglip_vision(sd, params["vfm_encoder"]["tower"], _TOWER)
-    if int8 and "vfm_encoder" in int8:
-        _siglip_int8(sd, int8["vfm_encoder"]["tower"])
+        tower = params["vfm_encoder"]["tower"]
+        sd.update(tower_state_dict_from_jax(
+            tower, buffers.get("vfm_encoder", {}).get("tower"),
+            _TOWER if tower_family(tower) == "siglip" else _TOWERS,
+            (int8 or {}).get("vfm_encoder", {}).get("tower")))
     _adapter(sd, params["ldm_adapter"], "ldm_adapter.", buffers.get("ldm_adapter", {}))
     for fc, q in params["mapping"]["mlp"].items():
         _linear(sd, q, f"mapping.mlp.{fc}.")

@@ -1,7 +1,7 @@
 """VFM-VAE Generator (port of vfm_vae_tpu/models/generator.py): the
-tokenizer API `encode` and `decode` (frozen SigLIP encoder -> LDM adapter ->
-z, the diagonal Gaussian's or the multi-codebook VQ's; z -> adapter
-decompress -> mapping -> ConvNeXt synthesis), the training `forward` with
+tokenizer API `encode` and `decode` (frozen VFM encoder of any family ->
+LDM adapter -> z, the diagonal Gaussian's or the multi-codebook VQ's; z ->
+adapter decompress -> mapping -> ConvNeXt synthesis), the training `forward` with
 equivariance regularisation and the adapter's VF, KL, VQ and entropy
 losses, and the train_mode freezing rules (`trainable_path_predicates`,
 `trainable_names`).
@@ -123,6 +123,13 @@ class Generator(Module):
         patch = self.vfm_encoder.patch_size
         if (img_resolution * scale_factor) % patch:
             raise ValueError("img_resolution * scale_factor must be a multiple of the patch size")
+        if self.vfm_encoder.family == "qwen" and -1 in patch_from_layers:
+            # The merger output is at half the tower's grid and the adapter
+            # reads every layer at one patch resolution: with other layers the
+            # JAX Generator fails to concatenate them, alone it builds a z at
+            # half the configured resolution.
+            raise ValueError("Generator: Qwen's layer -1 (the merger output) is at half the "
+                             "tower's grid; take block layers only")
         patch_res = int(img_resolution * scale_factor // patch)
         self.ldm_adapter = LDMAdapter(
             patch_from_layers, [patch_res] * len(patch_from_layers), patch_in_dimensions,

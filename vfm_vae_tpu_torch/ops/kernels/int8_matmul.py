@@ -1,5 +1,8 @@
 """K6: fused int8 quantize -> int8 GEMM (int32 accumulation) -> rescale +
-bias, for the frozen SigLIP tower's Linears at serving time; K10: the bare
+bias, for the frozen tower's Linears at serving time (every family; a K off
+32, such as EVA-02's 2730 and Qwen2.5-VL's 3420, through a quantize
+pre-pass into int8 rows of a multiple of 32, an N off 8 through rows of a
+multiple of 8 that TMA stores); K10: the bare
 int8 x int8 -> int32 GEMM with `>> 8` narrowing, K6's ceiling probe.
 
 K6 replaces the TPU kernel vfm_vae_tpu/ops/pallas/int8_matmul.py:
@@ -93,6 +96,26 @@ EPILOGUE_BYTES = CONSUMERS * 2 * 64 * 128
 SLACK = 1024
 
 
+def padded_k(K: int) -> int:
+    """The K of K6's GEMM for an x of K columns: the next multiple of 32."""
+    return -(-K // 32) * 32
+
+
+def pad_weight(wq: torch.Tensor) -> torch.Tensor:
+    """wq (N, K) int8 -> (N, padded_k(K)) with zero columns past K, made once
+    per weight tensor (kept on the tensor with its version) and returned as
+    it is where K is already a multiple of 32."""
+    K = wq.shape[1]
+    if K % 32 == 0:
+        return wq
+    cached = getattr(wq, "_k6_padded", None)
+    if cached is None or cached[0] != wq._version:
+        wp = torch.zeros((wq.shape[0], padded_k(K)), dtype=wq.dtype, device=wq.device)
+        wp[:, :K] = wq
+        cached = wq._k6_padded = (wq._version, wp)
+    return cached[1]
+
+
 def plan(M: int, N: int, K: int, mode: str, sms: int = 132) -> dict:
     """The launch plan for x (M, K) and wq (N, K) in `mode` on a card with
     `sms` SMs, as the C side computes it (vfm_int8_matmul_plan): tiles of 128
@@ -100,51 +123,68 @@ def plan(M: int, N: int, K: int, mode: str, sms: int = 132) -> dict:
     half the SMs; a ring of K stages of 128 values (x int8 for raw, bf16
     otherwise, plus the weight tile) as deep as shared memory allows beside
     the epilogue buffers; min(tiles, SMs) persistent CTAs; the epilogue
-    stores by TMA unless raw int8 rows of N bytes are not 16-byte aligned;
-    dynamic mode runs the row-scale pre-pass first."""
-    if K % 32 or N % 8 or M <= 0 or mode not in MODES:
+    stores by TMA unless raw int8 rows of N bytes are not 16-byte aligned
+    (bf16 rows of an N off 8 are stored into rows of a multiple of 8);
+    dynamic mode runs the row-scale pre-pass first; K6 at a K off 32 runs
+    the quantize pre-pass instead (`pad`: x into int8 of padded_k(K)
+    columns) and reads int8 stages. K10 takes K % 32 == 0 and N % 8 == 0
+    only."""
+    raw = mode == "raw"
+    if M <= 0 or N <= 0 or K <= 0 or mode not in MODES or (raw and (K % 32 or N % 8)):
         raise ValueError(f"int8_matmul plan: M={M}, K={K}, N={N}, mode={mode!r}")
+    pad = not raw and K % 32 != 0
     m_tiles = -(-M // TILE_M)
     bn = 256 if 2 * m_tiles * -(-N // 256) >= sms else 128
-    stage = TILE_M * STAGE_K * (1 if mode == "raw" else 2) + bn * STAGE_K
+    stage = TILE_M * STAGE_K * (1 if raw or pad else 2) + bn * STAGE_K
     stages = (SMEM_MAX - EPILOGUE_BYTES - SLACK) // (stage + 16)
     tiles = m_tiles * -(-N // bn)
     return dict(tile_m=TILE_M, tile_n=bn, stage_k=STAGE_K, stages=stages, consumers=CONSUMERS,
                 ctas=min(tiles, sms), threads=THREADS,
                 smem_bytes=stages * (stage + 16) + EPILOGUE_BYTES + SLACK,
-                direct_store=mode == "raw" and N % 16 != 0, prepass=mode == "dynamic",
-                tiles=tiles)
+                direct_store=raw and N % 16 != 0, prepass=mode == "dynamic" or pad,
+                tiles=tiles, pad=pad)
 
 
 PLAN_KEYS = ("tile_m", "tile_n", "stage_k", "stages", "consumers", "ctas", "threads",
-             "smem_bytes", "direct_store", "prepass", "tiles")
+             "smem_bytes", "direct_store", "prepass", "tiles", "pad")
 
 
 def _launch(x2, wq, ws, b, a_s, mode: str):
-    """x2 (M, K) -> (M, N) in one library call (dynamic: the row-scale
-    pre-pass and the GEMM); every input checked against what the kernel takes."""
+    """x2 (M, K) -> (M, N) in one library call (the pre-passes and the GEMM);
+    every input checked against what the kernel takes."""
     M, K = x2.shape
     N = wq.shape[0]
     dev = x2.device
-    if K % 32 or N % 8 or M == 0:
-        raise ValueError(f"int8_matmul: M={M}, K={K}, N={N}; the kernel needs M > 0, "
-                         "K a multiple of 32 and N a multiple of 8")
     raw = mode == "raw"
+    if M == 0 or (raw and (K % 32 or N % 8)):
+        raise ValueError(f"int8_matmul: M={M}, K={K}, N={N}; the kernel needs M > 0 (K10: "
+                         "K a multiple of 32 and N a multiple of 8)")
     check_all("int8_matmul", torch.int8 if raw else torch.bfloat16, dev, [(x2, "x", (M, K))])
     check_all("int8_matmul", torch.int8, dev, [(wq, "wq", (N, K))])
     if not raw:
         check_all("int8_matmul", torch.float32, dev,
                   [(ws, "ws", (N,))] + ([] if b is None else [(b, "b", (N,))])
                   + ([(a_s, "a_s", ())] if mode == "static" else []))
-    if x2.data_ptr() % 16 or wq.data_ptr() % 16:  # TMA reads them
+    pad = not raw and K % 32 != 0
+    if (not pad and x2.data_ptr() % 16) or wq.data_ptr() % 16:  # TMA reads them
         raise ValueError("int8_matmul: x and wq must be 16-byte aligned")
     lib = library()
-    out = torch.empty((M, N), dtype=torch.int8 if raw else torch.bfloat16, device=dev)
     if mode == "dynamic":  # the pre-pass writes the row scales here
         a_s = torch.empty((M,), dtype=torch.float32, device=dev)
-    err = call_on(dev, lib.lib.vfm_int8_matmul, x2.data_ptr(), wq.data_ptr(),
-                  None if raw else ws.data_ptr(), None if raw or b is None else b.data_ptr(),
-                  None if raw else a_s.data_ptr(), out.data_ptr(), M, N, K, MODES[mode])
+    args = (None if raw else ws.data_ptr(), None if raw or b is None else b.data_ptr(),
+            None if raw else a_s.data_ptr())
+    if raw or not (pad or N % 8):
+        out = torch.empty((M, N), dtype=torch.int8 if raw else torch.bfloat16, device=dev)
+        err = call_on(dev, lib.lib.vfm_int8_matmul, x2.data_ptr(), wq.data_ptr(), *args,
+                      out.data_ptr(), M, N, K, MODES[mode])
+    else:  # a K off 32 (x quantized into int8 of K' columns) or an N off 8
+        ldo = -(-N // 8) * 8  # TMA stores rows of a multiple of 16 bytes
+        buf = torch.empty((M, ldo), dtype=torch.bfloat16, device=dev)
+        xq = torch.empty((M, padded_k(K)), dtype=torch.int8, device=dev) if pad else None
+        err = call_on(dev, lib.lib.vfm_int8_matmul_tails, x2.data_ptr(),
+                      None if xq is None else xq.data_ptr(), pad_weight(wq).data_ptr(), *args,
+                      buf.data_ptr(), M, N, K, ldo, MODES[mode])
+        out = buf[:, :N]
     lib.check(err, "int8_matmul")
     return out
 
@@ -154,7 +194,9 @@ def int8_matmul(x, wq, ws, b=None, a_s=None, *, plain: bool = False):
     K6) or with the calibrated scale a_s (static). x (..., K) float; wq
     (N, K) int8; ws (N,) and b (N,) fp32; a_s () fp32. CPU tensors (or
     plain=True) run the twin; CUDA tensors launch the kernel: bf16 x,
-    contiguous and 16-byte aligned, K a multiple of 32, N of 8."""
+    contiguous (16-byte aligned where K is a multiple of 32), any K and N.
+    At an N off 8 the result is the first N columns of rows of a multiple
+    of 8 (a view whose rows are not contiguous)."""
     mode = "dynamic" if a_s is None else "static"
     if plain or x.device.type == "cpu":
         return int8_matmul_reference(x, wq, ws, b, mode, a_s)

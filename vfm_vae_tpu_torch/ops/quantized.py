@@ -1,4 +1,4 @@
-"""W8A8 int8 serving of the frozen SigLIP tower (port of
+"""W8A8 int8 serving of the frozen tower, of any family (port of
 vfm_vae_tpu/ops/quantized.py).
 
 Weights are quantized once per output channel (`prequantize_linears`,

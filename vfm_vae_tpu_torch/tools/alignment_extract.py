@@ -2,7 +2,9 @@
 tools/evaluate_alignment/extract_features.py): mean-pooled features per
 image or latent, saved as .npz {names, features}.
 
-    # the frozen tower (SigLIP family; seeded random weights):
+    # a frozen tower of any family (a preset name or a local config.json
+    # directory: siglip2, dinov2, vit-mae, eva02, qwen2.5-vl; seeded random
+    # weights; the mean over the layer's tokens, the CLS token stripped):
     python -m vfm_vae_tpu_torch.tools.alignment_extract vfm --model <name or dir> \\
         --images <dir> --out feats_vfm.npz [--layer -1]
     # the tokenizer's latents (G.encode's posterior mode, mean over H, W):
