@@ -135,7 +135,9 @@
    accumulate_gradients changed (512 / it the largest microbatch the fit
    admits under the remat policy the loop picks) through the CLI: one
    [D, G] step of 512 images, a snapshot, and a second call that
-   auto-resumes it; gated on finite losses, cur_nimg and Progress/kimg,
+   auto-resumes it and takes one step of a single microbatch (a second
+   512-image step took about 85 s of the time limit); gated on
+   finite losses, cur_nimg and Progress/kimg,
    tensors moved, each step's launches per bucket and the peak memory;
    ms per D and G step, img/s and peak memory.
 10. Tools phase: on the recipe's last snapshot, the offline tools through
@@ -195,6 +197,24 @@
    switches) and its img/s in turns with the SigLIP flagship; the stage-0
    trainer on the DINOv2 tower over the forced EQ buckets under
    train_steps' gates. launches_by_path gains "towers".
+
+14. Decoders phase (after the towers phase; decoders_phase): the flagship
+   with the int8 decoder MLPs (enable_int8_decoder on 32 images under the
+   flash switches; K6's gelu and residual modes at the 28 ConvNeXt layers
+   of 8-64 px, K1 at the 10 others): three B=4 requests gated on shapes,
+   finiteness and kernel_sites' launches; every K6 decoder call of one
+   decode against its twin bit for bit (the gelu mode's pre-pass codes and
+   h, the residual mode's output) and against a second call; each int8
+   site at B=32: events, device time, the fraction of the bound,
+   the twins' time, the pair in turns with cuBLAS bf16 of the same two
+   products, K1's device time on the same layer; the round trip at B=4 and
+   B=32 in turns with the bf16 decode and the PSNR between the two decodes
+   of one z. Then every unconditional decoder variant (entry.
+   DECODER_VARIANTS) at flagship width decodes one flagship z at B=4 (the
+   tower built once), gated on shapes, finiteness and launches, with its
+   bf16-vs-fp32 relative L2 and seconds; legacy skip also runs a round
+   trip. launches_by_path gains "int8_decoder" and "decoder_variants"; the
+   kernels line gains int8_matmul_gelu and int8_matmul_residual.
 
 It needs a CUDA device and exits non-zero without one. The second-to-last
 line is the kernel summary JSON; the last line is the device JSON.
@@ -269,6 +289,13 @@ SOURCES = {
     "int8_matmul": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu",
                     "vfm_vae_tpu/ops/pallas/int8_matmul.py:60"),
     "int8_matmul_raw": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu", "tools/bench_int8_kernel.py:132"),
+    # K6's decoder modes (the static-int8 ConvNeXt MLP, an XLA int8 dot in
+    # the JAX package's models/convnext.py:147 _int8_mlp; K6 is the port's
+    # counterpart of the TPU's int8 kernel).
+    "int8_matmul_gelu": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu",
+                         "vfm_vae_tpu/ops/pallas/int8_matmul.py:60"),
+    "int8_matmul_residual": ("vfm_vae_tpu_torch/csrc/int8_matmul.cu",
+                             "vfm_vae_tpu/ops/pallas/int8_matmul.py:60"),
     # K4's backward (the library kernels behind the JAX K4's custom VJP), K5,
     # K9, and the dwconv probe's K7 and K8.
     "flash_attention_nonull_bwd_dkv": (
@@ -2159,6 +2186,430 @@ def towers_phase(G, card: str) -> tuple:
     print(f"[towers] phase passed in {time.perf_counter() - t_phase:.1f} s; launches {path}",
           flush=True)
     return path, dict(tails=tails, towers=rows)
+
+
+# ------------------------------------------------------------------ decoders
+
+# The int8 decoder (decoders_phase): the flagship's ConvNeXt layers at maps
+# of at most 64 x 64 (blocks 0-3, 8-64 px, C = 512: 7 layers a block) run
+# both MLP products on K6 (the gelu and residual modes), the 10 layers of
+# blocks 4-5 stay on K1.
+INT8_DECODER_PER_DECODE = {"int8_matmul_gelu": 28, "int8_matmul_residual": 28,
+                           "fused_convnext_mlp": 10, "fused_upsample_blur": 10,
+                           "flash_attention_nullkv": 6}
+DECODER_B = 32  # the per-site timings and the offline round trip
+VARIANT_B = 4   # the variants' decode (one flagship encode's z)
+
+
+class decoder_int8_off:
+    """For the length of a `with`, the ConvNeXt layers' calibrated int8
+    mirrors are set aside (as_u None: the int8 gate closes and the layer
+    runs K1, the bf16 decode), and put back on exit."""
+
+    def __init__(self, G):
+        from vfm_vae_tpu_torch.models.convnext import ConvNeXtSynthesisLayer
+
+        self.layers = [m for m in G.modules()
+                       if isinstance(m, ConvNeXtSynthesisLayer) and m.as_u is not None]
+
+    def __enter__(self):
+        self.saved = [m.as_u for m in self.layers]
+        for m in self.layers:
+            m.as_u = None
+        return self
+
+    def __exit__(self, *exc):
+        for m, a in zip(self.layers, self.saved):
+            m.as_u = a
+
+
+class decoder_site_checks:
+    """For the length of a `with`: every call of K6's gelu and residual
+    modes on the decoder path runs twice more, as the kernel (bit-identical
+    repeat) and as the plain twin on the very same inputs; the gelu mode's
+    pre-pass codes are compared too. The path goes on with the first
+    result; the twins add no launches, the repeats do (subtracted by the
+    caller)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        import torch
+
+        from vfm_vae_tpu_torch.models import convnext
+
+        self.saved = gelu, resid = convnext.int8_matmul_gelu, convnext.int8_matmul_residual
+
+        def gelu_checked(x, A, wq, e, b, s, *, plain=False):
+            h, uq = gelu(x, A, wq, e, b, s, return_codes=True)
+            h2, uq2 = gelu(x, A, wq, e, b, s, return_codes=True)
+            hr, uqr = gelu(x, A, wq, e, b, s, plain=True, return_codes=True)
+            self.rows.append(("gelu", tuple(x.shape), torch.equal(uq, uqr),
+                              bf16_ulps(h, hr), torch.equal(h, hr) and torch.equal(uq, uq2)
+                              and torch.equal(h, h2) and bool(torch.isfinite(h).all())))
+            return h
+
+        def resid_checked(x, wq, ws, b, a_s, g, x_in, *, plain=False):
+            y = resid(x, wq, ws, b, a_s, g, x_in)
+            y2 = resid(x, wq, ws, b, a_s, g, x_in)
+            yr = resid(x, wq, ws, b, a_s, g, x_in, plain=True)
+            self.rows.append(("residual", tuple(x.shape), True, bf16_ulps(y, yr),
+                              torch.equal(y, yr) and torch.equal(y, y2)
+                              and bool(torch.isfinite(y).all())))
+            return y
+
+        convnext.int8_matmul_gelu, convnext.int8_matmul_residual = gelu_checked, resid_checked
+        return self
+
+    def __exit__(self, *exc):
+        from vfm_vae_tpu_torch.models import convnext
+
+        convnext.int8_matmul_gelu, convnext.int8_matmul_residual = self.saved
+
+
+class capture_int8_mlps:
+    """For the length of a `with`: the first int8 MLP call of each map size
+    keeps its layer and operands (ConvNeXtSynthesisLayer._int8_mlp's x,
+    x_in, A, d, w1, b1_eff, w2, b2, gamma) for the per-site timings."""
+
+    def __init__(self):
+        self.sites = {}
+
+    def __enter__(self):
+        from vfm_vae_tpu_torch.models.convnext import ConvNeXtSynthesisLayer
+
+        self.orig = orig = ConvNeXtSynthesisLayer._int8_mlp
+        sites = self.sites
+
+        def keep(layer, *args):
+            sites.setdefault(args[0].shape[1], (layer, args))
+            return orig(layer, *args)
+
+        ConvNeXtSynthesisLayer._int8_mlp = keep
+        return self
+
+    def __exit__(self, *exc):
+        from vfm_vae_tpu_torch.models.convnext import ConvNeXtSynthesisLayer
+
+        ConvNeXtSynthesisLayer._int8_mlp = self.orig
+
+
+def int8_mlp_work(M: int, K: int, N: int, B: int, mode: str):
+    """(operations, bytes) of one call of K6's gelu mode (x bf16 and the
+    per-image A in, the int8 weight, the per-image scale and bias, h bf16
+    out) or residual mode (h bf16 in, the int8 weight, ws, b, g, x_in bf16
+    in, y bf16 out): each input read once, each output written once."""
+    ops = 2 * M * N * K
+    if mode == "gelu":
+        return ops, 2 * M * K + 4 * B * K + N * K + 8 * B * N + 2 * M * N
+    return ops, 2 * M * K + N * K + 12 * N + 4 * M * N
+
+
+def int8_mlp_bound(M, K, N, B, mode):
+    ops, byts = int8_mlp_work(M, K, N, B, mode)
+    a, b = ops / PEAK_INT8_OPS * 1e3, byts / PEAK_BYTES_PER_S * 1e3
+    return max(a, b), ("operations" if a >= b else "bytes")
+
+
+def decoder_site_timings(G, card: str) -> dict:
+    """At every int8 decoder site of a B=32 decode (one layer a map size;
+    7 layers a size): K6's gelu and residual modes, events and device time,
+    the fraction of the bound, the plain twins' time, the same two products
+    as cuBLAS bf16 GEMMs in turns with the K6 pair, and K1's device time on
+    the same layer's operands (the bf16 kernel this path replaces). Called
+    under torch.no_grad. Returns the two kernels' summary entries."""
+    import torch
+
+    from vfm_vae_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(191)
+    summary = {n: dict(max_abs_err=0.0, sites={}) for n in ("int8_matmul_gelu",
+                                                             "int8_matmul_residual")}
+    per_size = INT8_DECODER_PER_DECODE["int8_matmul_gelu"] // 4
+    for B in (DECODER_B,):
+        img = torch.rand((B, 256, 256, 3), generator=gen, device=dev)
+        z = G.encode(img)
+        with capture_int8_mlps() as cap:
+            G.decode(z)
+        torch.cuda.synchronize()
+        tot = {}
+        for H, (layer, (x, x_in, A, d, w1, b1, w2, b2, g)) in sorted(cap.sites.items()):
+            Bx, _, _, C = x.shape
+            M, N = Bx * H * H, 4 * C
+            s_u = torch.clamp_min(layer.as_u, 1e-8)
+            s_h = torch.clamp_min(layer.as_h, 1e-8)
+            e1 = ((s_u * layer.ws1)[None, :] * d).contiguous()
+            A, b1, g, b2 = A.contiguous(), b1.contiguous(), g.contiguous(), b2.contiguous()
+            h = kernels.int8_matmul_gelu(x, A, layer.w1q, e1, b1, s_u)
+            fns = {
+                "int8_matmul_gelu": (
+                    lambda: kernels.int8_matmul_gelu(x, A, layer.w1q, e1, b1, s_u),
+                    lambda: kernels.int8_matmul_gelu(x, A, layer.w1q, e1, b1, s_u, plain=True),
+                    int8_mlp_bound(M, C, N, Bx, "gelu")),
+                "int8_matmul_residual": (
+                    lambda: kernels.int8_matmul_residual(h, layer.w2q, layer.ws2, b2, s_h, g,
+                                                         x_in),
+                    lambda: kernels.int8_matmul_residual(h, layer.w2q, layer.ws2, b2, s_h, g,
+                                                         x_in, plain=True),
+                    int8_mlp_bound(M, N, C, Bx, "residual")),
+            }
+            w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+            x2, h2 = x.reshape(M, C), h.reshape(M, N)
+            pair = lambda: (fns["int8_matmul_gelu"][0](), fns["int8_matmul_residual"][0]())  # noqa
+            bf16 = lambda: (x2 @ w1b.t(), h2 @ w2b.t())  # noqa: E731
+            k1 = lambda: kernels.fused_convnext_mlp(x, x_in, A, d, w1b, b1, w2b, b2, g)  # noqa
+            pair_ms, bf16_ms = in_turns(pair, bf16)
+            k1_dev, _ = device_ms_per_launch(k1)
+            bf16_dev, _ = device_ms_per_launch(bf16)
+            line = []
+            for name, (fn, twin, (bnd, by)) in fns.items():
+                got, ref = fn(), twin()
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
+                ms = cuda_time_ms(fn)
+                dms, _ = device_ms_per_launch(fn)
+                plain = cuda_time_ms(twin, reps=3, warmup=1)
+                row = dict(M=M, K=C if name == "int8_matmul_gelu" else N,
+                           N=N if name == "int8_matmul_gelu" else C, ms=ms, device_ms=dms,
+                           plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           fraction_of_bound=bnd / (dms or ms), count=per_size)
+                summary[name]["sites"][f"B{B}_H{H}"] = row
+                for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
+                    key = (name, B, k)
+                    tot[key] = None if row[k] is None or tot.get(key, 0.0) is None else \
+                        tot.get(key, 0.0) + row[k] * per_size
+                line.append(f"{name[12:]} {ms:.4f} ms (device {ms_text(dms)}, "
+                            f"{row['fraction_of_bound']:.3f} of the bound {bnd:.4f} ms, {by}; "
+                            f"twin {plain:.4f}, max_abs {err:.3e})")
+            for k, v in (("pair_ms", pair_ms), ("bf16_ms", bf16_ms), ("bf16_device_ms", bf16_dev),
+                         ("k1_device_ms", k1_dev)):
+                key = ("pair", B, k)
+                tot[key] = None if v is None or tot.get(key, 0.0) is None else \
+                    tot.get(key, 0.0) + v * per_size
+            summary["int8_matmul_gelu"]["sites"][f"B{B}_H{H}"].update(
+                pair_ms=pair_ms, bf16_ms=bf16_ms, bf16_device_ms=bf16_dev, k1_device_ms=k1_dev)
+            print(f"[int8-decoder] site B={B} H={H} C={C} (M={M}, x{per_size} a decode): "
+                  + "; ".join(line) + f"; in turns the K6 pair {pair_ms:.4f} ms vs cuBLAS bf16 "
+                  f"of the same two products {bf16_ms:.4f} ms (device {ms_text(bf16_dev)}); "
+                  f"K1 on the same layer device {ms_text(k1_dev)} ms; on {card}", flush=True)
+            del h, e1
+        for name in ("int8_matmul_gelu", "int8_matmul_residual"):
+            vals = {k: tot[(name, B, k)] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+            summary[name][f"b{B}"] = vals
+        pv = {k: tot[("pair", B, k)] for k in ("pair_ms", "bf16_ms", "bf16_device_ms",
+                                                "k1_device_ms")}
+        summary["int8_matmul_gelu"][f"b{B}"].update(pv)
+        print(f"[int8-decoder] all 28 int8 MLP sites of a decode at B={B} (ms, events; device): "
+              f"gelu {summary['int8_matmul_gelu'][f'b{B}']['ms']:.4f}; "
+              f"{ms_text(summary['int8_matmul_gelu'][f'b{B}']['device_ms'])}, residual "
+              f"{summary['int8_matmul_residual'][f'b{B}']['ms']:.4f}; "
+              f"{ms_text(summary['int8_matmul_residual'][f'b{B}']['device_ms'])}; the pair in "
+              f"turns {pv['pair_ms']:.4f} vs cuBLAS bf16 {pv['bf16_ms']:.4f} (device "
+              f"{ms_text(pv['bf16_device_ms'])}); K1 device {ms_text(pv['k1_device_ms'])}",
+              flush=True)
+        del cap, z, img
+        torch.cuda.empty_cache()
+    for name in summary:  # the kernels line reads B=32
+        b32 = summary[name][f"b{DECODER_B}"]
+        bnd = [r for k, r in summary[name]["sites"].items() if k.startswith(f"B{DECODER_B}_")]
+        by = {}
+        for r in bnd:
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["count"]
+        summary[name].update(batch=DECODER_B, ms=b32["ms"], device_ms=b32["device_ms"],
+                             plain_ms=b32["plain_ms"], bound_ms=b32["bound_ms"],
+                             bound_by=max(by, key=by.get), library_ms=None)
+    return summary
+
+
+def int8_decoder_phase(G, card: str) -> tuple:
+    """The decoder's static-int8 MLP on the flagship G (its zero-initialised
+    branches drawn): with the flash switches on, enable_int8_decoder (what
+    entry.int8_serving_generator(decoder_mlp=True) runs) calibrates the
+    tower on 32 seeded images, then the decoder MLPs through a decode of
+    their serving encode; three B=4 requests then run, gated on shapes, finiteness and the
+    launches per decode (INT8_DECODER_PER_DECODE, as kernel_sites predicts);
+    one decode holds every K6 gelu and residual call against its twin on its
+    own inputs (codes, h and y bit for bit) and against a second call; the
+    per-site timings (decoder_site_timings); img/s of the round trip at B=4
+    and B=32, int8 tower with the bf16 decode against the int8 decoder MLPs,
+    in turns, and the PSNR of the int8 decode against the bf16 decode of
+    the same z. Returns (the path's launches, the two kernels' summary)."""
+    import torch
+
+    from vfm_vae_tpu_torch.entry import kernel_sites
+    from vfm_vae_tpu_torch.ops import kernels
+    from vfm_vae_tpu_torch.ops.quantized import enable_int8_decoder
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    B, n_req = 4, 3
+    requests = [torch.rand((B, 256, 256, 3), generator=gen, device=dev) for _ in range(n_req)]
+    calib = torch.rand((32, 256, 256, 3), generator=gen, device=dev)
+    with serving_env(int8=True), torch.no_grad():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_cal = enable_int8_decoder(G, calib)
+        torch.cuda.synchronize()
+        cal = kernels.launch_counts()
+        t_cal = time.perf_counter() - t0
+        # The path's own run: the counts set to 0 just before the requests.
+        kernels.reset_launch_counts()
+        outs = []
+        for img in requests:
+            z = G.encode(img)
+            outs.append((z, G.decode(z)))
+        torch.cuda.synchronize()
+        req = kernels.launch_counts()
+        launches = {k: cal[k] + req[k] for k in req}
+        sites = kernel_sites(G, 256)
+        per = forward_counts(sites)
+        want = {k: n_req * v for k, v in per.items() if v}
+        print(f"[int8-decoder] enable_int8_decoder: {n_cal} scales calibrated on "
+              f"{calib.shape[0]} images in {t_cal:.1f} s (launches { {k: v for k, v in cal.items() if v} }: "
+              f"the int8 MLPs run their fp32 form while calibrating); {n_req} requests of B={B}: "
+              f"launches { {k: v for k, v in req.items() if v} }, predicted {want}", flush=True)
+        bad = [f"{k}: {per.get(k, 0)} a decode, expected {v}"
+               for k, v in INT8_DECODER_PER_DECODE.items() if per.get(k, 0) != v]
+        if (bad or {k: v for k, v in req.items() if v} != want
+                or cal["int8_matmul_gelu"] or cal["int8_matmul_residual"]):
+            raise SystemExit(f"chip_smoke: int8 decoder launches differ from kernel_sites: {bad}")
+        for i, (z, x) in enumerate(outs):
+            if (tuple(x.shape) != (B, 256, 256, 3) or not torch.isfinite(x).all()
+                    or not torch.isfinite(z).all()):
+                raise SystemExit(f"chip_smoke: int8 decoder request {i}: {tuple(x.shape)} or "
+                                 "not finite")
+
+        z = outs[0][0]
+        with decoder_site_checks() as chk:
+            x_k = G.decode(z)
+        torch.cuda.synchronize()
+        fails = [r for r in chk.rows if not (r[2] and r[4])]
+        n_g = sum(r[0] == "gelu" for r in chk.rows)
+        print(f"[int8-decoder] every K6 site of one decode (B={B}) vs its twin on the same "
+              f"inputs: {n_g} gelu (codes and h), {len(chk.rows) - n_g} residual; max "
+              f"{max(r[3] for r in chk.rows):g} ulps (gate: bit for bit, and bit-identical on a "
+              f"second call): {len(fails)} fail", flush=True)
+        if fails or n_g != 28 or len(chk.rows) != 56:
+            raise SystemExit(f"chip_smoke: int8 decoder sites disagree: {fails[:4]}")
+        with decoder_int8_off(G):
+            x_bf = G.decode(z)
+        torch.cuda.synchronize()
+        print(f"[int8-decoder] int8 decode vs the bf16 decode of the same z (B={B}): rel-L1 "
+              f"{rel_l1(x_k, x_bf):.3e}, PSNR {psnr(x_k, x_bf):.2f} dB", flush=True)
+
+        summary = decoder_site_timings(G, card)
+        for bs in (B, DECODER_B):
+            img = torch.rand((bs, 256, 256, 3), generator=gen, device=dev)
+            z = G.encode(img)
+            with decoder_int8_off(G):
+                x_bf = G.decode(z)
+            x_8 = G.decode(z)
+
+            def bf16_rate():
+                with decoder_int8_off(G):
+                    return round_trip_rate(G, img)
+
+            rates = [bf16_rate(), round_trip_rate(G, img), round_trip_rate(G, img), bf16_rate()]
+            print(f"[int8-decoder] round trip B={bs} in turns (int8 tower with the bf16 decode, "
+                  f"int8 decoder MLPs, int8, bf16): " + " / ".join(f"{r:.2f}" for r in rates)
+                  + f" img/s, int8/bf16 decode {(rates[1] + rates[2]) / (rates[0] + rates[3]):.3f}"
+                  f"; PSNR of the int8 decode vs the bf16 decode of the same z "
+                  f"{psnr(x_8, x_bf):.2f} dB (rel-L1 {rel_l1(x_8, x_bf):.3e}) on {card}",
+                  flush=True)
+            summary["int8_matmul_gelu"][f"round_trip_b{bs}"] = dict(
+                img_s=rates, psnr_db=psnr(x_8, x_bf))
+            del img, z, x_bf, x_8
+    from vfm_vae_tpu_torch.models.convnext import INT8_BUFFERS, ConvNeXtSynthesisLayer
+
+    for m in G.modules():  # the decoder mirrors go: later phases decode in bf16
+        if isinstance(m, ConvNeXtSynthesisLayer):
+            for name in INT8_BUFFERS:
+                setattr(m, name, None)
+    torch.cuda.empty_cache()
+    print(f"[int8-decoder] phase passed in {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return launches, summary
+
+
+def decoder_variants_phase(G, card: str) -> dict:
+    """Every other unconditional decoder at flagship width and depth
+    (entry.DECODER_VARIANTS: legacy StyleGAN-T layers with skip and orig
+    images, the Fourier first block, the blur off, multiscale off), bf16,
+    seeded random weights with the zero-initialised branches drawn: each
+    variant decodes the z of one flagship encode at B=4 (the variant's own
+    tower is set aside for the flagship's, so the tower is built once),
+    gated on shapes, finiteness and the launches kernel_sites predicts (K1,
+    K2 and K3 where the variant keeps them); its relative L2 from an fp32
+    decode of the same variant (plain twins) and its seconds are printed.
+    Legacy skip also runs one whole round trip. Returns the launches."""
+    import torch
+
+    from vfm_vae_tpu_torch.entry import (
+        DECODER_VARIANTS, FLAGSHIP_KWARGS, flagship_generator, kernel_sites)
+    from vfm_vae_tpu_torch.models.generator import Generator
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(192)
+    img = torch.rand((VARIANT_B, 256, 256, 3), generator=gen, device=dev)
+    path: dict = {}
+    with env_vars(dict(NO_SWITCHES, VFM_VAE_INT8_VFM=None)), torch.no_grad():
+        z = G.encode(img)
+        for i, (name, overrides) in enumerate(DECODER_VARIANTS.items()):
+            t0 = time.perf_counter()
+            Gv = flagship_generator(dev, torch.bfloat16,
+                                    torch.Generator(device=dev).manual_seed(1900 + i), **overrides)
+            Gv.vfm_encoder = G.vfm_encoder
+            randomize_zero_init_branches(Gv, seed=1910 + i)
+            sites = forward_counts(kernel_sites(Gv, 256))
+            x, counts = count_launches(lambda: Gv.decode(z))
+            if name == "legacy_skip":
+                (z2, x2), rt = count_launches(lambda: (lambda zz: (zz, Gv.decode(zz)))(
+                    Gv.encode(img)))
+                add_counts(counts, rt)
+                if (tuple(x2.shape) != (VARIANT_B, 256, 256, 3)
+                        or not torch.isfinite(x2).all()):
+                    raise SystemExit("chip_smoke: legacy round trip: shapes or not finite")
+            add_counts(path, counts)
+            want = {k: v * (2 if name == "legacy_skip" else 1) for k, v in sites.items() if v}
+            G32 = Generator(**dict(FLAGSHIP_KWARGS, **overrides), dtype=torch.float32,
+                            device=dev)
+            own, sd = G32.state_dict(), Gv.state_dict()  # sd: the flagship tower's int8 mirror too
+            if set(own) - set(sd):
+                raise SystemExit(f"chip_smoke: {name}: fp32 copy lacks {sorted(set(own) - set(sd))[:4]}")
+            G32.load_state_dict({k: sd[k] for k in own})
+            G32.use_plain_kernels(True)
+            x32 = G32.decode(z.float())
+            torch.cuda.synchronize()
+            err = rel_l2(x, x32)
+            n_legacy = sum(type(m).__name__ == "SynthesisLayer" for m in Gv.modules())
+            print(f"[variants] {name} {overrides}: decode of one flagship z at B={VARIANT_B} "
+                  f"{tuple(x.shape)}, {n_legacy} legacy layers, launches "
+                  f"{ {k: v for k, v in counts.items() if v} } (kernel_sites {want}); bf16 vs "
+                  f"fp32 decode rel-L2 {err:.3e}; {time.perf_counter() - t0:.1f} s on {card}",
+                  flush=True)
+            if (tuple(x.shape) != (VARIANT_B, 256, 256, 3) or not torch.isfinite(x).all()
+                    or {k: v for k, v in counts.items() if v} != want):
+                raise SystemExit(f"chip_smoke: decoder variant {name}: shapes, finiteness or "
+                                 "launches")
+            del Gv, G32, x, x32
+            torch.cuda.empty_cache()
+    print(f"[variants] phase passed in {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{ {k: v for k, v in path.items() if v} }", flush=True)
+    return path
+
+
+def decoders_phase(G, card: str) -> tuple:
+    """The int8 decoder (int8_decoder_phase), then the decoder
+    variants (decoder_variants_phase). Returns (launches by path, the K6
+    decoder modes' summary entries)."""
+    launches, summary = int8_decoder_phase(G, card)
+    return {"int8_decoder": launches, "decoder_variants": decoder_variants_phase(G, card)}, \
+        summary
 
 
 def hinge_count_bias(name: str) -> bool:
@@ -4258,13 +4709,16 @@ def published_batch(card: str, tmp: str, peaks: dict) -> dict:
     accumulate_gradients is the largest microbatch that fits
     (pick_microbatch) through the port's CLI: one [D, G] step of the
     published 512 images on synthetic 256 px shards, a snapshot, then a
-    second call that auto-resumes it and takes one more step. Overrides as
-    the recipe phase's (run_dir, the shards, one tick and one snapshot a
-    call, random LPIPS). Gates: finite logged losses, Progress/kimg 0.512
-    and cur_nimg 512 after the first call, RECIPE_MOVED of the trainable
-    tensors moved, every step's launches as phase_launches predicts for its
-    bucket, the loop's remat and accumulate_gradients microbatches, peak
-    memory under the card's, and the auto-resume. Returns the launches."""
+    second call that auto-resumes it and takes one more step of a single
+    microbatch (batch_size the microbatch, no accumulation: the resume is
+    what that call checks, and a second 512-image step took about 85 s of
+    the script's time limit). Overrides as the recipe phase's (run_dir, the
+    shards, one tick and one snapshot a call, random LPIPS). Gates: finite
+    logged losses, Progress/kimg 0.512 and cur_nimg 512 after the first
+    call, RECIPE_MOVED of the trainable tensors moved, every step's
+    launches as phase_launches predicts for its bucket, the loop's remat
+    and accumulate_gradients microbatches, peak memory under the card's,
+    and the auto-resume. Returns the launches."""
     import gc
 
     import torch
@@ -4297,21 +4751,22 @@ def published_batch(card: str, tmp: str, peaks: dict) -> dict:
     fails = []
     with probe:
         calls = []
-        for call in ("first", "auto-resume"):
+        for call, call_acc in (("first", n_acc), ("auto-resume", 1)):
             t0 = time.perf_counter()
             st = probe.begin(call)
+            c.update(batch_size=micro * call_acc, accumulate_gradients=call_acc)
             res = run_recipe_cli(c, os.path.join(tmp, f"published_{call}.yaml"), 1, counts)
             peak = torch.cuda.max_memory_allocated()
             with open(os.path.join(c.run_dir, "stats.jsonl")) as f:
                 entry = json.loads(f.read().splitlines()[-1])
             tr = res.trainer
-            if tr.num_accumulation != n_acc or tr.G.remat != policy:
+            if tr.num_accumulation != call_acc or tr.G.remat != policy:
                 fails.append(f"{call}: the loop ran {tr.num_accumulation} microbatches under "
                              f"{tr.G.remat!r}")
             for phase, eqs, got in (("D", st["d_eq"], st["d_launches"]),
                                     ("G", st["g_eq"], st["g_launches"])):
                 for eq, lc in zip(eqs, got):
-                    want = phase_launches(tr.G, eq, phase, n_acc=n_acc)
+                    want = phase_launches(tr.G, eq, phase, n_acc=call_acc)
                     if {k: lc[k] for k in want} != want:
                         fails.append(f"{call} {phase} step eq={eq}: launches {lc} != {want}")
             losses = {k: v for k, v in entry.items() if k.startswith("Loss/")}
@@ -4335,15 +4790,16 @@ def published_batch(card: str, tmp: str, peaks: dict) -> dict:
                 with open(os.path.join(c.run_dir, "log.txt")) as f:
                     logged = f"[auto-resume] found {snapshot}" in f.read()
                 if (res.resume is None or res.resume["path"] != snapshot or not logged
-                        or res.state.cur_nimg != 2 * PUBLISHED_BATCH):
+                        or res.state.cur_nimg != PUBLISHED_BATCH + micro):
                     fails.append(f"the second call did not auto-resume {snapshot} "
                                  f"({res.resume and res.resume['path']}, logged {logged}, "
                                  f"cur_nimg {res.state.cur_nimg})")
             d_ms, g_ms = st["d_ms"][0], st["g_ms"][0]
             calls.append((d_ms, g_ms))
-            print(f"[batch-published] {call}: one [D, G] step of {PUBLISHED_BATCH} images "
-                  f"({n_acc} x {micro}, remat {tr.G.remat!r}) on {card}: D {d_ms:.1f} ms, G "
-                  f"{g_ms:.1f} ms, {PUBLISHED_BATCH / ((d_ms + g_ms) / 1e3):.1f} img/s; peak "
+            n_img = micro * call_acc
+            print(f"[batch-published] {call}: one [D, G] step of {n_img} images "
+                  f"({call_acc} x {micro}, remat {tr.G.remat!r}) on {card}: D {d_ms:.1f} ms, G "
+                  f"{g_ms:.1f} ms, {n_img / ((d_ms + g_ms) / 1e3):.1f} img/s; peak "
                   f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); Progress/kimg "
                   f"{entry['Progress/kimg']}, cur_nimg {res.state.cur_nimg}; "
                   f"{len(moved)}/{len(gated)} trainable tensors moved; buckets D {st['d_eq']} "
@@ -5677,6 +6133,9 @@ def main() -> int:
     launches.update(int8_serving_phase(G, card))
     launches["towers"], towers = towers_phase(G, card)
     summary["int8_matmul"]["towers"] = towers
+    dec_launches, dec_summary = decoders_phase(G, card)
+    launches.update(dec_launches)
+    summary.update(dec_summary)
     del G
     torch.cuda.empty_cache()
     tr, state, real, launches["train_step"] = train_phase(card)

@@ -164,13 +164,15 @@ def test_kernel_sites_cover_every_kernel_call(slice_pair):
     counts = {name: sum(s["count"] for s in v) for name, v in sites.items()}
     # The encode's K4 and K6 sites are empty unless the flash switches or the
     # int8 tower are on (tests/test_torch_int8.py), K5's and K9's unless their
-    # switches are (tests/test_torch_stats.py); the tiny decoder's 16- to
+    # switches are (tests/test_torch_stats.py), K6's decoder modes unless the
+    # int8 decoder is (tests/test_torch_int8_decoder.py); the tiny decoder's 16- to
     # 64-channel dwconvs fail K7's and K8's rules (C % 128 == 0).
     assert counts == {"fused_convnext_mlp": n_k1, "fused_upsample_blur": n_k2,
                       "flash_attention_nullkv": n_k3, "flash_attention_nonull": 0, "int8_matmul": 0,
                       "fused_convnext_mlp_pipelined": 0, "channel_moments": 0,
                       "flash_attention_nonull_bwd_dkv": 0, "flash_attention_nonull_bwd_dq": 0,
-                      "dwconv_noise_stats": 0, "depthwise_conv2d_same": 0}
+                      "dwconv_noise_stats": 0, "depthwise_conv2d_same": 0,
+                      "int8_matmul_gelu": 0, "int8_matmul_residual": 0}
     assert (n_k1, n_k2, n_k3) == (16, 6, 1)
 
 

@@ -194,6 +194,58 @@ def test_int8_matmul_is_bit_exact_at_served_shapes_on_gpu(cuda, B, K, N):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,C", [(2, 8, 512), (2, 64, 512), (3, 4, 64), (2, 5, 40), (1, 1, 32)])
+def test_int8_decoder_modes_match_twins_on_gpu(cuda, B, H, C):
+    """K6's gelu mode (pre-pass codes and h) and residual mode against their
+    twins bit for bit, and bit-identical on repeat: images of H x H rows
+    (64 at 8 x 8, less than a 128-row tile; 16, 25 and 1 off the tiles), K
+    off 32 (C = 40) through the padded weight."""
+    g = torch.Generator(device=cuda).manual_seed(B * 1000 + H * 10 + C)
+    N = 4 * C
+    x = (torch.randn(B, H, H, C, generator=g, device=cuda) * 2).to(torch.bfloat16)
+    A = torch.rand(B, C, generator=g, device=cuda) + 0.5
+    w1q = torch.randint(-127, 128, (N, C), generator=g, device=cuda, dtype=torch.int8)
+    e = torch.rand(B, N, generator=g, device=cuda) * 1e-3 + 1e-4
+    b1 = torch.randn(B, N, generator=g, device=cuda)
+    s_u = (x.float().abs().amax() * 1.5 / 127 * 0.5).reshape(())  # clips the top of the range
+    before = kernels.int8_matmul_gelu.launches
+    h, uq = kernels.int8_matmul_gelu(x, A, w1q, e, b1, s_u, return_codes=True)
+    h2, uq2 = kernels.int8_matmul_gelu(x, A, w1q, e, b1, s_u, return_codes=True)
+    hr, uqr = kernels.int8_matmul_gelu(x, A, w1q, e, b1, s_u, plain=True, return_codes=True)
+    torch.cuda.synchronize()
+    assert kernels.int8_matmul_gelu.launches == before + 2
+    assert torch.equal(uq, uqr) and torch.equal(h, hr)
+    assert torch.equal(uq, uq2) and torch.equal(h, h2)
+    w2q = torch.randint(-127, 128, (C, N), generator=g, device=cuda, dtype=torch.int8)
+    ws2 = torch.rand(C, generator=g, device=cuda) * 1e-2 + 1e-4
+    b2, gam = torch.randn(C, generator=g, device=cuda), torch.randn(C, generator=g, device=cuda)
+    s_h = (h.float().abs().amax() / 127 * 0.75).reshape(())
+    args = (h, w2q, ws2, b2, s_h, gam, x)
+    before = kernels.int8_matmul_residual.launches
+    y, y2 = kernels.int8_matmul_residual(*args), kernels.int8_matmul_residual(*args)
+    yr = kernels.int8_matmul_residual(*args, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.int8_matmul_residual.launches == before + 2
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    assert torch.equal(y, yr) and torch.equal(y, y2)
+
+
+@pytest.mark.gpu
+def test_int8_decoder_modes_refuse_what_they_do_not_take_on_gpu(cuda):
+    x = torch.randn(1, 2, 2, 36, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 32"):  # the residual mode: K % 32
+        kernels.int8_matmul_residual(x, torch.ones(36, 36, dtype=torch.int8, device=cuda),
+                                     *(torch.ones(36, device=cuda) for _ in range(2)),
+                                     torch.tensor(0.1, device=cuda),
+                                     torch.ones(36, device=cuda), x)
+    with pytest.raises(ValueError, match="multiple of 8"):  # the gelu mode: N % 8
+        kernels.int8_matmul_gelu(x, torch.ones(1, 36, device=cuda),
+                                 torch.ones(12, 36, dtype=torch.int8, device=cuda),
+                                 torch.ones(1, 12, device=cuda), torch.ones(1, 12, device=cuda),
+                                 torch.tensor(0.1, device=cuda))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(2048, 1024, 1024), (4096, 1024, 1024), (32768, 1024, 1024),
                                    (32768, 4096, 1024), (2048, 1024, 4096), (77, 4096, 1024),
                                    (300, 96, 136)])

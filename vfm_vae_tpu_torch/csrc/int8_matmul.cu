@@ -11,6 +11,20 @@
 //            int8 dot in the JAX package; PyTorch has no int8 matmul to stand in)
 //   raw:     K10, tools/bench_int8_kernel.py:raw_int8: int8 A, no quantize,
 //            out = int8(acc >> 8) with two's-complement wrap.
+//   gelu:    the first product of the decoder's static-int8 ConvNeXt MLP
+//            (vfm_vae_tpu/models/convnext.py:_int8_mlp, an XLA int8 dot in the
+//            JAX package): rows grouped by image (img = m / hw), a pre-pass
+//            u = x * A[img, k] (fp32), q = clip(rint(u * inv), -127, 127) with
+//            inv = 1 / max(as, 1e-8) into int8, then
+//            v = (acc * e[img, n]) + b[img, n],
+//            y = (v * 0.5) * (1 + erff(v * 0.70710678))           -> bf16
+//            (the erf GELU; e = (as * ws) * demod and b the folded bias, per
+//            image, from the caller).
+//   residual: the MLP's second product, static mode with the layer scale and
+//            the residual in the epilogue:
+//            y = x_in[m, n] + ((acc * (as * ws[n])) + b[n]) * g[n]  -> bf16
+//            (convnext.py:207-211 in fp32, one rounding at the end, as JAX
+//            rounds the layer's output to its dtype).
 // Every product, rounding and rescale happens in the plain twin's order, with
 // __fdiv_rn / __fmul_rn / __fadd_rn so that nvcc contracts nothing into an FMA,
 // and rint half to even (as jnp.round and torch.round); the int32 sum is exact
@@ -76,6 +90,19 @@
 // - K6 at an N that is not a multiple of 8 (2730, 3420): the bf16 output
 //   rows are stored by TMA into a buffer of ldo = 8 ceil(N / 8) columns,
 //   which TMA clips at N; the caller hands on its first N columns.
+// - The decoder's gelu mode (vfm_int8_matmul_gelu) runs the K-tail route at
+//   every K: the pre-pass (quantize_rows_kernel, kQScaled) forms u = x * A
+//   in fp32 before it quantizes, so the codes are those of the fp32 product
+//   and not of a bf16 u, and the GEMM reads them by TMA (mode kGeluQ). Its
+//   epilogue reads the per-image scale and bias at each accumulator's own
+//   row (an 8 x 8 image is 64 rows, less than a tile of 128), then applies
+//   the exact (erf) GELU: K1 uses the tanh form, this path the JAX
+//   package's approximate=False. The second product (vfm_int8_matmul_
+//   residual, mode kStaticRes) is the static mode with the layer scale and
+//   the residual added in fp32 before the one bf16 rounding: rounding the
+//   product to bf16 first (and adding in PyTorch) left the tiny decoder's
+//   int8 decode 1.5e-2 (mean relative L1) from the JAX package's, against
+//   3e-7 without that rounding (tests/test_torch_int8_decoder.py).
 // - Epilogue: the accumulators are rescaled (K6) or shifted (K10), written
 //   to a swizzled shared chunk of 64 rows x 128 bytes and stored by TMA
 //   (two chunk buffers a consumer warpgroup, so the stores overlap the next
@@ -99,11 +126,22 @@ namespace {
 
 using vfm::bf16;
 
-// The API's modes, and two more of the GEMM: K6's dynamic and static
-// epilogue over an int8 x that the quantize pre-pass wrote (a K off 32).
-enum Mode { kDynamic = 0, kStatic = 1, kRaw = 2, kDynamicQ = 3, kStaticQ = 4 };
+// The API's modes (dynamic, static, raw; gelu and residual, which
+// vfm_int8_matmul_gelu and vfm_int8_matmul_residual run), and two more of
+// the GEMM: K6's dynamic and static epilogue over an int8 x that the
+// quantize pre-pass wrote (a K off 32).
+enum Mode {
+  kDynamic = 0, kStatic = 1, kRaw = 2, kDynamicQ = 3, kStaticQ = 4, kGeluQ = 5, kStaticRes = 6
+};
+// The quantize pre-pass's kinds: dynamic row scales, the static scale, the
+// static scale of x times a per-image channel scale (gelu).
+enum Quant { kQDyn = 0, kQStatic = 1, kQScaled = 2 };
 
-__host__ __device__ constexpr bool bf16_a(int mode) { return mode == kDynamic || mode == kStatic; }
+__host__ __device__ constexpr bool bf16_a(int mode) {
+  return mode == kDynamic || mode == kStatic || mode == kStaticRes;
+}
+// The static scale quantizes a bf16 x in registers.
+__host__ __device__ constexpr bool static_bf16(int mode) { return mode == kStatic || mode == kStaticRes; }
 __host__ __device__ constexpr bool dynamic_scale(int mode) {
   return mode == kDynamic || mode == kDynamicQ;
 }
@@ -133,14 +171,18 @@ struct Plan {
 
 int padded_k(int K) { return cdiv(K, 32) * 32; }
 
+// The GEMM's mode for an API mode: K6 at a K off 32 reads the int8 x of
+// the quantize pre-pass (pad), as the gelu mode always does.
+int gemm_mode(int mode, bool pad) { return mode == kGeluQ ? kGeluQ : pad ? mode + kDynamicQ : mode; }
+
 // `mode` is the API's; K6 at a K off 32 runs the quantize pre-pass and the
-// GEMM's int8-A mode (pad).
+// GEMM's int8-A mode (pad), the gelu mode at every K.
 Plan make_plan(int M, int N, int K, int mode, int sms) {
   Plan p;
   const int m_tiles = cdiv(M, kBM);
   p.bn = 2LL * m_tiles * cdiv(N, 256) >= sms ? 256 : 128;
-  p.pad = mode != kRaw && K % 32 != 0;
-  const int stage = stage_bytes(p.pad ? mode + kDynamicQ : mode, p.bn);
+  p.pad = mode == kGeluQ || (mode != kRaw && K % 32 != 0);
+  const int stage = stage_bytes(gemm_mode(mode, p.pad), p.bn);
   p.stages = (kSmemMax - kEpiBytes - kSlack) / (stage + 16);
   p.tiles = m_tiles * cdiv(N, p.bn);
   p.ctas = std::min(p.tiles, sms);
@@ -174,6 +216,11 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[128], const uint32_t (&a)[4], 
 __device__ __forceinline__ void wgmma_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
                                          int sc) {
   vfm::wgmma_s8_rs_m64n128(d, a, db, sc);
+}
+
+// The erf GELU in the twin's order: (v * 0.5) * (1 + erf(v * sqrt(1/2))).
+__device__ __forceinline__ float gelu_erf(float v) {
+  return __fmul_rn(__fmul_rn(v, 0.5f), __fadd_rn(1.f, erff(__fmul_rn(v, 0.70710678118654752f))));
 }
 
 // rint(v) as the low byte of v + 1.5 * 2^23 (|v| < 2^22).
@@ -212,7 +259,7 @@ __device__ __forceinline__ uint32_t clamp_bf16x2(uint32_t v, uint32_t lo2, uint3
 // dynamic: rint(x / s).
 template <int MODE>
 __device__ __forceinline__ uint32_t quant4(uint2 v, float f, uint32_t lo2, uint32_t hi2) {
-  if constexpr (MODE == kStatic) {
+  if constexpr (static_bf16(MODE)) {
     v.x = clamp_bf16x2(v.x, lo2, hi2);
     v.y = clamp_bf16x2(v.y, lo2, hi2);
   }
@@ -221,7 +268,7 @@ __device__ __forceinline__ uint32_t quant4(uint2 v, float f, uint32_t lo2, uint3
   uint32_t q[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    q[e] = rint_bits(MODE == kStatic ? __fmul_rn(x[e], f) : __fdiv_rn(x[e], f));
+    q[e] = rint_bits(static_bf16(MODE) ? __fmul_rn(x[e], f) : __fdiv_rn(x[e], f));
   return __byte_perm(__byte_perm(q[0], q[1], 0x0040), __byte_perm(q[2], q[3], 0x0040), 0x5410);
 }
 
@@ -302,7 +349,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
     const __grid_constant__ CUtensorMap tout, const float* __restrict__ ws,
     const float* __restrict__ bias, const float* __restrict__ a_s, void* __restrict__ out, int M,
-    int N, int K, int stages, int direct) {
+    int N, int K, int stages, int direct, int hw, const float* __restrict__ gamma,
+    const bf16* __restrict__ resid) {
   using C = Cfg<MODE, BN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = vfm::smem_u32(smem_raw);
@@ -361,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
   const int r0 = 64 * wg + 16 * warp + g;  // tile row of this thread's first accumulator row
   float inv = 0.f, as_val = 0.f;
   uint32_t lo2 = 0, hi2 = 0;
-  if constexpr (MODE == kStatic) {
+  if constexpr (static_bf16(MODE)) {
     as_val = *a_s;
     inv = __fdiv_rn(1.f, fmaxf(as_val, 1e-8f));
     hi2 = clamp_bound(inv) * 0x10001u;
@@ -435,7 +483,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
         const int j = c * C::kChunkN8 + jj;
         const int col = col0 + 8 * jj + 2 * t;
         float w0 = 0.f, w1 = 0.f, b0 = 0.f, b1 = 0.f;
-        if constexpr (MODE != kRaw) {
+        if constexpr (MODE != kRaw && MODE != kGeluQ) {
           if (col < N) {
             const float2 wv = *reinterpret_cast<const float2*>(ws + col);
             w0 = wv.x;
@@ -446,7 +494,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
               b1 = bv.y;
             }
           }
-          if constexpr (MODE == kStatic || MODE == kStaticQ) {
+          if constexpr (MODE == kStatic || MODE == kStaticQ || MODE == kStaticRes) {
             w0 = __fmul_rn(as_val, w0);
             w1 = __fmul_rn(as_val, w1);
           }
@@ -455,7 +503,23 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
         for (int h = 0; h < 2; ++h) {
           const int r = lr + 8 * h;
           const int c0 = acc[4 * j + 2 * h], c1 = acc[4 * j + 2 * h + 1];
-          if constexpr (MODE == kRaw) {
+          if constexpr (MODE == kGeluQ) {
+            // The image of this row (rows past M read the last image's; TMA
+            // does not store them), its scale and bias at these columns.
+            float2 ev = make_float2(0.f, 0.f), bv = ev;
+            if (col < N) {
+              const size_t o = (size_t)(min(mrow + r, M - 1) / hw) * N + col;
+              ev = *reinterpret_cast<const float2*>(ws + o);
+              bv = *reinterpret_cast<const float2*>(bias + o);
+            }
+            const float y0 = gelu_erf(__fadd_rn(__fmul_rn(__int2float_rn(c0), ev.x), bv.x));
+            const float y1 = gelu_erf(__fadd_rn(__fmul_rn(__int2float_rn(c1), ev.y), bv.y));
+            const int byte = 16 * jj + 4 * t;
+            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                             buf + r * 128 + ((((byte >> 4) ^ g) << 4) | (byte & 15))),
+                         "r"(vfm::pack_bf16(y0, y1))
+                         : "memory");
+          } else if constexpr (MODE == kRaw) {
             const int byte = 8 * jj + 2 * t;
             const uint32_t v = (static_cast<uint32_t>(c0 >> 8) & 0xffu) |
                                ((static_cast<uint32_t>(c1 >> 8) & 0xffu) << 8);
@@ -476,6 +540,19 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(
             if (bias != nullptr) {
               y0 = __fadd_rn(y0, b0);
               y1 = __fadd_rn(y1, b1);
+            }
+            if constexpr (MODE == kStaticRes) {
+              // The layer scale, then the residual (rows past M and columns
+              // past N are not stored).
+              float2 gv = make_float2(0.f, 0.f), xv = gv;
+              const int m = mrow + r;
+              if (col < N && m < M) {
+                gv = *reinterpret_cast<const float2*>(gamma + col);
+                xv = vfm::unpack_bf16(
+                    *reinterpret_cast<const uint32_t*>(resid + (size_t)m * N + col));
+              }
+              y0 = __fadd_rn(xv.x, __fmul_rn(y0, gv.x));
+              y1 = __fadd_rn(xv.y, __fmul_rn(y1, gv.y));
             }
             const int byte = 16 * jj + 4 * t;
             asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
@@ -519,20 +596,25 @@ __global__ void __launch_bounds__(256) row_scale_kernel(const bf16* __restrict__
 }
 
 // The pre-pass of a K off 32: x (M, K) bf16 quantized into xq (M, Kp) int8
-// with zeros past K, as the GEMM's register quantize would (DYN: s[m] =
-// max(amax / 127, 1e-8), written out, q = rint(x / s); static: q =
-// clip(rint(x * (1 / max(as, 1e-8))), -127, 127)). One warp a row, eight
-// columns a lane and step; `pairs`: x and its rows 4-byte aligned (K even),
-// so two values a load.
-template <bool DYN>
+// with zeros past K, as the GEMM's register quantize would (kQDyn: s[m] =
+// max(amax / 127, 1e-8), written out, q = rint(x / s); kQStatic: q =
+// clip(rint(x * (1 / max(as, 1e-8))), -127, 127)); kQScaled (the gelu mode,
+// at any K): u = x * scale[m / hw, k] in fp32, then kQStatic's q of u. One
+// warp a row, eight columns a lane and step; `pairs`: x and its rows 4-byte
+// aligned (K even), so two values a load.
+template <int Q>
 __global__ void __launch_bounds__(256) quantize_rows_kernel(const bf16* __restrict__ x,
                                                             int8_t* __restrict__ xq,
                                                             float* __restrict__ s,
                                                             const float* __restrict__ a_s, int M,
-                                                            int K, int Kp, int pairs) {
+                                                            int K, int Kp, int pairs,
+                                                            const float* __restrict__ scale,
+                                                            int hw) {
+  constexpr bool DYN = Q == kQDyn;
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
   const bf16* src = x + (size_t)row * K;
+  const float* srow = Q == kQScaled ? scale + (size_t)(row / hw) * K : nullptr;
   auto load8 = [&](int c, float (&v)[8]) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -568,6 +650,11 @@ __global__ void __launch_bounds__(256) quantize_rows_kernel(const bf16* __restri
   for (int c = lane * 8; c < Kp; c += 32 * 8) {
     float v[8];
     load8(c, v);
+    if constexpr (Q == kQScaled) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c + e < K) v[e] = __fmul_rn(v[e], srow[c + e]);
+    }
     uint32_t q[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -600,15 +687,24 @@ cudaError_t map_2d(CUtensorMap* map, const void* ptr, int es, int rows, int cols
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The decoder modes' extra operands: the gelu pre-pass's per-image channel
+// scale (images of hw rows), the residual epilogue's layer scale and input.
+struct Extra {
+  const float* scale = nullptr;
+  int hw = 1;
+  const float* gamma = nullptr;
+  const void* resid = nullptr;
+};
+
 template <int MODE, int BN>
 cudaError_t launch(const Plan& p, const void* x, void* xq, const void* wq, const float* ws,
                    const float* bias, const float* a_s, void* out, int M, int N, int K, int ldo,
-                   cudaStream_t stream) {
+                   const Extra& ex, cudaStream_t stream) {
   using C = Cfg<MODE, BN>;
   static std::atomic<unsigned long long> attr_done{0};
   cudaError_t err = vfm::smem_limit_once(int8_gemm_kernel<MODE, BN>, kSmemMax, attr_done);
   if (err != cudaSuccess) return err;
-  constexpr bool kQ = MODE == kDynamicQ || MODE == kStaticQ;
+  constexpr bool kQ = MODE == kDynamicQ || MODE == kStaticQ || MODE == kGeluQ;
   const int es_in = C::kBf16A ? 2 : 1, es_out = MODE == kRaw ? 1 : 2;
   const int kg = kQ ? padded_k(K) : K;  // the GEMM's K
   CUtensorMap tx, tw, tout;
@@ -622,9 +718,10 @@ cudaError_t launch(const Plan& p, const void* x, void* xq, const void* wq, const
   }
   if constexpr (kQ) {
     const int pairs = K % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-    quantize_rows_kernel<MODE == kDynamicQ><<<cdiv(M, 8), 256, 0, stream>>>(
+    constexpr int kQuant = MODE == kDynamicQ ? kQDyn : MODE == kGeluQ ? kQScaled : kQStatic;
+    quantize_rows_kernel<kQuant><<<cdiv(M, 8), 256, 0, stream>>>(
         static_cast<const bf16*>(x), static_cast<int8_t*>(xq), const_cast<float*>(a_s), a_s, M,
-        K, kg, pairs);
+        K, kg, pairs, ex.scale, ex.hw);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   } else if (MODE == kDynamic) {
     row_scale_kernel<<<cdiv(M, 8), 256, 0, stream>>>(static_cast<const bf16*>(x),
@@ -632,17 +729,18 @@ cudaError_t launch(const Plan& p, const void* x, void* xq, const void* wq, const
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   int8_gemm_kernel<MODE, BN><<<p.ctas, kThreads, p.smem, stream>>>(
-      tx, tw, tout, ws, bias, a_s, out, M, N, kg, p.stages, p.direct);
+      tx, tw, tout, ws, bias, a_s, out, M, N, kg, p.stages, p.direct, ex.hw, ex.gamma,
+      static_cast<const bf16*>(ex.resid));
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t dispatch(const Plan& p, const void* x, void* xq, const void* wq, const float* ws,
                      const float* bias, const float* a_s, void* out, int M, int N, int K, int ldo,
-                     cudaStream_t stream) {
+                     const Extra& ex, cudaStream_t stream) {
   if (p.bn == 256)
-    return launch<MODE, 256>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, stream);
-  return launch<MODE, 128>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, stream);
+    return launch<MODE, 256>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, ex, stream);
+  return launch<MODE, 128>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, ex, stream);
 }
 
 bool valid(int M, int N, int K, int mode) {
@@ -651,19 +749,23 @@ bool valid(int M, int N, int K, int mode) {
 }
 
 int run(const void* x, void* xq, const void* wq, const float* ws, const float* bias,
-        const float* a_s, void* out, int M, int N, int K, int ldo, int mode, void* stream) {
+        const float* a_s, void* out, int M, int N, int K, int ldo, int mode, void* stream,
+        const Extra& ex = Extra()) {
   const Plan p = make_plan(M, N, K, mode, vfm::sm_count());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m = p.pad ? mode + kDynamicQ : mode;
+  const int m = gemm_mode(mode, p.pad);
 #define VFM_INT8_CASE(M_)                                                                 \
   case M_:                                                                                \
-    return (int)dispatch<M_>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, s);
+    return (int)dispatch<M_>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, ex, s);
   switch (m) {
     VFM_INT8_CASE(kDynamic)
     VFM_INT8_CASE(kStatic)
     VFM_INT8_CASE(kDynamicQ)
     VFM_INT8_CASE(kStaticQ)
-    default: return (int)dispatch<kRaw>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, s);
+    VFM_INT8_CASE(kGeluQ)
+    VFM_INT8_CASE(kStaticRes)
+    default:
+      return (int)dispatch<kRaw>(p, x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, ex, s);
   }
 #undef VFM_INT8_CASE
 }
@@ -703,17 +805,62 @@ extern "C" int vfm_int8_matmul_tails(const void* x, void* xq, const void* wq, co
   return run(x, xq, wq, ws, bias, a_s, out, M, N, K, ldo, mode, stream);
 }
 
+// The decoder's int8 MLP expand (mode gelu): x (M, K) bf16, 2-byte aligned,
+// rows grouped by image (M = images x hw); A (images, K) fp32, the per-image
+// channel scale; a_s () fp32, the static scale s (the pre-pass quantizes
+// x * A with 1 / max(s, 1e-8) into xq (M, Kp) int8 scratch, Kp = 32 ceil(K /
+// 32)); wq (N, Kp) int8, zero past K; e and b (images, N) fp32, the
+// epilogue's scale and bias; out (M, N) bf16, N a multiple of 8. xq, wq and
+// out 16-byte aligned.
+extern "C" int vfm_int8_matmul_gelu(const void* x, const float* A, void* xq, const void* wq,
+                                    const float* e, const float* b, const float* a_s, void* out,
+                                    int M, int N, int K, int hw, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || hw <= 0 || M % hw || x == nullptr ||
+      A == nullptr || e == nullptr || b == nullptr || a_s == nullptr ||
+      (reinterpret_cast<uintptr_t>(x) & 1) ||
+      ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wq) |
+        reinterpret_cast<uintptr_t>(out)) & 15) ||
+      ((reinterpret_cast<uintptr_t>(e) | reinterpret_cast<uintptr_t>(b)) & 7))
+    return (int)cudaErrorInvalidValue;
+  Extra ex;
+  ex.scale = A;
+  ex.hw = hw;
+  return run(x, xq, wq, e, b, a_s, out, M, N, K, N, kGeluQ, stream, ex);
+}
+
+// The decoder's int8 MLP contract (mode residual): out = x_in + ((acc * (as
+// * ws)) + b) * g with x quantized by the static scale as, as K6 static
+// does. x (M, K) bf16, wq (N, K) int8, out and x_in (M, N) bf16, all 16-byte
+// aligned (x_in 4-byte); ws, b, g (N,) fp32, a_s () fp32. K % 32 == 0, N %
+// 8 == 0.
+extern "C" int vfm_int8_matmul_residual(const void* x, const void* wq, const float* ws,
+                                        const float* b, const float* a_s, const float* g,
+                                        const void* x_in, void* out, int M, int N, int K,
+                                        void* stream) {
+  if (!valid(M, N, K, kStatic) || ws == nullptr || b == nullptr || a_s == nullptr ||
+      g == nullptr || x_in == nullptr ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
+        reinterpret_cast<uintptr_t>(out)) & 15) || (reinterpret_cast<uintptr_t>(x_in) & 3))
+    return (int)cudaErrorInvalidValue;
+  Extra ex;
+  ex.gamma = g;
+  ex.resid = x_in;
+  return run(x, nullptr, wq, ws, b, a_s, out, M, N, K, N, kStaticRes, stream, ex);
+}
+
 // The launch plan for (M, N, K, mode) on a card with `sms` SMs: plan[0] rows
 // per tile, [1] columns per tile, [2] K values per stage, [3] ring stages,
 // [4] consumer warpgroups, [5] CTAs, [6] threads per CTA, [7] dynamic shared
 // memory in bytes, [8] 1 if the epilogue stores directly (else TMA), [9] 1 if
 // a pre-pass runs (dynamic mode's row scales, or the quantize of a K off
-// 32), [10] tiles, [11] 1 if x is quantized to K' = 32 ceil(K / 32) columns
-// by the pre-pass (K6 at a K off 32). K10 takes K % 32 == 0 and N % 8 == 0,
-// K6 any K and N.
+// 32 or of the gelu mode), [10] tiles, [11] 1 if x is quantized to K' = 32
+// ceil(K / 32) columns by the pre-pass (K6 at a K off 32, the gelu mode).
+// Modes 0-2, 5 (gelu) and 6 (residual); K10 and the residual mode take
+// K % 32 == 0 and N % 8 == 0, K6 any K and N.
 extern "C" int vfm_int8_matmul_plan(int M, int N, int K, int mode, int sms, int* plan) {
-  if (M <= 0 || N <= 0 || K <= 0 || mode < kDynamic || mode > kRaw ||
-      (mode == kRaw && !valid(M, N, K, mode)) || sms <= 0)
+  if (M <= 0 || N <= 0 || K <= 0 || mode < kDynamic ||
+      (mode > kRaw && mode != kGeluQ && mode != kStaticRes) ||
+      ((mode == kRaw || mode == kStaticRes) && !valid(M, N, K, kRaw)) || sms <= 0)
     return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(M, N, K, mode, sms);
   const int vals[12] = {kBM, p.bn, kBK, p.stages, kConsumers, p.ctas, kThreads,

@@ -14,7 +14,17 @@ place of SigLIP2 (DINOV2_G); the other families build the same way, by
 `int8_serving_generator` is the flagship with the README's fast serving
 configuration: the frozen tower mirrored to int8 and calibrated (W8A8
 through K6), the decoder in bf16 (vfm_vae_tpu/ops/quantized.py:
-enable_int8_tower).
+enable_int8_tower); with `decoder_mlp=True` also the decoder's ConvNeXt
+MLPs at maps of at most 64 x 64 in static int8 on K6 (off by default, as
+in the JAX package).
+
+Every other unconditional decoder the JAX Generator builds is the flagship
+with overrides: `flagship_generator(dev, use_convnext=False)` (the legacy
+StyleGAN-T layers, `synthesis_kwargs` with `architecture` "orig" for the
+orig images), `concat_z_block_indices=[1, 2, 3]` (the Fourier first block),
+`use_gaussian_blur=False`, `use_multiscale_output=False`,
+`concat_z_mapped_dims=[]` (the unshuffle widths); DECODER_VARIANTS names
+those that chip_smoke.py drives.
 
 The discrete (VQ) tokenizer is the flagship with DISCRETE_G's overrides,
 `flagship_generator(dev, **DISCRETE_G)`; its stage-0 loss takes
@@ -45,13 +55,14 @@ from .models.adapter import PlainAttention
 from .models.convnext import ConvNeXtSynthesisLayer, SeparableUpsampleWithFixedBlur
 from .models.discriminator import ProjectedDiscriminator
 from .models.generator import Generator, trainable_names, trainable_path_predicates
+from .models.synthesis import SynthesisLayer
 from .models.gigagan import SelfAttention
 from .models.vit import MultiHeadSelfAttention
 from .ops.attention import flash_eligible_shape
 from .ops.kernels.dwconv_stats import dwconv_stats_eligible, pallas_dw_eligible
 from .ops.kernels.fused_mlp import pipeline_enabled
 from .ops.kernels.group_stats import moments_eligible
-from .ops.quantized import enable_int8_tower, int8_vfm_enabled
+from .ops.quantized import enable_int8_decoder, enable_int8_tower, int8_vfm_enabled
 from .train.loss import TotalLoss
 from .train.lpips import build_lpips
 from .train.train_step import Trainer
@@ -134,6 +145,19 @@ DISCRETE_LOSS = dict(compression_mode="discrete", vq_loss_weight=1.0, entropy_lo
 # (configs/vfm_vae_details.yaml:28 names the family) at the scale that gives
 # the flagship's 32 x 32 grid (256 x 1.75 / 14).
 DINOV2_G = dict(vfm_name="dinov2-large", scale_factor=1.75)
+# The unconditional decoders beside the flagship's, as overrides of
+# FLAGSHIP_KWARGS: the legacy StyleGAN-T layers with skip and orig images,
+# the Fourier first block (block 0 without concat-z; concat_z_mapped_dims
+# is indexed by block index), the blur off, the skip images in place of the
+# multiscale ones.
+DECODER_VARIANTS = {
+    "legacy_skip": dict(use_convnext=False),
+    "legacy_orig": dict(use_convnext=False, synthesis_kwargs=dict(
+        FLAGSHIP_KWARGS["synthesis_kwargs"], architecture="orig")),
+    "fourier": dict(concat_z_block_indices=[1, 2, 3]),
+    "blur_off": dict(use_gaussian_blur=False),
+    "multiscale_off": dict(use_multiscale_output=False),
+}
 # G_opt_kwargs / D_opt_kwargs (lines 98-108) and the EMA (lines 116-117).
 STAGE0_OPT = dict(lr=1e-4, betas=(0.0, 0.99), eps=1e-8)
 STAGE0_EMA = dict(ema_kimg=160.0, ema_rampup=0.05)
@@ -164,14 +188,17 @@ def dinov2_generator(device, dtype: torch.dtype = torch.bfloat16,
 
 def int8_serving_generator(device, calib_imgs: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
                            generator: Optional[torch.Generator] = None,
-                           **overrides) -> Generator:
+                           decoder_mlp: bool = False, **overrides) -> Generator:
     """flagship_generator + enable_int8_tower: the tower's Linears mirrored to
     int8 and their static activation scales calibrated on `calib_imgs`
     ((B, H, W, 3) in [0, 1] on `device`); sets VFM_VAE_INT8_VFM=1 for the
-    process. The flash switches (VFM_VAE_USE_PALLAS_FLASH,
+    process. decoder_mlp=True (enable_int8_decoder): the decoder's ConvNeXt
+    MLPs mirrored too, their scales calibrated through a decode of the
+    serving encode of `calib_imgs`; the layers at maps of at most 64 x 64
+    then run both MLP products on K6. The flash switches (VFM_VAE_USE_PALLAS_FLASH,
     VFM_VAE_ADAPTER_ATTN) are the caller's."""
     G = flagship_generator(device, dtype, generator, **overrides)
-    enable_int8_tower(G, calib_imgs)
+    (enable_int8_decoder if decoder_mlp else enable_int8_tower)(G, calib_imgs)
     return G
 
 
@@ -236,11 +263,20 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
       which train (the tower is frozen);
     - K7 ("dwconv_noise_stats", with the layer's legacy noise) and K8
       ("depthwise_conv2d_same") at every ConvNeXt dwconv their rules
-      admit. No model path runs them: they are the dwconv probe's sites."""
+      admit. No model path runs them: they are the dwconv probe's sites;
+    - at a ConvNeXt layer whose calibrated int8 mirrors the int8 gate admits
+      (enable_int8_decoder; maps of at most 64 x 64), K6's gelu mode
+      ("int8_matmul_gelu", M = H * W rows an image, K = C, N = 4C) and its
+      residual mode ("int8_matmul_residual", M = H * W, K = 4C, N = C) in
+      place of K1;
+    - the legacy StyleGAN-T layers, the first block's upsample and the
+      upsamples with the blur off or even taps run no kernel but K5 (at
+      their GroupNorms, where its rule admits them)."""
     names = ("fused_convnext_mlp", "fused_convnext_mlp_pipelined", "fused_upsample_blur",
              "flash_attention_nullkv", "channel_moments", "flash_attention_nonull",
              "flash_attention_nonull_bwd_dkv", "flash_attention_nonull_bwd_dq", "int8_matmul",
-             "dwconv_noise_stats", "depthwise_conv2d_same")
+             "dwconv_noise_stats", "depthwise_conv2d_same", "int8_matmul_gelu",
+             "int8_matmul_residual")
     sites: Dict[str, Dict[tuple, int]] = {name: {} for name in names}
 
     def add(name, key):
@@ -257,7 +293,11 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
         for m in block.modules():
             if isinstance(m, ConvNeXtSynthesisLayer):
                 C, k = m.norm.weight.shape[0], m.dwconv.weight.shape[-1]
-                add(mlp, (("C", C), ("H", res)))
+                if m.int8_route(torch.empty((1, res, res, C), device="meta")):
+                    add("int8_matmul_gelu", (("M", res * res), ("K", C), ("N", 4 * C)))
+                    add("int8_matmul_residual", (("M", res * res), ("K", 4 * C), ("N", C)))
+                else:
+                    add(mlp, (("C", C), ("H", res)))
                 stats(C, res)
                 x = torch.empty((1, res, res, C), device="meta")
                 key = (("C", C), ("H", res), ("k", k), ("noise", m.legacy))
@@ -265,13 +305,16 @@ def kernel_sites(G: Generator, hw: int) -> Dict[str, List[dict]]:
                     add("dwconv_noise_stats", key)
                 if pallas_dw_eligible(x, k, 1, k // 2, C, C, C):
                     add("depthwise_conv2d_same", key[:3])
-            elif isinstance(m, SeparableUpsampleWithFixedBlur) and m.pre_normalize:
+            elif isinstance(m, SeparableUpsampleWithFixedBlur) and m.fused:
                 ci = m.depthwise.weight.shape[0]
                 co = m.pointwise.weight.shape[0] // 4
                 add("fused_upsample_blur",
                     (("Ci", ci), ("Co", co), ("H", res // 2), ("taps", tuple(m.taps))))
                 stats(ci, res // 2)
             elif isinstance(m, SeparableUpsampleWithFixedBlur):
+                # GroupNorm before (a plain upsample) or after the shuffle.
+                stats(m.norm.weight.shape[0], res // 2 if m.pre_normalize else res, block.dtype)
+            elif isinstance(m, SynthesisLayer) and m.residual:
                 stats(m.norm.weight.shape[0], res, block.dtype)
             elif isinstance(m, SelfAttention):
                 add("flash_attention_nullkv", (("T", res * res), ("N", m.heads), ("D", m.dim_head)))

@@ -4,8 +4,9 @@
 into a flat reference-layout torch state_dict of numpy arrays: the inverse
 of vfm_vae_tpu/models/convert.py:convert_generator for the port's modules
 (the vision tower of any family, the adapter in either compression mode
-and either form, with the VQ codebooks and usage EMAs, mapping, ConvNeXt
-synthesis). `tower_state_dict_from_jax` does it for a tower alone, by the
+and either form, with the VQ codebooks and usage EMAs, mapping, the
+synthesis network: ConvNeXt or legacy StyleGAN-T layers, SynthesisInput's
+weights and buffers). `tower_state_dict_from_jax` does it for a tower alone, by the
 tables TOWER_MODULES and TOWER_LEAVES; the port's names there are each
 tower's checkpoint layout, which the JAX package's importers read
 (convert_dinov2, convert_mae, eva.convert_eva_timm, HF Qwen2.5-VL's
@@ -29,8 +30,10 @@ checkpoints that store vectors as (1, C, 1, 1) load as well.
 
 The JAX package keeps the int8 tower mirror in a separate 'int8' collection
 (ops/quantized.py: wq (K, N) int8, ws (N,), as () at each tower Linear's
-path); `state_dict_from_jax(..., int8=)` carries it into the port's Linear
-buffers (wq transposed to (N, K)) for every family, `load_state_dict_numpy`
+path), and the decoder's static-int8 MLP mirrors beside it (w1q, ws1, w2q,
+ws2, as_u, as_h at each ConvNeXt layer's path under 'synthesis');
+`state_dict_from_jax(..., int8=)` carries both into the port's buffers (wq,
+w1q and w2q transposed to (N, K)) for every family, `load_state_dict_numpy`
 creates those buffers, and `int8_collection_from_state_dict` is the
 inverse.
 
@@ -47,6 +50,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from .convnext import INT8_BUFFERS
 
 SD = Dict[str, np.ndarray]
 
@@ -231,12 +236,25 @@ def tower_state_dict_from_jax(params: Mapping[str, Any], buffers: Optional[Mappi
 
 
 def int8_collection_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
-    """The port's int8 buffers (wq, ws, as of the tower's Linears) -> the JAX
-    'int8' collection {'vfm_encoder': {'tower': ...}}, numpy leaves."""
+    """The port's int8 buffers (wq, ws, as of the tower's Linears; the
+    decoder MLP mirrors of the ConvNeXt layers) -> the JAX 'int8'
+    collection {'vfm_encoder': {'tower': ...}, 'synthesis': ...}, numpy
+    leaves."""
+    out: Dict[str, Any] = {}
+    synthesis: Dict[str, Any] = {}
+    for key, val in sd.items():
+        m = re.match(r"synthesis\.blocks\.(\d+)\.(conv0|convs1\.(\d+))\.(\w+)$", key)
+        if m and m.group(4) in DECODER_INT8_LEAVES:
+            layer = "conv0" if m.group(2) == "conv0" else f"convs1_{m.group(3)}"
+            leaf = m.group(4)
+            synthesis.setdefault(f"b{m.group(1)}", {}).setdefault(layer, {})[leaf] = (
+                _t(val) if leaf in ("w1q", "w2q") else _arr(val))
+    if synthesis:
+        out["synthesis"] = synthesis
     prefix = _TOWER if any(k.startswith(_TOWER) for k in sd) else _TOWERS
     names = [k[len(prefix):] for k in sd if k.startswith(prefix)]
     if not names:
-        return {}
+        return out
     family = tower_family(names)
     tower: Dict[str, Any] = {}
     for key, val in sd.items():
@@ -247,7 +265,9 @@ def int8_collection_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
         for k in _rename(TOWER_MODULES[family], name[len(prefix):], reverse=True).split("/"):
             node = node.setdefault(k, {})
         node[leaf] = _t(val) if leaf == "wq" else _arr(val)
-    return {"vfm_encoder": {"tower": tower}} if tower else {}
+    if tower:
+        out["vfm_encoder"] = {"tower": tower}
+    return out
 
 
 def _attn_projection(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
@@ -335,16 +355,48 @@ def _self_attention_block(sd: SD, p: Mapping[str, Any], prefix: str) -> None:
         sd[prefix + f"ff.{theirs}.bias"] = _arr(f[ours]["bias"])
 
 
+def _synthesis_layer(sd: SD, p: Mapping[str, Any], b: Mapping[str, Any], prefix: str) -> None:
+    """A legacy StyleGAN-T SynthesisLayer (the reference's names, as
+    tests/test_legacy_synthesis.py reads them)."""
+    _style_split(sd, p["affine"], prefix + "affine.")
+    sd[prefix + "weight"] = _conv(p["weight"])
+    sd[prefix + "bias"] = _arr(p["bias"])
+    if "noise_strength" in p:
+        sd[prefix + "noise_strength"] = _arr(p["noise_strength"])
+        sd[prefix + "noise_const"] = _arr(b["noise_const"])
+    if "norm" in p:
+        _norm(sd, p["norm"], prefix + "norm.")
+        sd[prefix + "gamma"] = _arr(p["gamma"])
+
+
+def _synthesis_input(sd: SD, p: Mapping[str, Any], b: Mapping[str, Any], prefix: str) -> None:
+    """SynthesisInput (vfm_vae_tpu/models/convert.py:553 convert_synthesis_input)."""
+    sd[prefix + "weight"] = _arr(p["weight"])
+    _linear(sd, p["affine"], prefix + "affine.")
+    for name in ("freqs", "phases", "transform"):
+        sd[prefix + name] = _arr(b[name])
+
+
+def _decoder_layer(sd: SD, p: Mapping[str, Any], b: Mapping[str, Any], prefix: str,
+                   legacy: bool) -> None:
+    if "dwconv" in p:
+        _convnext_layer(sd, p, b, prefix, legacy)
+    else:
+        _synthesis_layer(sd, p, b, prefix)
+
+
 def _synthesis_block(sd: SD, p: Mapping[str, Any], b: Mapping[str, Any], prefix: str,
                      legacy: bool) -> None:
+    if "input" in p:
+        _synthesis_input(sd, p["input"], b["input"], prefix + "input.")
     if "seperate_upsample_conv" in p:
         _separable_upsample(sd, p["seperate_upsample_conv"], prefix + "seperate_upsample_conv.")
     if "conv0" in p:
-        _convnext_layer(sd, p["conv0"], b.get("conv0", {}), prefix + "conv0.", legacy)
+        _decoder_layer(sd, p["conv0"], b.get("conv0", {}), prefix + "conv0.", legacy)
     i = 0
     while f"convs1_{i}" in p:
-        _convnext_layer(sd, p[f"convs1_{i}"], b.get(f"convs1_{i}", {}),
-                        prefix + f"convs1.{i}.", legacy)
+        _decoder_layer(sd, p[f"convs1_{i}"], b.get(f"convs1_{i}", {}),
+                       prefix + f"convs1.{i}.", legacy)
         i += 1
     if "torgb" in p:
         t = p["torgb"]
@@ -400,6 +452,30 @@ def state_dict_from_jax(params: Mapping[str, Any], buffers: Mapping[str, Any], *
         if idx in concat:
             kind = "down" if res < 2 * z_res else ("same" if res == 2 * z_res else "up")
             _zconv(sd, syn_p[f"z_convs_{idx}"], f"synthesis.z_convs.{idx}.", kind)
+    sd.update(decoder_int8_state_dict_from_jax((int8 or {}).get("synthesis", {})))
+    return sd
+
+
+# The decoder's static-int8 ConvNeXt MLP mirrors (vfm_vae_tpu/ops/quantized.py:
+# prequantize_decoder_mlps, calibrate_int8_act_scales) at each layer's path:
+# w1q (C, 4C) and w2q (4C, C) int8 in JAX, (4C, C) and (C, 4C) in the port.
+DECODER_INT8_LEAVES = INT8_BUFFERS
+
+
+def _synthesis_layer_name(path) -> str:
+    """JAX synthesis module path (b{idx}, conv0 | convs1_{i}) -> the port's name."""
+    blk, layer = path
+    layer = "conv0" if layer == "conv0" else "convs1." + layer[len("convs1_"):]
+    return f"synthesis.blocks.{blk[1:]}.{layer}"
+
+
+def decoder_int8_state_dict_from_jax(tree: Mapping[str, Any]) -> SD:
+    """The 'synthesis' subtree of the JAX 'int8' collection -> the port's
+    ConvNeXt-layer buffers (w1q and w2q transposed to (N, K))."""
+    sd: SD = {}
+    for path, v in _leaves(tree):
+        name = _synthesis_layer_name(path[:-1]) + "." + path[-1]
+        sd[name] = _t(v) if path[-1] in ("w1q", "w2q") else _arr(v)
     return sd
 
 
@@ -533,15 +609,16 @@ def geometry_from_kwargs(kwargs: Mapping[str, Any]) -> Dict[str, Any]:
 def load_state_dict_numpy(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
     """Copy a numpy state_dict into `module` (strict on keys), onto each
     parameter's own device and dtype; equal-size arrays are reshaped. int8
-    mirror entries (wq, ws, as) create their buffers on the Linear."""
+    mirror entries (wq, ws, as of a Linear; w1q, ws1, w2q, ws2, as_u, as_h
+    of a ConvNeXt layer) create their buffers on the module."""
     for key, src in sd.items():
         prefix, _, leaf = key.rpartition(".")
-        if leaf in INT8_LEAVES:
-            lin = module.get_submodule(prefix)
-            if getattr(lin, leaf) is None:
-                dtype = torch.int8 if leaf == "wq" else torch.float32
-                setattr(lin, leaf, torch.empty(np.shape(src), dtype=dtype,
-                                               device=lin.weight.device))
+        if leaf in INT8_LEAVES + DECODER_INT8_LEAVES:
+            sub = module.get_submodule(prefix)
+            if getattr(sub, leaf) is None:
+                dtype = torch.int8 if leaf in ("wq", "w1q", "w2q") else torch.float32
+                setattr(sub, leaf, torch.empty(np.shape(src), dtype=dtype,
+                                               device=next(sub.parameters()).device))
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     unexpected = sorted(set(sd) - set(own))

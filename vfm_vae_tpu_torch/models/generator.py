@@ -1,19 +1,24 @@
 """VFM-VAE Generator (port of vfm_vae_tpu/models/generator.py): the
 tokenizer API `encode` and `decode` (frozen VFM encoder of any family ->
 LDM adapter -> z, the diagonal Gaussian's or the multi-codebook VQ's; z ->
-adapter decompress -> mapping -> ConvNeXt synthesis), the training `forward` with
+adapter decompress -> mapping -> synthesis), the training `forward` with
 equivariance regularisation and the adapter's VF, KL, VQ and entropy
 losses, and the train_mode freezing rules (`trainable_path_predicates`,
 `trainable_names`).
 
-Constructor keywords are the JAX Generator's. The port covers the
-unconditional, ConvNeXt, multiscale configuration with either compression
-mode (continuous, discrete), either adapter form (attnproj, conv) and
-either concat-z injector (unshuffle, pooling); other values raise.
-Keywords that no computation of the port's Generator reads (num_fp16_res,
-conv_clamp, label_dim; use_adaptive_vf_loss, which the loss reads;
+Constructor keywords are the JAX Generator's. The port builds every
+unconditional Generator the JAX package builds: either compression mode
+(continuous, discrete), either adapter form (attnproj, conv), either
+concat-z injector (unshuffle, pooling), the ConvNeXt or the legacy
+StyleGAN-T decoder (`use_convnext`), the Fourier first block (block 0
+without concat-z), multiscale or skip/orig images (`use_multiscale_output`,
+`synthesis_kwargs["architecture"]`), the blur on or off, and the unshuffle
+default concat widths (`concat_z_mapped_dims` empty). Conditioning
+(`conditional`, labels other than cls2text, `use_cross_attn`) raises by
+name. Keywords that no computation of the port's Generator reads
+(num_fp16_res, label_dim; use_adaptive_vf_loss, which the loss reads;
 train_mode and the equivariance settings, which the training loop reads)
-are accepted.
+are accepted; `conv_clamp` clamps the legacy layers, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from .synthesis import MappingNetwork, SynthesisNetwork, pooled_z, remat_policy
 from .vfm import VFMEncoder
 
 # Keywords of the flagship and tiny configurations that no port computation reads.
-_TRAINING_ONLY = {"num_fp16_res", "conv_clamp", "label_dim", "use_adaptive_vf_loss",
+_TRAINING_ONLY = {"num_fp16_res", "label_dim", "use_adaptive_vf_loss",
                   "train_mode", "use_equivariance_regularization",
                   "equivariance_regularization_p_prior",
                   "equivariance_regularization_p_prior_scale"}
@@ -72,6 +77,7 @@ class Generator(Module):
         img_resolution: int = 256,
         img_channels: int = 3,
         num_blocks: int = 6,
+        conv_clamp: Optional[float] = 256,
         legacy: bool = False,
         synthesis_kwargs: Optional[Dict[str, Any]] = None,
         use_vf_loss: bool = False,
@@ -98,11 +104,7 @@ class Generator(Module):
             raise TypeError(f"Generator: unknown keywords {sorted(unknown)}")
         unsupported = {
             "conditional": conditional, "label_type": label_type != "cls2text",
-            "use_cross_attn": use_cross_attn, "use_convnext": not use_convnext,
-            "use_multiscale_output": not use_multiscale_output,
-            "use_gaussian_blur": not use_gaussian_blur,
-            "concat_z_mapped_dims": bool(concat_z_block_indices) and not concat_z_mapped_dims,
-            "architecture": (synthesis_kwargs or {}).get("architecture", "skip") != "skip",
+            "use_cross_attn": use_cross_attn,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -152,6 +154,9 @@ class Generator(Module):
             activation_for_concat_z=activation_for_concat_z,
             attn_block_indices=attn_block_indices if use_self_attn else (),
             attn_depths=attn_depths if use_self_attn else (),
+            use_convnext=use_convnext, use_multiscale_output=use_multiscale_output,
+            use_gaussian_blur=use_gaussian_blur,
+            architecture=sk.get("architecture", "skip"), conv_clamp=conv_clamp,
             add_additional_convnext=add_additional_convnext,
             legacy=legacy, dtype=dtype, remat=self.remat, device=device,
         )

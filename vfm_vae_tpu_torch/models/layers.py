@@ -253,8 +253,10 @@ class Conv2d(Module):
 # Inside an int8_linear_scope() every Linear runs as a W8A8 int8 matmul
 # (ops/quantized.py): the frozen tower at serving time (VFM_VAE_INT8_VFM=1).
 # Under int8_calibration_scope() the mirrored Linears also record the absmax
-# of their input into the dict the scope yields. Eager and single-threaded,
-# as the JAX package's trace-time flags are.
+# of their input into the dict the scope yields, and the ConvNeXt layers
+# with decoder MLP mirrors record the absmax of their two quantized
+# activations (models/convnext.py). Eager and single-threaded, as the JAX
+# package's trace-time flags are.
 _INT8_SCOPE = [False]
 _INT8_CALIB: list = [None]
 
@@ -269,13 +271,24 @@ def int8_linear_scope(enabled: bool = True):
         _INT8_SCOPE[0] = prev
 
 
+def record_amax(key, x: torch.Tensor) -> None:
+    """Fold max |x| (fp32) into the calibration dict under `key`: a
+    Linear, whose scale is `as`, or (module, scale name)."""
+    calib = _INT8_CALIB[0]
+    amax = x.detach().abs().amax().float()
+    calib[key] = amax if key not in calib else torch.maximum(calib[key], amax)
+
+
 @contextlib.contextmanager
-def int8_calibration_scope():
-    """int8 scope on, and each mirrored Linear's input absmax (fp32, the max
-    over its calls) collected into the yielded {Linear: tensor} dict."""
+def int8_calibration_scope(linears: bool = True):
+    """int8 scope on (unless `linears` is False: then the Linears keep the
+    scope they have), and each mirrored Linear's input absmax (fp32, the max
+    over its calls) collected into the yielded dict, keyed by the Linear;
+    the ConvNeXt layers' two activation absmaxes under (layer, "as_u") and
+    (layer, "as_h")."""
     prev_s, prev_c = _INT8_SCOPE[0], _INT8_CALIB[0]
-    amax: Dict["Linear", torch.Tensor] = {}
-    _INT8_SCOPE[0], _INT8_CALIB[0] = True, amax
+    amax: Dict[object, torch.Tensor] = {}
+    _INT8_SCOPE[0], _INT8_CALIB[0] = True if linears else prev_s, amax
     try:
         yield amax
     finally:
@@ -322,10 +335,8 @@ class Linear(Module):
         wq, ws, a_s = self._buffers["wq"], self._buffers["ws"], self._buffers["as"]
         if wq is None:
             return int8_linear(x, self.weight, self.bias, plain=self.plain)
-        calib = _INT8_CALIB[0]
-        if calib is not None:
-            amax = x.detach().abs().amax().float()
-            calib[self] = amax if self not in calib else torch.maximum(calib[self], amax)
+        if _INT8_CALIB[0] is not None:
+            record_amax(self, x)
         elif a_s is not None:
             return int8_linear_prequant_static(x, wq, ws, a_s, self.bias, plain=self.plain)
         return int8_linear_prequant(x, wq, ws, self.bias, plain=self.plain)

@@ -1,12 +1,16 @@
-"""Style-modulated pointwise convolution (port of
-vfm_vae_tpu/models/modulated.py: `demod_coefs` and
-`ModulatedPointwiseConv2DLayer`). The port computes the modulated product
-through the folded K1 kernel (models/convnext.py), so the layer here only
-owns its parameters."""
+"""Style-modulated convolutions (port of vfm_vae_tpu/models/modulated.py:
+`demod_coefs`, `modulated_conv2d` and `ModulatedPointwiseConv2DLayer`).
+The ConvNeXt layer computes its modulated pointwise product through the
+folded K1 kernel (models/convnext.py), so that layer here only owns its
+parameters; the legacy StyleGAN-T layers (models/synthesis.py) run
+`modulated_conv2d`: scale the input channels by the style, one shared
+convolution, scale the output channels by the demodulation coefficients
+(no per-sample weights)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .layers import Module, param, trunc_normal_
 
@@ -17,6 +21,18 @@ def demod_coefs(weight: torch.Tensor, styles: torch.Tensor, eps: float = 1e-8) -
     w = weight.float()
     w2 = w.square().reshape(w.shape[0], w.shape[1], -1).sum(-1)  # (O, I)
     return torch.rsqrt(styles.float().square() @ w2.t() + eps)
+
+
+def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor,
+                     padding: int = 0, demodulate: bool = True) -> torch.Tensor:
+    """x (B, H, W, I) NHWC, weight (O, I, kh, kw), styles (B, I): the JAX
+    order (modulated.py:44), in x's dtype."""
+    B = x.shape[0]
+    xs = x * styles.reshape(B, 1, 1, -1).to(x.dtype)
+    y = F.conv2d(xs.permute(0, 3, 1, 2), weight.to(x.dtype), padding=padding).permute(0, 2, 3, 1)
+    if demodulate:
+        y = y * demod_coefs(weight, styles).reshape(B, 1, 1, -1).to(y.dtype)
+    return y
 
 
 class ModulatedPointwiseConv2DLayer(Module):

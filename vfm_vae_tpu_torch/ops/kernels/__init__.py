@@ -11,7 +11,8 @@ without a null token) is differentiable through its Function, whose
 backward does the same with K4's two backward wrappers. K5 (GroupNorm
 moments) runs where its opt-in rule admits a map, and K9 (K1 pipelined) in
 K1's place under VFM_VAE_MLP_PIPELINE=1. K6 (fused
-int8 quantize + GEMM) and K10 (its bare int8 GEMM) are forward only. K7 and
+int8 quantize + GEMM; its gelu and residual modes, `int8_matmul_gelu` and
+`int8_matmul_residual`, are the decoder's static-int8 MLP) and K10 (its bare int8 GEMM) are forward only. K7 and
 K8 (depthwise conv + statistics, and without) are not on a model path: they
 run only as the dwconv probe.
 """
@@ -50,18 +51,28 @@ from .fused_mlp import (
 )
 from .fused_upsample import FusedUpsampleBlur, fused_upsample_blur, fused_upsample_blur_reference
 from .group_stats import ChannelMoments, channel_moments, channel_moments_reference
-from .int8_matmul import int8_matmul, int8_matmul_raw, int8_matmul_reference
+from .int8_matmul import (
+    int8_matmul,
+    int8_matmul_gelu,
+    int8_matmul_gelu_reference,
+    int8_matmul_raw,
+    int8_matmul_reference,
+    int8_matmul_residual,
+    int8_matmul_residual_reference,
+)
 
 # The decoder's forward kernels (one per decode site), K3's backward
 # kernels, the encoder's kernels with K4's backward, the opt-in decoder
-# kernels (K5, K9), and the dwconv probe's (K7, K8).
+# kernels (K5, K9), the dwconv probe's (K7, K8), and K6's gelu and residual
+# modes (the int8 decoder's MLP).
 WRAPPERS = (fused_convnext_mlp, fused_upsample_blur, flash_attention_nullkv)
 BACKWARD_WRAPPERS = (flash_attention_nullkv_bwd_dkv, flash_attention_nullkv_bwd_dq)
 NONULL_BACKWARD_WRAPPERS = (flash_attention_nonull_bwd_dkv, flash_attention_nonull_bwd_dq)
 ALL_WRAPPERS = (WRAPPERS + BACKWARD_WRAPPERS
                 + (flash_attention_nonull, int8_matmul, int8_matmul_raw)
                 + NONULL_BACKWARD_WRAPPERS + (channel_moments, fused_convnext_mlp_pipelined)
-                + (dwconv_noise_stats, depthwise_conv2d_same))
+                + (dwconv_noise_stats, depthwise_conv2d_same)
+                + (int8_matmul_gelu, int8_matmul_residual))
 
 
 def reset_launch_counts() -> None:
@@ -111,8 +122,12 @@ __all__ = [
     "fused_upsample_blur",
     "fused_upsample_blur_reference",
     "int8_matmul",
+    "int8_matmul_gelu",
+    "int8_matmul_gelu_reference",
     "int8_matmul_raw",
     "int8_matmul_reference",
+    "int8_matmul_residual",
+    "int8_matmul_residual_reference",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "vfm_flash_bwd_f32_plan": [_I, _I, _I, _I, _I, _I, _P],
     "vfm_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vfm_int8_matmul_tails": [_P] * 7 + [_I] * 5 + [_P],
+    "vfm_int8_matmul_gelu": [_P] * 8 + [_I] * 4 + [_P],
+    "vfm_int8_matmul_residual": [_P] * 8 + [_I] * 3 + [_P],
     "vfm_int8_matmul_plan": [_I, _I, _I, _I, _I, _P],
     "vfm_channel_moments": [_P] * 4 + [_I] * 5 + [_P],
     "vfm_dwconv_plan": [_I] * 7 + [_P],

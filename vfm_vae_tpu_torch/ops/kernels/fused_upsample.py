@@ -42,11 +42,13 @@ from ._build import call_on, check_all, library, refuse_grad
 
 def edge_blur(s: torch.Tensor, taps: Sequence[float], dim: int) -> torch.Tensor:
     """fp32 edge-replicate 1-D blur of an NHWC map along `dim` (1 or 2),
-    taps accumulated in order, rounded back to the input dtype."""
+    taps accumulated in order, rounded back to the input dtype. An even
+    number of taps pads one more on the far side, as the JAX package's
+    plain form does (convnext.py:302-305)."""
     kb = len(taps)
-    hb = kb // 2
+    hb = (kb - 1) // 2
     n = s.shape[dim]
-    idx = torch.clamp(torch.arange(-hb, n + hb, device=s.device), 0, n - 1)
+    idx = torch.clamp(torch.arange(-hb, n + kb - 1 - hb, device=s.device), 0, n - 1)
     sp = s.index_select(dim, idx).float()
     acc = torch.zeros(s.shape, dtype=torch.float32, device=s.device)
     for j in range(kb):

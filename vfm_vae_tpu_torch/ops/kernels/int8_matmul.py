@@ -2,7 +2,13 @@
 bias, for the frozen tower's Linears at serving time (every family; a K off
 32, such as EVA-02's 2730 and Qwen2.5-VL's 3420, through a quantize
 pre-pass into int8 rows of a multiple of 32, an N off 8 through rows of a
-multiple of 8 that TMA stores); K10: the bare
+multiple of 8 that TMA stores) and for the decoder's static-int8 ConvNeXt
+MLP (the "gelu" mode, `int8_matmul_gelu`: a pre-pass quantizes x times the
+per-image GroupNorm and style fold, the epilogue applies a per-image scale
+and bias with rows grouped by image, then the erf GELU, into bf16; the
+"residual" mode, `int8_matmul_residual`: the MLP's second product, K6's
+static mode with the layer scale and the residual added in fp32 before
+the one rounding to bf16); K10: the bare
 int8 x int8 -> int32 GEMM with `>> 8` narrowing, K6's ceiling probe.
 
 K6 replaces the TPU kernel vfm_vae_tpu/ops/pallas/int8_matmul.py:
@@ -36,7 +42,8 @@ import torch
 
 from ._build import call_on, check_all, library, refuse_grad
 
-MODES = {"dynamic": 0, "static": 1, "raw": 2}
+MODES = {"dynamic": 0, "static": 1, "raw": 2, "gelu": 5, "residual": 6}
+SQRT1_2 = 0.7071067811865476
 
 
 def _full(like: torch.Tensor, value: float) -> torch.Tensor:
@@ -60,6 +67,42 @@ def quantize_activations(x: torch.Tensor, mode: str, a_s: Optional[torch.Tensor]
         inv = _full(a_s, 1.0) / torch.clamp_min(a_s, 1e-8)
         return torch.clamp(torch.round(xf * inv), -127.0, 127.0), a_s
     raise ValueError(f"quantize_activations: mode {mode!r}")
+
+
+def quantize_scaled(x: torch.Tensor, A: torch.Tensor, s: torch.Tensor, hw: int) -> torch.Tensor:
+    """The gelu mode's pre-pass: x (M, K) with rows grouped by image (row //
+    hw), A (images, K) fp32, s () fp32 -> the integer-valued fp32 codes
+    clip(round((x * A[img]) * (1 / max(s, 1e-8))), -127, 127): the product
+    in fp32 first (vfm_vae_tpu/models/convnext.py:186-188)."""
+    u = x.float() * A.float().repeat_interleave(hw, dim=0)
+    return quantize_activations(u, "static", s)[0]
+
+
+def gelu_erf(v: torch.Tensor) -> torch.Tensor:
+    """The exact GELU in the kernel's order: (v * 0.5) * (1 + erf(v * sqrt(1/2)))."""
+    return (v * _full(v, 0.5)) * (_full(v, 1.0) + torch.erf(v * _full(v, SQRT1_2)))
+
+
+def int8_matmul_gelu_reference(x, A, wq, e, b, s):
+    """Plain twin of the gelu mode: x (B, H, W, K) float, A (B, K), wq (N, K)
+    int8, e and b (B, N), s () -> (h (B, H, W, N) bf16, the codes (B, H, W,
+    K) int8): h = gelu_erf(acc * e[img] + b[img]) (convnext.py:195-199)."""
+    B, H, W, K = x.shape
+    hw = H * W
+    uq = quantize_scaled(x.reshape(-1, K), A, s, hw)
+    acc = _int_sum(uq, wq).float()
+    v = acc * e.float().repeat_interleave(hw, dim=0) + b.float().repeat_interleave(hw, dim=0)
+    h = gelu_erf(v).to(torch.bfloat16)
+    return h.reshape(B, H, W, -1), uq.to(torch.int8).reshape(B, H, W, K)
+
+
+def int8_matmul_residual_reference(x, wq, ws, b, a_s, g, x_in):
+    """Plain twin of the residual mode: x_in + ((acc * (as * ws)) + b) * g
+    in fp32 (convnext.py:207-211), in x_in's dtype."""
+    xq, s = quantize_activations(x, "static", a_s)
+    y = _int_sum(xq.reshape(-1, x.shape[-1]), wq).float() * (s * ws.float()) + b.float()
+    y = y.reshape(*x_in.shape) * g.float()
+    return (x_in.float() + y).to(x_in.dtype)
 
 
 def _int_sum(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -125,14 +168,16 @@ def plan(M: int, N: int, K: int, mode: str, sms: int = 132) -> dict:
     the epilogue buffers; min(tiles, SMs) persistent CTAs; the epilogue
     stores by TMA unless raw int8 rows of N bytes are not 16-byte aligned
     (bf16 rows of an N off 8 are stored into rows of a multiple of 8);
-    dynamic mode runs the row-scale pre-pass first; K6 at a K off 32 runs
-    the quantize pre-pass instead (`pad`: x into int8 of padded_k(K)
-    columns) and reads int8 stages. K10 takes K % 32 == 0 and N % 8 == 0
-    only."""
+    dynamic mode runs the row-scale pre-pass first; K6 at a K off 32, and
+    the gelu mode at every K, run the quantize pre-pass instead (`pad`: x
+    into int8 of padded_k(K) columns) and read int8 stages. K10 takes
+    K % 32 == 0 and N % 8 == 0 only, as does the residual mode (static's
+    plan)."""
     raw = mode == "raw"
-    if M <= 0 or N <= 0 or K <= 0 or mode not in MODES or (raw and (K % 32 or N % 8)):
+    if (M <= 0 or N <= 0 or K <= 0 or mode not in MODES
+            or (mode in ("raw", "residual") and (K % 32 or N % 8))):
         raise ValueError(f"int8_matmul plan: M={M}, K={K}, N={N}, mode={mode!r}")
-    pad = not raw and K % 32 != 0
+    pad = mode == "gelu" or (not raw and K % 32 != 0)
     m_tiles = -(-M // TILE_M)
     bn = 256 if 2 * m_tiles * -(-N // 256) >= sms else 128
     stage = TILE_M * STAGE_K * (1 if raw or pad else 2) + bn * STAGE_K
@@ -217,5 +262,75 @@ def int8_matmul_raw(xq, wq, *, plain: bool = False):
     return y
 
 
+def int8_matmul_gelu(x, A, wq, e, b, s, *, plain: bool = False, return_codes: bool = False):
+    """The expand product of the decoder's static-int8 ConvNeXt MLP (K6's
+    gelu mode): h = gelu_erf(acc * e[img] + b[img]) in bf16, where acc =
+    q(x * A[img]) @ wq^T in int32 and q quantizes with the static scale s.
+    x (B, H, W, K) (bf16 on the card, contiguous), A (B, K) fp32, wq (N, K)
+    int8 (N a multiple of 8), e and b (B, N) fp32, s () fp32 -> (B, H, W, N)
+    bf16; with return_codes also the int8 codes (B, H, W, K) of the
+    pre-pass. CPU tensors (or plain=True) run the twin; CUDA tensors launch
+    the pre-pass and the GEMM in one library call, or raise."""
+    if plain or x.device.type == "cpu":
+        h, uq = int8_matmul_gelu_reference(x, A, wq, e, b, s)
+        return (h, uq) if return_codes else h
+    refuse_grad("int8_matmul_gelu", x, A, e, b, s)
+    B, H, W, K = x.shape
+    M, N, dev = B * H * W, wq.shape[0], x.device
+    if N % 8:
+        raise ValueError(f"int8_matmul_gelu: N={N} is not a multiple of 8")
+    check_all("int8_matmul_gelu", torch.bfloat16, dev, [(x, "x", (B, H, W, K))])
+    check_all("int8_matmul_gelu", torch.int8, dev, [(wq, "wq", (N, K))])
+    check_all("int8_matmul_gelu", torch.float32, dev,
+              [(A, "A", (B, K)), (e, "e", (B, N)), (b, "b", (B, N)), (s, "s", ())])
+    wp = pad_weight(wq)
+    if wp.data_ptr() % 16:
+        raise ValueError("int8_matmul_gelu: wq must be 16-byte aligned")
+    xq = torch.empty((B, H, W, padded_k(K)), dtype=torch.int8, device=dev)
+    out = torch.empty((B, H, W, N), dtype=torch.bfloat16, device=dev)
+    lib = library()
+    err = call_on(dev, lib.lib.vfm_int8_matmul_gelu, x.data_ptr(), A.data_ptr(), xq.data_ptr(),
+                  wp.data_ptr(), e.data_ptr(), b.data_ptr(), s.data_ptr(), out.data_ptr(),
+                  M, N, K, H * W)
+    lib.check(err, "int8_matmul_gelu")
+    int8_matmul_gelu.launches += 1
+    return (out, xq[..., :K]) if return_codes else out
+
+
+def int8_matmul_residual(x, wq, ws, b, a_s, g, x_in, *, plain: bool = False):
+    """The contract product of the decoder's static-int8 ConvNeXt MLP (K6's
+    residual mode): x_in + ((q(x) @ wq^T) * (a_s * ws) + b) * g, x quantized
+    with the static scale a_s as K6 static does. x (..., K) (bf16 on the
+    card), wq (N, K) int8, ws, b, g (N,) and a_s () fp32, x_in (..., N) ->
+    x_in's shape and dtype. CPU tensors (or plain=True) run the twin; CUDA
+    tensors launch the kernel (K % 32 == 0, N % 8 == 0, all contiguous), or
+    raise."""
+    if plain or x.device.type == "cpu":
+        return int8_matmul_residual_reference(x, wq, ws, b, a_s, g, x_in)
+    refuse_grad("int8_matmul_residual", x, ws, b, a_s, g, x_in)
+    K, N, dev = x.shape[-1], wq.shape[0], x.device
+    M = x.numel() // K
+    if K % 32 or N % 8:
+        raise ValueError(f"int8_matmul_residual: K={K}, N={N}; the kernel needs K a multiple "
+                         "of 32 and N a multiple of 8")
+    check_all("int8_matmul_residual", torch.bfloat16, dev,
+              [(x, "x", x.shape), (x_in, "x_in", (*x.shape[:-1], N))])
+    check_all("int8_matmul_residual", torch.int8, dev, [(wq, "wq", (N, K))])
+    check_all("int8_matmul_residual", torch.float32, dev,
+              [(ws, "ws", (N,)), (b, "b", (N,)), (g, "g", (N,)), (a_s, "a_s", ())])
+    if x.data_ptr() % 16 or wq.data_ptr() % 16 or x_in.data_ptr() % 4:
+        raise ValueError("int8_matmul_residual: x and wq must be 16-byte aligned")
+    out = torch.empty_like(x_in)
+    lib = library()
+    err = call_on(dev, lib.lib.vfm_int8_matmul_residual, x.data_ptr(), wq.data_ptr(),
+                  ws.data_ptr(), b.data_ptr(), a_s.data_ptr(), g.data_ptr(), x_in.data_ptr(),
+                  out.data_ptr(), M, N, K)
+    lib.check(err, "int8_matmul_residual")
+    int8_matmul_residual.launches += 1
+    return out
+
+
 int8_matmul.launches = 0
 int8_matmul_raw.launches = 0
+int8_matmul_gelu.launches = 0
+int8_matmul_residual.launches = 0

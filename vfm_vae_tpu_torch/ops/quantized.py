@@ -1,5 +1,5 @@
-"""W8A8 int8 serving of the frozen tower, of any family (port of
-vfm_vae_tpu/ops/quantized.py).
+"""W8A8 int8 serving of the frozen tower, of any family, and of the
+decoder's ConvNeXt MLPs (port of vfm_vae_tpu/ops/quantized.py).
 
 Weights are quantized once per output channel (`prequantize_linears`,
 stored on each tower Linear as the buffers `wq` int8 (out, in) and `ws` fp32
@@ -7,16 +7,21 @@ stored on each tower Linear as the buffers `wq` int8 (out, in) and `ws` fp32
 (dynamic, `int8_linear_prequant`) or with one calibrated per-tensor scale
 `as` (static, `int8_linear_prequant_static`, after
 `calibrate_int8_act_scales`). `enable_int8_tower` sets up the serving
-configuration the JAX package documents: int8 tower, bf16 decode. Every
-int8 product runs through K6 (ops/kernels/int8_matmul.py) on the card and
-through its plain twin on the CPU, with the JAX package's arithmetic order,
-so the quantized activations are bit-identical to it.
+configuration the JAX package documents: int8 tower, bf16 decode. The
+decoder's static-int8 MLP mirrors each ConvNeXt layer's two pointwise
+weights (`prequantize_decoder_mlps`: w1q, ws1, w2q, ws2 on the layer) and
+calibrates the two activation scales as_u and as_h on the serving path's
+own activations; it is off unless asked for
+(`add_int8_collection(..., decoder_mlp_keys=("synthesis",))`, or
+`enable_int8_decoder`), as in the JAX package. Every int8 product runs
+through K6 (ops/kernels/int8_matmul.py) on the card and through its plain
+twin on the CPU, with the JAX package's arithmetic order, so the quantized
+activations are bit-identical to it.
 
 Environment: VFM_VAE_INT8_VFM="1" turns the tower's int8 path on (the JAX
 rule: that literal only). VFM_VAE_PALLAS_INT8, which picks the JAX package's
 Pallas kernel over its XLA form, is not read: K6 serves every int8 Linear
-on the card. The decoder's static-int8 MLP (`prequantize_decoder_mlps`) is
-not ported.
+on the card.
 """
 
 from __future__ import annotations
@@ -75,26 +80,50 @@ def prequantize_linears(module: torch.nn.Module) -> int:
     return len(lins)
 
 
-def add_int8_collection(G):
-    """Mirror the frozen tower's Linears to int8 (the JAX function's default
-    keys); returns G."""
+@torch.no_grad()
+def prequantize_decoder_mlps(module: torch.nn.Module) -> int:
+    """Give every ConvNeXt layer under `module` the int8 mirrors of its MLP
+    pair (quantized.py:222): w1q, ws1 from pwconv1's (4C, C) weight and
+    w2q, ws2 from pwconv2's (C, 4C), per output channel as
+    `quantize_weight` does. Only the MLP products are mirrored. Returns
+    how many layers."""
+    from ..models.convnext import ConvNeXtSynthesisLayer
+
+    layers = [m for m in module.modules() if isinstance(m, ConvNeXtSynthesisLayer)]
+    for m in layers:
+        m.w1q, m.ws1 = quantize_weight(m.pwconv1.weight[:, :, 0, 0])
+        m.w2q, m.ws2 = quantize_weight(m.pwconv2.weight[:, :, 0, 0])
+    return len(layers)
+
+
+def add_int8_collection(G, decoder_mlp_keys=()):
+    """Mirror the frozen tower's Linears (the JAX function's default keys)
+    and, for `decoder_mlp_keys` (such as ("synthesis",)), the ConvNeXt MLP
+    pairs under those submodules to int8 (quantized.py:253); returns G."""
     prequantize_linears(G.vfm_encoder)
+    for k in decoder_mlp_keys:
+        prequantize_decoder_mlps(getattr(G, k))
     return G
 
 
 @torch.no_grad()
-def calibrate_int8_act_scales(fn: Callable, *args) -> int:
+def calibrate_int8_act_scales(fn: Callable, *args, linears: bool = True) -> int:
     """Run fn(*args) under the calibration scope: every mirrored
     Linear it reaches records the absmax of its input (the max over repeated
     calls) and then runs the dynamic int8 path, so later layers see serving
-    numerics. Each such Linear then gets `as` = amax / 127 in fp32. Returns
-    how many Linears were calibrated."""
+    numerics; every mirrored ConvNeXt layer at a map the int8 gate admits
+    runs its fp32 MLP and records max |u| and max |h|. Each then gets its
+    scales, amax / 127 in fp32: `as` on a Linear, `as_u` and `as_h` on a
+    ConvNeXt layer (quantized.py:143-170). linears=False leaves the Linears
+    out of the int8 scope (the ConvNeXt layers alone record). Returns how
+    many scales were calibrated."""
     from ..models.layers import int8_calibration_scope
 
-    with int8_calibration_scope() as amax:
+    with int8_calibration_scope(linears) as amax:
         fn(*args)
-    for lin, a in amax.items():
-        setattr(lin, "as", a / _full(a, 127.0))
+    for key, a in amax.items():
+        module, name = key if isinstance(key, tuple) else (key, "as")
+        setattr(module, name, a / _full(a, 127.0))
     return len(amax)
 
 
@@ -110,3 +139,18 @@ def enable_int8_tower(G, sample_imgs: torch.Tensor) -> int:
     os.environ["VFM_VAE_INT8_VFM"] = "1"
     add_int8_collection(G)
     return calibrate_int8_act_scales(G.vfm_encoder.encode_image, sample_imgs)
+
+
+def enable_int8_decoder(G, sample_imgs: torch.Tensor) -> int:
+    """The full int8 serving configuration: the tower as enable_int8_tower
+    sets it up, then the decoder's ConvNeXt MLPs mirrored to int8 and their
+    scales calibrated through a decode of the serving encode of
+    `sample_imgs` (the int8 tower on its static scales, the fp32 adapter
+    outside the int8 scope, as it serves), so the scales see the serving
+    numerics. The JAX package's tools/bench_int8.py calibrates both in one
+    scope, where the adapter's Linears, which have no mirror, quantize per
+    call; K6 takes bf16 activations, and the adapter is fp32. Returns how
+    many scales were calibrated."""
+    n = enable_int8_tower(G, sample_imgs)
+    prequantize_decoder_mlps(G.synthesis)
+    return n + calibrate_int8_act_scales(G.decode, G.encode(sample_imgs), linears=False)
